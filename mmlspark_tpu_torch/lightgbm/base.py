@@ -1,0 +1,234 @@
+"""Shared LightGBM-style estimator machinery: param surface + train flow.
+
+The port's counterpart of ``mmlspark_tpu/lightgbm/base.py``: the same param
+names and defaults (``LightGBMParams.scala``), plus ``device``. Params that
+select a path the port has not taken over raise ``NotImplementedError`` when
+set away from their defaults, instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+
+from mmlspark_tpu_torch.core.params import (
+    HasFeaturesCol,
+    HasLabelCol,
+    HasPredictionCol,
+    HasWeightCol,
+    Param,
+    Params,
+    ge,
+    gt,
+    in_range,
+    one_of,
+    to_bool,
+    to_float,
+    to_int,
+    to_list_int,
+    to_list_str,
+    to_str,
+)
+from mmlspark_tpu_torch.core.pipeline import Estimator, Model
+from mmlspark_tpu_torch.data.table import Table
+from mmlspark_tpu_torch.lightgbm.binning import bin_dataset
+from mmlspark_tpu_torch.lightgbm.booster import Booster
+from mmlspark_tpu_torch.lightgbm.train import TrainOptions, TrainResult, train
+
+
+class LightGBMParams(HasFeaturesCol, HasLabelCol, HasPredictionCol, HasWeightCol, Params):
+    """The shared knob surface (LightGBMParams.scala)."""
+
+    numIterations = Param("Number of boosting iterations", default=100, converter=to_int, validator=gt(0))
+    learningRate = Param("Shrinkage rate", default=0.1, converter=to_float, validator=gt(0))
+    numLeaves = Param("Max leaves per tree", default=31, converter=to_int, validator=gt(1))
+    maxDepth = Param("Max tree depth (-1 = derive from numLeaves)", default=-1, converter=to_int)
+    maxBin = Param("Max number of feature bins", default=255, converter=to_int, validator=gt(1))
+    binSampleCount = Param(
+        "Rows sampled when computing histogram bin edges (bin_construct_sample_cnt)",
+        default=200000, converter=to_int, validator=gt(0),
+    )
+    maxBinByFeature = Param("Per-feature max-bin override (empty = maxBin everywhere)",
+                            default=[], converter=to_list_int)
+    slotNames = Param("Feature slot names (overrides the generated f0..fN)",
+                      default=[], converter=to_list_str)
+    baggingFraction = Param("Row subsample fraction", default=1.0, converter=to_float, validator=in_range(0, 1))
+    posBaggingFraction = Param("Positive-class bagging fraction (binary; 1.0 = off)",
+                               default=1.0, converter=to_float, validator=in_range(0, 1))
+    negBaggingFraction = Param("Negative-class bagging fraction (binary; 1.0 = off)",
+                               default=1.0, converter=to_float, validator=in_range(0, 1))
+    baggingFreq = Param("Resample bagging mask every k iterations (0=off)", default=0, converter=to_int, validator=ge(0))
+    baggingSeed = Param("Bagging seed", default=3, converter=to_int)
+    featureFraction = Param("Feature subsample fraction per tree", default=1.0, converter=to_float, validator=in_range(0, 1))
+    lambdaL1 = Param("L1 regularization", default=0.0, converter=to_float, validator=ge(0))
+    lambdaL2 = Param("L2 regularization", default=0.0, converter=to_float, validator=ge(0))
+    minSumHessianInLeaf = Param("Minimum hessian sum per leaf", default=1e-3, converter=to_float, validator=ge(0))
+    minDataInLeaf = Param("Minimum rows per leaf", default=20, converter=to_int, validator=ge(0))
+    minGainToSplit = Param("Minimum gain to split", default=0.0, converter=to_float, validator=ge(0))
+    maxDeltaStep = Param("Max leaf output magnitude (0=off)", default=0.0, converter=to_float, validator=ge(0))
+    boostingType = Param("gbdt, rf, dart, or goss", default="gbdt", converter=to_str,
+                         validator=one_of("gbdt", "rf", "dart", "goss"))
+    earlyStoppingRound = Param("Stop after k rounds without improvement (0=off)", default=0, converter=to_int, validator=ge(0))
+    improvementTolerance = Param("Minimal delta counted as improvement", default=0.0, converter=to_float, validator=ge(0))
+    metric = Param("Eval metric name ('' = objective default)", default="", converter=to_str)
+    parallelism = Param("data_parallel, voting_parallel, or serial", default="data_parallel",
+                        converter=to_str, validator=one_of("data_parallel", "voting_parallel", "serial"))
+    topK = Param("Top features for voting parallel", default=20, converter=to_int, validator=gt(0))
+    topRate = Param("GOSS: kept fraction of large-gradient rows", default=0.2, converter=to_float, validator=in_range(0, 1))
+    otherRate = Param("GOSS: sampled fraction of remaining rows", default=0.1, converter=to_float, validator=in_range(0, 1))
+    dropRate = Param("DART: per-tree dropout probability", default=0.1, converter=to_float, validator=in_range(0, 1))
+    growthPolicy = Param("leafwise (best-first) or depthwise", default="leafwise", converter=to_str,
+                         validator=one_of("leafwise", "depthwise"))
+    leafBatch = Param("Frontier leaves split per histogram pass under leafwise growth "
+                      "(1 = exact sequential best-first)", default=8, converter=to_int, validator=gt(0))
+    leafBatchRatio = Param("Only batch leaves whose gain >= ratio * pass-best (0 = off)",
+                           default=0.0, converter=to_float, validator=in_range(0, 1))
+    useQuantizedGrad = Param("Gradient-quantization training", default=False, converter=to_bool)
+    featureBundling = Param("Exclusive Feature Bundling", default=False, converter=to_bool)
+    maxConflictRate = Param("EFB conflict budget", default=0.0, converter=to_float, validator=in_range(0, 1))
+    categoricalSlotIndexes = Param("Feature indexes treated as categorical", default=[], converter=to_list_int)
+    categoricalSlotNames = Param("Feature names treated as categorical", default=[], converter=to_list_str)
+    maxCatThreshold = Param("Max categories in a categorical split's left set", default=32, converter=to_int, validator=gt(0))
+    catSmooth = Param("Smoothing for the categorical g/h bin ordering", default=10.0, converter=to_float, validator=ge(0))
+    catL2 = Param("Extra L2 applied to categorical split gains", default=10.0, converter=to_float, validator=ge(0))
+    maxCatToOnehot = Param("One-vs-rest categorical search up to this many categories",
+                           default=4, converter=to_int, validator=gt(0))
+    minDataPerGroup = Param("Minimal rows a category needs in the sorted-set search",
+                            default=100, converter=to_int, validator=gt(0))
+    boostFromAverage = Param("Start boosting from the label average init score (false = from 0)",
+                             default=True, converter=to_bool)
+    isProvideTrainingMetric = Param("Record the train-set metric each iteration", default=False, converter=to_bool)
+    numBatches = Param("Split training into sequential batches (0=off)", default=0, converter=to_int, validator=ge(0))
+    modelString = Param("Warm-start booster string", default="", converter=to_str)
+    verbosity = Param("Verbosity", default=-1, converter=to_int)
+    seed = Param("Master seed", default=0, converter=to_int)
+    featuresShapCol = Param("Output column for SHAP values ('' = off)", default="", converter=to_str)
+    leafPredictionCol = Param("Output column for leaf indices ('' = off)", default="", converter=to_str)
+    useSingleDatasetMode = Param("Accepted for API parity", default=True, converter=to_bool)
+    numTasks = Param("Override number of mesh shards (0 = all devices)", default=0, converter=to_int, validator=ge(0))
+    numExecutors = Param("Partitioned binning executors (0 = inline)", default=0, converter=to_int, validator=ge(0))
+    numProcesses = Param("Process-parallel fit (0/1 = in-process)", default=0, converter=to_int, validator=ge(0))
+    device = Param("Torch device the fit and predict run on: 'cuda' (default) or 'cpu'",
+                   default="cuda", converter=to_str)
+
+    #: Params of paths the port has not taken over, with the values it takes.
+    _PORTED_VALUES = {
+        "maxBinByFeature": ([],), "featureBundling": (False,),
+        "categoricalSlotIndexes": ([],), "categoricalSlotNames": ([],),
+        "numBatches": (0,), "modelString": ("",), "featuresShapCol": ("",),
+        "leafPredictionCol": ("",), "numExecutors": (0,), "numProcesses": (0, 1),
+        "parallelism": ("data_parallel", "serial"), "metric": ("",),
+    }
+
+    def _objective_name(self) -> str:
+        raise NotImplementedError
+
+    def _check_ported(self) -> None:
+        for name, ported in self._PORTED_VALUES.items():
+            if self.getOrDefault(name) not in ported:
+                raise NotImplementedError(f"{name}={self.getOrDefault(name)!r} is not ported yet")
+
+    def _make_options(self, num_class: int = 1) -> TrainOptions:
+        return TrainOptions(
+            objective=self._objective_name(),
+            num_iterations=self.getNumIterations(),
+            learning_rate=self.getLearningRate(),
+            num_leaves=self.getNumLeaves(),
+            max_depth=self.getMaxDepth(),
+            max_bin=self.getMaxBin(),
+            lambda_l1=self.getLambdaL1(),
+            lambda_l2=self.getLambdaL2(),
+            min_data_in_leaf=self.getMinDataInLeaf(),
+            min_sum_hessian_in_leaf=self.getMinSumHessianInLeaf(),
+            min_gain_to_split=self.getMinGainToSplit(),
+            bagging_fraction=self.getBaggingFraction(),
+            pos_bagging_fraction=self.getPosBaggingFraction(),
+            neg_bagging_fraction=self.getNegBaggingFraction(),
+            bagging_freq=self.getBaggingFreq(),
+            feature_fraction=self.getFeatureFraction(),
+            max_delta_step=self.getMaxDeltaStep(),
+            num_class=num_class,
+            boosting_type=self.getBoostingType(),
+            early_stopping_round=self.getEarlyStoppingRound(),
+            improvement_tolerance=self.getImprovementTolerance(),
+            seed=self.getSeed(),
+            growth=self.getGrowthPolicy(),
+            leaf_batch=self.getLeafBatch(),
+            leaf_batch_ratio=self.getLeafBatchRatio(),
+            use_quantized_grad=self.getUseQuantizedGrad(),
+            top_k=self.getTopK(),
+            top_rate=self.getTopRate(),
+            other_rate=self.getOtherRate(),
+            drop_rate=self.getDropRate(),
+            max_cat_threshold=self.getMaxCatThreshold(),
+            cat_smooth=self.getCatSmooth(),
+            cat_l2=self.getCatL2(),
+            max_cat_to_onehot=self.getMaxCatToOnehot(),
+            min_data_per_group=self.getMinDataPerGroup(),
+            boost_from_average=self.getBoostFromAverage(),
+            provide_training_metric=self.getIsProvideTrainingMetric(),
+        )
+
+
+def extract_features(table: Table, features_col: str) -> np.ndarray:
+    """Dense (N, F) float64 features of ``table``."""
+    feats = table.column(features_col)
+    if feats.dtype == object:
+        feats = np.stack([np.asarray(row, dtype=np.float64) for row in feats])
+    return np.asarray(feats, dtype=np.float64)
+
+
+class LightGBMBase(LightGBMParams, Estimator):
+    """Shared fit flow: features and labels from the table, host binning,
+    boosting on the device."""
+
+    def _num_classes(self, y: np.ndarray) -> int:
+        return 1
+
+    def _adjust_weights(self, y: np.ndarray, w):
+        return w
+
+    def _fit(self, table: Table) -> "LightGBMModelBase":
+        self._check_ported()
+        X = extract_features(table, self.getFeaturesCol())
+        y = np.asarray(table.column(self.getLabelCol()), dtype=np.float64)
+        w = None
+        if self.isSet("weightCol"):
+            w = np.asarray(table.column(self.getWeightCol()), dtype=np.float64)
+        w = self._adjust_weights(y, w)
+        opts = self._make_options(self._num_classes(y))
+        num_features = X.shape[1]
+        slot_names = self.getSlotNames()
+        if slot_names and len(slot_names) != num_features:
+            raise ValueError(f"slotNames has {len(slot_names)} entries for {num_features} features")
+        feature_names = list(slot_names) or [f"f{i}" for i in range(num_features)]
+        t0 = time.perf_counter()
+        bins, mapper = bin_dataset(X, max_bin=opts.max_bin,
+                                   sample_cnt=self.getBinSampleCount())
+        binning_seconds = time.perf_counter() - t0
+        result = train(bins, y, opts, w=w, mapper=mapper, feature_names=feature_names,
+                       device=self.getDevice())
+        result.stats.binning_seconds = binning_seconds
+        model = self._make_model(result)
+        model.parent = self
+        model.fit_stats = result.stats
+        return model
+
+    def _make_model(self, result: TrainResult) -> "LightGBMModelBase":
+        raise NotImplementedError
+
+
+class LightGBMModelBase(HasFeaturesCol, HasPredictionCol, Model):
+    """Shared model surface: booster access and native-model text."""
+
+    boosterData = Param("Fitted booster state", is_complex=True)
+    device = Param("Torch device predict runs on: 'cuda' (default) or 'cpu'",
+                   default="cuda", converter=to_str)
+
+    @property
+    def booster(self) -> Booster:
+        return Booster.from_dict(self.getBoosterData())
+
+    def get_model_string(self) -> str:
+        return self.booster.model_to_string()

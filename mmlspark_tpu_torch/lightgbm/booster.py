@@ -1,0 +1,253 @@
+"""Booster: the trained forest, with batch predict on the device and serde.
+
+The port's counterpart of ``mmlspark_tpu/lightgbm/booster.py``, with the same
+pointer-based tree layout (per tree, ``M`` node slots; forest arrays stacked
+as (num_trees, M), tree ``i*C + c`` = iteration i, class c):
+
+- ``split_feature``   (T, M) int32   — internal nodes; 0 at leaves/dead slots
+- ``split_threshold`` (T, M) float   — raw-value "go left if NaN or x <= t"
+- ``split_bin``       (T, M) int32   — binned-space threshold
+- ``left_child`` / ``right_child`` (T, M) int32 — slot indices
+- ``is_leaf``         (T, M) bool
+- ``leaf_values``     (T, M) float32 — learning-rate-scaled leaf outputs
+- ``cover``           (T, M) float32 — training rows through the node
+- ``split_gain``      (T, M) float32 — realized gain
+
+:meth:`Booster.raw_margin` routes every row through every tree at once with
+plain torch gathers, ``max_depth`` rounds (the reference predicts through a
+path-matrix product; neither is a kernel). Categorical and linear-tree
+models keep their fields for serde but do not predict here yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from mmlspark_tpu_torch.device import DeviceLike, resolve_device
+
+#: LightGBM's kZeroThreshold: |x| <= this counts as zero (zero_as_missing).
+K_ZERO_THRESHOLD = 1e-35
+
+#: Bytes of routing transients one predict chunk may hold.
+_PREDICT_CHUNK_BYTES = 256 << 20
+
+
+@dataclasses.dataclass
+class Booster:
+    split_feature: np.ndarray  # (T, M) int32
+    split_threshold: np.ndarray  # (T, M) float32 (float64 on imported models)
+    split_bin: np.ndarray  # (T, M) int32
+    left_child: np.ndarray  # (T, M) int32
+    right_child: np.ndarray  # (T, M) int32
+    is_leaf: np.ndarray  # (T, M) bool
+    leaf_values: np.ndarray  # (T, M) float32
+    init_score: np.ndarray  # (C,)
+    num_classes: int  # margin columns C
+    objective: str
+    max_depth: int  # routing steps (>= realized depth of every tree)
+    cover: Optional[np.ndarray] = None  # (T, M) float32
+    split_gain: Optional[np.ndarray] = None  # (T, M) float32
+    best_iteration: int = -1  # -1 = use all
+    feature_names: Optional[list] = None
+    bin_edges: Optional[np.ndarray] = None  # (F, max_bin-1)
+    # (T, M) bool: where a NaN routes at each node (None = always left)
+    nan_left: Optional[np.ndarray] = None
+    # Categorical splits, zero_as_missing and linear leaves: carried for
+    # serde and model text, not predicted by this port yet.
+    cat_nodes: Optional[np.ndarray] = None
+    cat_masks: Optional[np.ndarray] = None
+    cat_values: Optional[Dict[int, np.ndarray]] = None
+    zero_missing: Optional[np.ndarray] = None
+    leaf_const: Optional[np.ndarray] = None
+    leaf_coeff: Optional[np.ndarray] = None
+    leaf_feat: Optional[np.ndarray] = None
+
+    @property
+    def has_categorical(self) -> bool:
+        return self.cat_nodes is not None and bool(np.any(self.cat_nodes))
+
+    @property
+    def has_linear(self) -> bool:
+        return self.leaf_const is not None
+
+    @property
+    def num_trees(self) -> int:
+        return self.split_feature.shape[0]
+
+    @property
+    def num_features(self) -> int:
+        if self.feature_names:
+            return len(self.feature_names)
+        if self.bin_edges is not None:
+            return self.bin_edges.shape[0]
+        internal = (~self.is_leaf) & np.isfinite(self.split_threshold)
+        feats = self.split_feature[internal]
+        return int(feats.max()) + 1 if feats.size else 0
+
+    @property
+    def num_iterations(self) -> int:
+        return self.num_trees // self.num_classes
+
+    def _used_trees(self, num_iteration: Optional[int] = None) -> int:
+        it = num_iteration
+        if it is None:
+            it = self.best_iteration if self.best_iteration > 0 else self.num_iterations
+        return min(it, self.num_iterations) * self.num_classes
+
+    # -- predict -------------------------------------------------------------
+
+    def raw_margin(self, X, num_iteration: Optional[int] = None,
+                   device: DeviceLike = None) -> np.ndarray:
+        """(N, C) raw margins (init_score + sum of tree outputs) of a dense
+        (N, F) batch, routed on ``device`` (CUDA unless ``device='cpu'``)."""
+        if self.has_categorical or self.has_linear:
+            raise NotImplementedError(
+                "categorical and linear-tree boosters do not predict in the "
+                "port yet"
+            )
+        dev = resolve_device(device)
+        X = np.asarray(X)
+        n = X.shape[0]
+        t = self._used_trees(num_iteration)
+        if t == 0:
+            return np.broadcast_to(self.init_score[None, :], (n, self.num_classes)).copy()
+        tables = _tree_tables(self, t, dev)
+        chunk = max(1, _PREDICT_CHUNK_BYTES // (64 * t))
+        init = torch.as_tensor(np.asarray(self.init_score, np.float32), device=dev)
+        outs = []
+        for lo in range(0, max(n, 1), chunk):
+            xd = torch.as_tensor(np.asarray(X[lo : lo + chunk], np.float32), device=dev)
+            leaf = _route_rows(xd, tables, self.max_depth)  # (n, T)
+            contrib = torch.gather(tables["leaf_values"].expand(leaf.shape[0], -1, -1),
+                                   2, leaf[:, :, None])[:, :, 0]
+            rounds = t // self.num_classes
+            m = contrib.reshape(-1, rounds, self.num_classes).sum(dim=1) + init[None, :]
+            outs.append(m.cpu().numpy())
+        if not outs:
+            return np.zeros((0, self.num_classes), np.float32)
+        return np.concatenate(outs, axis=0)
+
+    # -- serde ---------------------------------------------------------------
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "Booster":
+        d = dict(d)
+        for k in ("split_feature", "split_bin", "left_child", "right_child"):
+            d[k] = np.asarray(d[k], dtype=np.int32)
+        for k in ("leaf_values", "init_score"):
+            d[k] = np.asarray(d[k], dtype=np.float32)
+        thr = np.asarray(d["split_threshold"])
+        d["split_threshold"] = thr.astype(
+            np.float64 if thr.dtype == np.float64 else np.float32
+        )
+        d["is_leaf"] = np.asarray(d["is_leaf"], dtype=bool)
+        for k in ("cover", "split_gain"):
+            if d.get(k) is not None:
+                d[k] = np.asarray(d[k], dtype=np.float32)
+        for k in ("nan_left", "cat_nodes", "cat_masks", "zero_missing"):
+            if d.get(k) is not None:
+                d[k] = np.asarray(d[k], dtype=bool)
+        if d.get("bin_edges") is not None:
+            d["bin_edges"] = np.asarray(d["bin_edges"], dtype=np.float64)
+        if d.get("cat_values") is not None:
+            d["cat_values"] = {
+                int(k): np.asarray(v, dtype=np.float64)
+                for k, v in d["cat_values"].items()
+            }
+        for k, dt in (("leaf_const", np.float64), ("leaf_coeff", np.float64),
+                      ("leaf_feat", np.int32)):
+            if d.get(k) is not None:
+                d[k] = np.asarray(d[k], dtype=dt)
+        return Booster(**d)
+
+    def model_to_string(self) -> str:
+        """LightGBM model text (``saveNativeModel``); the init score is
+        folded into the iteration-0 leaf values, as LightGBM's own
+        boost_from_average does."""
+        from mmlspark_tpu_torch.lightgbm.model_text import to_lightgbm_text
+
+        return to_lightgbm_text(self)
+
+    @staticmethod
+    def from_string(s: str) -> "Booster":
+        """Parse LightGBM model text."""
+        from mmlspark_tpu_torch.lightgbm.model_text import from_lightgbm_text
+
+        return from_lightgbm_text(s)
+
+    def feature_importances(self, importance_type: str = "split") -> np.ndarray:
+        """Split-count or total-gain importance per feature."""
+        internal = (~self.is_leaf) & np.isfinite(self.split_threshold)
+        feats = self.split_feature[internal]
+        num_features = self.num_features
+        if importance_type == "gain":
+            if self.split_gain is None:
+                raise ValueError("importance_type='gain' requires split_gain")
+            out = np.zeros(num_features, dtype=np.float64)
+            np.add.at(out, feats.ravel(), self.split_gain[internal].ravel())
+            return out
+        if importance_type != "split":
+            raise ValueError(f"unknown importance_type {importance_type!r}")
+        return np.bincount(feats.ravel(), minlength=num_features).astype(np.float64)
+
+
+def _thr_f32(thr) -> np.ndarray:
+    """f64 thresholds -> the LARGEST f32 value <= each threshold, so that for
+    f32 inputs ``x <= thr_f32`` decides as LightGBM's f64 ``x <= thr``."""
+    thr = np.asarray(thr)
+    if thr.dtype != np.float64:
+        return thr.astype(np.float32)
+    t32 = thr.astype(np.float32)
+    over = t32.astype(np.float64) > thr
+    if over.any():
+        t32 = np.where(over, np.nextafter(t32, np.float32(-np.inf)), t32)
+    return t32
+
+
+def _tree_tables(b: Booster, t: int, dev: torch.device) -> Dict[str, torch.Tensor]:
+    """The first ``t`` trees' node tables on ``dev``, shaped (1, T, M) so
+    they broadcast against an (N, T) node index."""
+    nan_left = b.nan_left if b.nan_left is not None else np.ones_like(b.is_leaf)
+    zero_missing = (
+        b.zero_missing if b.zero_missing is not None else np.zeros_like(b.is_leaf)
+    )
+
+    def put(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a[:t]), dtype=dtype, device=dev)[None]
+
+    return {
+        "feat": put(b.split_feature, torch.int64),
+        "thr": put(_thr_f32(b.split_threshold), torch.float32),
+        "left": put(b.left_child, torch.int64),
+        "right": put(b.right_child, torch.int64),
+        "is_leaf": put(b.is_leaf, torch.bool),
+        "nan_left": put(nan_left, torch.bool),
+        "zero_missing": put(zero_missing, torch.bool),
+        "leaf_values": put(b.leaf_values, torch.float32),
+    }
+
+
+def _route_rows(X: torch.Tensor, tables: Dict[str, torch.Tensor], depth: int) -> torch.Tensor:
+    """(N, T) final leaf slot of every row in every tree: ``depth`` rounds
+    of gathers through the pointer arrays; rows at a leaf stay there."""
+    n = X.shape[0]
+    t = tables["feat"].shape[1]
+    node = torch.zeros((n, t), dtype=torch.int64, device=X.device)
+
+    def at(name):
+        return torch.gather(tables[name].expand(n, -1, -1), 2, node[:, :, None])[:, :, 0]
+
+    for _ in range(depth):
+        x = torch.gather(X, 1, at("feat"))
+        miss = torch.isnan(x) | (at("zero_missing") & (x.abs() <= K_ZERO_THRESHOLD))
+        go_left = torch.where(miss, at("nan_left"), x <= at("thr"))
+        nxt = torch.where(go_left, at("left"), at("right"))
+        node = torch.where(at("is_leaf"), node, nxt)
+    return node

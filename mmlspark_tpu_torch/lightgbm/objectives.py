@@ -1,0 +1,94 @@
+"""Training objectives and evaluation metrics.
+
+The port's copy of ``mmlspark_tpu/lightgbm/objectives.py`` for the binary
+and l2 regression objectives: gradients and hessians in torch on the fit's
+device, init scores and metrics in host numpy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Objective:
+    name: str
+    num_outputs_fn: Callable[[int], int]  # num_classes -> margin columns
+    # (margins (N,C), y (N,), w (N,)) -> grad (N,C), hess (N,C)
+    grad_hess: Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+    # (y, num_classes, w) -> init margin (C,)
+    init_score: Callable[..., np.ndarray]
+    default_metric: str
+
+
+def _binary_grad_hess(margins, y, w):
+    p = torch.sigmoid(margins[:, 0])
+    g = (p - y) * w
+    h = torch.clamp(p * (1.0 - p), min=1e-16) * w
+    return g[:, None], h[:, None]
+
+
+def _binary_init(y, num_classes, w):
+    pos = float(np.sum(y * w))
+    neg = float(np.sum(w)) - pos
+    pos, neg = max(pos, 1e-12), max(neg, 1e-12)
+    return np.array([np.log(pos / neg)], dtype=np.float32)
+
+
+def _l2_grad_hess(margins, y, w):
+    g = (margins[:, 0] - y) * w
+    return g[:, None], (w * torch.ones_like(g))[:, None]
+
+
+def _l2_init(y, num_classes, w):
+    return np.array([np.average(y, weights=w)], dtype=np.float32)
+
+
+OBJECTIVES: Dict[str, Objective] = {
+    "binary": Objective("binary", lambda c: 1, _binary_grad_hess, _binary_init, "auc"),
+    "regression": Objective("regression", lambda c: 1, _l2_grad_hess, _l2_init, "l2"),
+}
+
+# LightGBM objective aliases (TrainParams.scala objective strings).
+_ALIASES = {"l2": "regression", "mean_squared_error": "regression", "mse": "regression"}
+
+
+def get_objective(name: str) -> Objective:
+    name = _ALIASES.get(name, name)
+    if name not in OBJECTIVES:
+        raise ValueError(f"unknown or unported objective {name!r}; ported: {sorted(OBJECTIVES)}")
+    return OBJECTIVES[name]
+
+
+# ---------------------------------------------------------------------------
+# Metrics (host-side numpy)
+# ---------------------------------------------------------------------------
+
+
+def auc(y: np.ndarray, score: np.ndarray, w: np.ndarray) -> float:
+    """Weighted ROC AUC with ties averaged over equal-score groups."""
+    order = np.argsort(score, kind="stable")
+    y, w = np.asarray(y, dtype=np.float64)[order], np.asarray(w, dtype=np.float64)[order]
+    score = np.asarray(score)[order]
+    pos_w = y * w
+    neg_w = (1.0 - y) * w
+    total_pos, total_neg = pos_w.sum(), neg_w.sum()
+    if total_pos == 0 or total_neg == 0:
+        return 0.5
+    # group boundaries of equal scores; each group's positives rank above
+    # the negatives before it and tie with half of its own negatives
+    starts = np.flatnonzero(np.r_[True, score[1:] != score[:-1]])
+    grp_pos = np.add.reduceat(pos_w, starts)
+    grp_neg = np.add.reduceat(neg_w, starts)
+    prev_neg = np.cumsum(grp_neg) - grp_neg
+    auc_sum = float(np.sum(grp_pos * (prev_neg + grp_neg / 2.0)))
+    return float(auc_sum / (total_pos * total_neg))
+
+
+def binary_logloss(y, margin, w):
+    p = np.clip(1.0 / (1.0 + np.exp(-margin)), 1e-15, 1 - 1e-15)
+    return float(np.average(-(y * np.log(p) + (1 - y) * np.log(1 - p)), weights=w))
