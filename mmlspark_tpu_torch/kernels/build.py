@@ -22,9 +22,10 @@ CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17")
 
 @functools.cache
 def histogram_extension():
-    """The compiled histogram kernel module (``histogram.cu`` plus its
-    pybind11 binding). Built once per process; the build directory keeps
-    the objects, so a second process with unchanged sources reuses them."""
+    """The compiled histogram kernels (``histogram.cu``, ``u_histogram.cu``,
+    ``bin_scatter.cu``) and their pybind11 binding, one module from one
+    ``load``. Built once per process; the build directory keeps the objects,
+    so a second process with unchanged sources reuses them."""
     from torch.utils.cpp_extension import load
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -33,11 +34,14 @@ def histogram_extension():
         name="mmlspark_tpu_torch_histogram",
         sources=[
             str(CSRC_DIR / "histogram.cu"),
+            str(CSRC_DIR / "u_histogram.cu"),
+            str(CSRC_DIR / "bin_scatter.cu"),
             str(CSRC_DIR / "histogram_binding.cpp"),
         ],
         build_directory=str(BUILD_DIR),
         extra_cflags=["-O3", "-std=c++17"],
         extra_cuda_cflags=list(CUDA_FLAGS),
+        extra_include_paths=[str(CSRC_DIR)],
         verbose=False,
     )
     histogram_extension.build_seconds = time.perf_counter() - t0

@@ -2,11 +2,17 @@
 
 The port's counterpart of ``mmlspark_tpu/lightgbm/train.py`` for the
 flagship path: gbdt boosting, leafwise growth with ``leaf_batch`` frontier
-leaves per histogram pass, sibling histogram subtraction, numeric features.
-Each iteration:
+leaves per histogram pass, sibling histogram subtraction, numeric features,
+and the precomputed-U histogram path with quantized gradients. Each
+iteration:
 
-  gradients -> histogram pass(es) on the Hopper kernel -> split search over
+  gradients -> histogram pass(es) on the Hopper kernels -> split search over
   the (node, feature, bin) lattice -> row routing -> leaf values -> margins.
+
+Histogram passes take one of two paths, by the reference's rule: the
+compare-built kernel (``ops/histogram.py``) by default, or the U pass
+(``ops/u_histogram.py``) when ``histogram_method="u"``. The reference picks
+U by itself only on a TPU backend, so the port never does.
 
 PyTorch runs eagerly, so the reference's ``lax.while_loop`` over passes is a
 host loop: each pass reads the frontier's candidate gains to the host once
@@ -14,13 +20,14 @@ host loop: each pass reads the frontier's candidate gains to the host once
 leaves split. :class:`FitStats` counts those syncs.
 
 Not ported yet: depthwise growth, multiclass, rf/dart/goss, bagging and
-feature fraction, categorical splits, feature bundling, the precomputed-U
-and quantized histogram paths, validation sets, callbacks and meshes.
+feature fraction, categorical splits, feature bundling, validation sets,
+callbacks, meshes, and the U path's out-of-memory ladder.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 import time
 from typing import List, NamedTuple, Optional
@@ -33,6 +40,17 @@ from mmlspark_tpu_torch.lightgbm.binning import BinMapper
 from mmlspark_tpu_torch.lightgbm.booster import Booster
 from mmlspark_tpu_torch.lightgbm.objectives import get_objective
 from mmlspark_tpu_torch.ops import histogram
+from mmlspark_tpu_torch.ops import u_histogram as uh
+
+_log = logging.getLogger("mmlspark_tpu_torch.lightgbm")
+
+#: Rows above which quantized training falls back to exact stats: int32 sums
+#: of 127-level stats wrap past 2**31/127 rows, and float32 counts stop being
+#: exact integers past 2**24; the tighter cap holds.
+QUANT_ROW_CAP = min((1 << 31) // 127, 1 << 24)
+#: Device bytes the sibling-subtraction cache may take; above it the grower
+#: builds both children of every split instead.
+SUBTRACTION_CACHE_BYTES = 256 << 20
 
 
 @dataclasses.dataclass
@@ -112,8 +130,6 @@ _UNPORTED = {
     "bagging_freq": 0,
     "feature_fraction": 1.0,
     "early_stopping_round": 0,
-    "use_quantized_grad": False,
-    "histogram_subtraction": True,
     "categorical_slots": (),
     "provide_training_metric": False,
 }
@@ -127,7 +143,7 @@ def check_supported(opts: TrainOptions) -> None:
                 f"TrainOptions.{name}={getattr(opts, name)!r} is not ported yet "
                 f"(only {default!r})"
             )
-    if opts.histogram_method not in (None, "pallas"):
+    if opts.histogram_method not in (None, "pallas", "u"):
         raise NotImplementedError(f"histogram_method={opts.histogram_method!r} is not ported")
     if opts.max_bin + 1 > 256:
         raise NotImplementedError("max_bin > 255 is not ported (bins are uint8)")
@@ -138,15 +154,21 @@ def check_supported(opts: TrainOptions) -> None:
 class FitStats:
     """What one fit did, counted on the host: trees, histogram passes, the
     host syncs the grower paid (one per pass that splits or stops growth,
-    plus the final fetch), and wall seconds of boosting (device upload to
-    the packed booster) and of the host binning before it, where the caller
-    binned."""
+    plus the final fetch), wall seconds of boosting
+    (device upload to the packed booster, less the U build), of building U
+    and of the host binning before it, where the caller binned; and which
+    histogram path ran ("compare", "u" or "u_chunked", with its chunk count)
+    and whether its stats were quantized."""
 
     trees: int = 0
     passes: int = 0
     syncs: int = 0
     boost_seconds: float = 0.0
     binning_seconds: float = 0.0
+    u_build_seconds: float = 0.0
+    histogram_path: str = "compare"
+    u_chunks: int = 0
+    quantized: bool = False
 
 
 @dataclasses.dataclass
@@ -264,11 +286,38 @@ def _split_search(
     )
 
 
-def _histograms(bins_t, grad, hess, count, key, num_nodes, num_bins):
+def _packed_pass(bins_t, u, u_spec, grad, hess, count, key, num_nodes, num_bins, tree_stats):
     """One histogram pass and its per-node totals (feature 0 covers every
-    row of a node)."""
-    h = histogram.build_histograms(bins_t, grad, hess, count, key, num_nodes, num_bins)
+    row of a node), before dequantization: the representation the sibling
+    cache keeps. float32 on the compare-built and bf16 U paths; on the
+    quantized U path the narrow integer accumulator, so that parent - child
+    is exact."""
+    if u is None:
+        h = histogram.build_histograms(bins_t, grad, hess, count, key, num_nodes, num_bins)
+    elif u_spec.chunk_rows:
+        h = uh.build_histograms_u_chunked(u, grad, hess, count, key, num_nodes, u_spec,
+                                          stats=tree_stats, dequant=False)
+    else:
+        h = uh.build_histograms_u(u, grad, hess, count, key, num_nodes, u_spec,
+                                  stats=tree_stats, dequant=False)
     return h, h[:, 0].sum(dim=1)
+
+
+def _expand(h, totals, tree_stats):
+    """A packed pass ready for the split search: the quantized path's scales
+    applied once, after any subtraction."""
+    if h.is_floating_point():
+        return h, totals
+    scales = tree_stats[1]
+    return uh.dequant_hist(h, scales), uh.dequant_hist(totals, scales)
+
+
+def _tree_stats(grad, hess, count, noise=None):
+    """The U pass's (3, N) stat rows, built once per tree: quantized with
+    ``noise`` (int8 rows and their scales), else bf16."""
+    if noise is not None:
+        return uh.stat_rows_quant(grad, hess, count, noise)
+    return uh.stat_rows(grad, hess, count)
 
 
 def _build_tree_leafwise(
@@ -282,20 +331,36 @@ def _build_tree_leafwise(
     num_bins: int,
     opts: TrainOptions,
     stats: FitStats,
+    u: Optional[torch.Tensor] = None,  # U (resident) or the chunked bins layout
+    u_spec: Optional[uh.USpec] = None,
+    noise: Optional[torch.Tensor] = None,  # (2, N) uniforms: quantized stats
 ) -> TreeArrays:
     """Best-first growth, ``leaf_batch`` frontier leaves per histogram pass,
     with the reference's semantics: the top-k frontier leaves by cached gain
     (descending, ties by lower slot) split together; the j-th split overall
-    creates slots 2j+1 and 2j+2; only the smaller child of each split is
-    histogrammed (key = lane for its rows, ``2k`` elsewhere) and the sibling
-    is the parent's cached histogram minus it."""
+    creates slots 2j+1 and 2j+2. With sibling subtraction only the smaller
+    child of each split is histogrammed (key = lane for its rows, ``2k``
+    elsewhere) and the sibling is the parent's cached histogram minus it;
+    the cache is gated on its size, as the reference's is, and without it
+    both children are keyed (``2*lane + went_right``) in one pass of 2k
+    nodes, so k is capped at 21 instead of 42."""
     f, n = bins_t.shape
     dev = bins_t.device
     b = num_bins
     num_leaves = opts.num_leaves
     m = 2 * num_leaves - 1
     max_depth = opts.max_depth if (opts.max_depth and opts.max_depth > 0) else m
-    k = max(1, min(opts.leaf_batch, num_leaves - 1, 42))
+    acc_bytes = uh.histogram_acc_dtype(n, u is not None and noise is not None).itemsize
+    use_sub = (
+        opts.histogram_subtraction
+        and max(1, opts.num_class) * m * f * b * 3 * acc_bytes <= SUBTRACTION_CACHE_BYTES
+    )
+    k = max(1, min(opts.leaf_batch, num_leaves - 1, 42 if use_sub else 21))
+    tree_stats = _tree_stats(grad, hess, count, noise) if u is not None else None
+
+    def packed(key, num_nodes):
+        stats.passes += 1
+        return _packed_pass(bins_t, u, u_spec, grad, hess, count, key, num_nodes, b, tree_stats)
 
     def searchk(histk, totalsk, depthk):
         """Candidate searches for fresh children: depth-capped, NaN gains
@@ -305,10 +370,8 @@ def _build_tree_leafwise(
         capped = torch.where(torch.isnan(capped), torch.full_like(capped, -math.inf), capped)
         return s._replace(gain=capped)
 
-    root_hist, root_tot = _histograms(
-        bins_t, grad, hess, count, torch.zeros(n, dtype=torch.int32, device=dev), 1, b
-    )
-    stats.passes += 1
+    root_p, root_tp = packed(torch.zeros(n, dtype=torch.int32, device=dev), 1)
+    root_hist, root_tot = _expand(root_p, root_tp, tree_stats)
     root = _split_search(root_hist, root_tot, edges, feature_mask, opts)
 
     zi = torch.zeros(m, dtype=torch.int64, device=dev)
@@ -329,9 +392,6 @@ def _build_tree_leafwise(
         c_feat=zi.clone(),
         c_bin=zi.clone(),
         c_thr=zf.clone(),
-        c_subR=torch.zeros(m, dtype=torch.bool, device=dev),
-        leaf_hist=torch.zeros((m, f, b, 3), dtype=torch.float32, device=dev),
-        leaf_tot=torch.zeros((m, 3), dtype=torch.float32, device=dev),
     )
     st["is_leaf"][0] = True
     st["leaf_val"][0] = root.value[0]
@@ -341,9 +401,15 @@ def _build_tree_leafwise(
     st["c_feat"][0] = root.feat[0]
     st["c_bin"][0] = root.bin[0]
     st["c_thr"][0] = root.thr[0]
-    st["c_subR"][0] = root.rcov[0] < root.lcov[0]
-    st["leaf_hist"][0] = root_hist[0]
-    st["leaf_tot"][0] = root_tot[0]
+    if use_sub:
+        # Packed-space cache, in the pass's accumulator dtype: subtraction
+        # happens before dequantization.
+        st["c_subR"] = torch.zeros(m, dtype=torch.bool, device=dev)
+        st["c_subR"][0] = root.rcov[0] < root.lcov[0]
+        st["leaf_hist"] = torch.zeros((m, f, b, 3), dtype=root_p.dtype, device=dev)
+        st["leaf_tot"] = torch.zeros((m, 3), dtype=root_tp.dtype, device=dev)
+        st["leaf_hist"][0] = root_p[0]
+        st["leaf_tot"][0] = root_tp[0]
 
     # slot -> lane of the pass (-1: row's leaf does not split this pass)
     lane_of = torch.full((m,), -1, dtype=torch.int64, device=dev)
@@ -369,12 +435,10 @@ def _build_tree_leafwise(
         lanes = torch.arange(ka, dtype=torch.int64, device=dev)
 
         sf, sb, sthr = st["c_feat"][top_l], st["c_bin"][top_l], st["c_thr"][top_l]
-        small_r = st["c_subR"][top_l]  # (ka,) smaller child is RIGHT
 
-        # Route the splitting leaves' rows and key the smaller children:
-        # one lookup from a row's slot to its lane replaces the reference's
-        # unrolled per-lane sweep (leaves are distinct, so a row has at most
-        # one lane).
+        # Route the splitting leaves' rows and key the pass: one lookup from
+        # a row's slot to its lane replaces the reference's unrolled per-lane
+        # sweep (leaves are distinct, so a row has at most one lane).
         lane_of[top_l] = lanes
         node = st["node"]
         lane = lane_of[node.long()]
@@ -386,31 +450,37 @@ def _build_tree_leafwise(
         new_node = torch.where(
             active, torch.where(right, rslot[lc], lslot[lc]), node.long()
         ).to(torch.int32)
-        key = torch.where(
-            active & (right == small_r[lc]), lane, torch.full_like(lane, 2 * k)
-        ).to(torch.int32)
+        out_of_range = torch.full_like(lane, 2 * k)
 
-        hist_s, tot_s = _histograms(bins_t, grad, hess, count, key, ka, b)
-        stats.passes += 1
-        hist_o = st["leaf_hist"][top_l] - hist_s
-        tot_o = st["leaf_tot"][top_l] - tot_s
-        sel = small_r[:, None, None, None]
-        hist_l = torch.where(sel, hist_o, hist_s)
-        hist_r = torch.where(sel, hist_s, hist_o)
-        tot_l = torch.where(small_r[:, None], tot_o, tot_s)
-        tot_r = torch.where(small_r[:, None], tot_s, tot_o)
+        if use_sub:
+            small_r = st["c_subR"][top_l]  # (ka,) smaller child is RIGHT
+            key = torch.where(active & (right == small_r[lc]), lane, out_of_range)
+            hist_s, tot_s = packed(key.to(torch.int32), ka)
+            hist_o = st["leaf_hist"][top_l] - hist_s
+            tot_o = st["leaf_tot"][top_l] - tot_s
+            sel = small_r[:, None, None, None]
+            hist_lr = torch.cat([torch.where(sel, hist_o, hist_s),
+                                 torch.where(sel, hist_s, hist_o)])
+            tot_lr = torch.cat([torch.where(small_r[:, None], tot_o, tot_s),
+                                torch.where(small_r[:, None], tot_s, tot_o)])
+            hist_x, tot_x = _expand(hist_lr, tot_lr, tree_stats)
+        else:
+            key = torch.where(active, 2 * lane + right.long(), out_of_range)
+            h2, t2 = _expand(*packed(key.to(torch.int32), 2 * ka), tree_stats)
+            h2 = h2.reshape(ka, 2, f, b, 3)
+            t2 = t2.reshape(ka, 2, 3)
+            hist_x = torch.cat([h2[:, 0], h2[:, 1]])
+            tot_x = torch.cat([t2[:, 0], t2[:, 1]])
 
         child_depth = st["depth"][top_l] + 1
-        cs = searchk(
-            torch.cat([hist_l, hist_r]),
-            torch.cat([tot_l, tot_r]),
-            torch.cat([child_depth, child_depth]),
-        )  # (2ka,) fields: [left children | right children]
+        cs = searchk(hist_x, tot_x, torch.cat([child_depth, child_depth]))
+        # (2ka,) fields: [left children | right children]
 
         both = torch.cat([lslot, rslot])
-        st["leaf_hist"][both] = torch.cat([hist_l, hist_r])
-        st["leaf_tot"][both] = torch.cat([tot_l, tot_r])
-        st["c_subR"][both] = cs.rcov < cs.lcov
+        if use_sub:
+            st["leaf_hist"][both] = hist_lr
+            st["leaf_tot"][both] = tot_lr
+            st["c_subR"][both] = cs.rcov < cs.lcov
         st["node"] = new_node
         st["feat"][top_l] = sf
         st["bin"][top_l] = sb
@@ -444,22 +514,75 @@ def _build_tree_leafwise(
     )
 
 
-def _make_step(opts: TrainOptions, num_bins: int, stats: FitStats):
+def quant_noise(seed: int, iteration: int, column: int, n: int, device) -> torch.Tensor:
+    """(2, n) float32 uniforms in [0, 1) for one tree's stochastic rounding
+    (``ops.u_histogram.stat_rows_quant``; row 0 for g, row 1 for h). One draw
+    per (iteration, margin column), from a ``torch.Generator`` seeded from
+    ``(seed ^ 0x51AB51AB, iteration, column)``, so a quantized fit repeats
+    run to run. The reference folds the same triple into ``jax.random`` keys;
+    the two generators give different numbers."""
+    words = np.random.SeedSequence(
+        [(seed ^ 0x51AB51AB) & 0xFFFFFFFFFFFFFFFF, iteration, column]
+    ).generate_state(2, np.uint32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed((int(words[0]) << 32) | int(words[1]))
+    return torch.rand((2, n), generator=gen, device=device, dtype=torch.float32)
+
+
+def _make_step(opts: TrainOptions, num_bins: int, stats: FitStats, u=None, u_spec=None,
+               quant: bool = False):
     """One boosting iteration (gbdt): gradients, one tree, margin update."""
     objective = get_objective(opts.objective)
 
-    def step(bins_t, y, w, margins, edges, feature_mask):
+    def step(bins_t, y, w, margins, edges, feature_mask, it):
         grad, hess = objective.grad_hess(margins, y, w)  # (N, 1)
         count = torch.ones_like(y)
+        noise = quant_noise(opts.seed, it, 0, y.shape[0], y.device) if quant else None
         tree = _build_tree_leafwise(
             bins_t, grad[:, 0].contiguous(), hess[:, 0].contiguous(), count, edges,
-            feature_mask, num_bins=num_bins, opts=opts, stats=stats,
+            feature_mask, num_bins=num_bins, opts=opts, stats=stats, u=u, u_spec=u_spec,
+            noise=noise,
         )
         stats.trees += 1
         contrib = tree.leaf_val[tree.row_leaf.long()]
         return tree, margins + contrib[:, None]
 
     return step
+
+
+def _histogram_path(opts: TrainOptions, n: int, f: int, num_bins: int,
+                    mapper: Optional[BinMapper]):
+    """The U spec (None: the compare-built path) and whether the stats are
+    quantized, by the reference's rules: U only when ``histogram_method`` is
+    "u" (the reference also picks it by itself on a TPU), chunked rows when
+    the resident U would pass the U budget; quantized stats only on the U
+    path and up to :data:`QUANT_ROW_CAP` rows, else a warning and exact
+    stats."""
+    u_spec = None
+    if opts.histogram_method == "u":
+        per_feature = None if mapper is None else [int(x) for x in mapper.num_bins]
+        u_spec = uh.make_u_spec(num_bins, f, per_feature)
+        budget = uh.u_budget()
+        if uh.u_bytes(n, u_spec) > budget:
+            u_spec = uh.chunked_u_spec(n, u_spec, budget)
+            _log.info(
+                "U one-hot (%.1f GB) exceeds MMLSPARK_TPU_U_BUDGET (%.1f GB); streaming each "
+                "histogram pass in %d row chunks of %d", uh.u_bytes(n, u_spec) / 1e9,
+                budget / 1e9, uh.num_u_chunks(n, u_spec), u_spec.chunk_rows,
+            )
+    quant = opts.use_quantized_grad
+    reason = None
+    if quant and u_spec is None:
+        reason = ("the precomputed-U histogram path is inactive (the port takes it only "
+                  "with histogram_method='u')")
+    elif quant and n > QUANT_ROW_CAP:
+        reason = (f"{n} rows exceeds the quantized-path cap min(2^31/127, 2^24) = 2^24 "
+                  "(float32 count exactness / int32 histogram accumulator)")
+    if reason is not None:
+        _log.warning("use_quantized_grad requested but %s; training with exact stats "
+                     "instead", reason)
+        quant = False
+    return u_spec, quant
 
 
 def train(
@@ -503,14 +626,28 @@ def train(
     feature_mask = torch.ones(f, dtype=torch.float32, device=dev)
 
     stats = FitStats()
-    step = _make_step(opts, num_bins, stats)
+    u_spec, quant = _histogram_path(opts, n, f, num_bins, mapper)
+    u = None
+    if u_spec is not None:
+        # Built once per fit: the resident one-hot, or the chunked pass's
+        # bins layout.
+        t_u = time.perf_counter()
+        u = uh.prepare_chunked_bins(bins_t, u_spec) if u_spec.chunk_rows else uh.build_u(
+            bins_t, u_spec)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        stats.u_build_seconds = time.perf_counter() - t_u
+        stats.histogram_path = "u_chunked" if u_spec.chunk_rows else "u"
+        stats.u_chunks = uh.num_u_chunks(n, u_spec)
+    stats.quantized = quant
+    step = _make_step(opts, num_bins, stats, u=u, u_spec=u_spec, quant=quant)
     trees = []
-    for _ in range(opts.num_iterations):
-        tree, margins = step(bins_t, y_dev, w_dev, margins, edges_dev, feature_mask)
+    for it in range(opts.num_iterations):
+        tree, margins = step(bins_t, y_dev, w_dev, margins, edges_dev, feature_mask, it)
         trees.append(tree._replace(row_leaf=None))
     booster = _pack_booster(trees, opts, num_classes, init_score, mapper, feature_names)
     stats.syncs += 1  # the packing fetch
-    stats.boost_seconds = time.perf_counter() - t0
+    stats.boost_seconds = time.perf_counter() - t0 - stats.u_build_seconds
     return TrainResult(booster=booster, stats=stats)
 
 
