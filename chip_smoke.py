@@ -15,7 +15,11 @@ non-zero and prints no result):
    plain version (both sum g and h in 64-bit fixed point), two launches
    bit-identical, counts bit-equal to a float64 index_add_ and g and h
    within 1e-5 * sum|x| + 1e-6 of it; times of the kernel, the plain
-   version and one index_add_ call; the byte bound.
+   version and one index_add_ call; the byte bound. Then, at 8 nodes,
+   skewed bins (3 distinct values on a third of the features) and
+   11,000,003 rows, each bit-equal to the plain version and across two
+   launches, and timed; and the kernel's time under each launch plan of
+   HIST_PLANS at 1, 8 and 42 nodes and on the skewed bins.
 4. Fit parity: 1,000,000 rows, 3 iterations, kernel against the plain
    version forced in: identical trees, margins within 1e-4.
 5. The default path: LightGBMClassifier.fit on 11,000,000 x 28 rows (maxBin
@@ -56,6 +60,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 N_KERNEL = 11_000_000  # HIGGS's row count
+N_KERNEL_ODD = 11_000_003  # feature rows of the bins off the 32-bit boundary
 N_FEATURES = 28  # HIGGS's width
 NUM_BINS = 256
 N_PARITY = 1_000_000
@@ -125,6 +130,7 @@ def phase_kernel(torch, hh, rates):
     hess = torch.rand(n, device=dev, generator=gen) * 0.25
     count = torch.ones(n, device=dev)
     records = {}
+    nodes = {}
     for k, entry in ((1, hh.build_histograms_combined_cuda), (8, hh.build_histograms_cuda),
                      (42, hh.build_histograms_cuda)):
         # keys in [0, k]: key k is out of range and must add nothing
@@ -178,9 +184,97 @@ def phase_kernel(torch, hh, rates):
         )
         print(f"kernel k={k}: " + json.dumps(rec), flush=True)
         records[k] = rec
-    del bins_t, grad, hess, count
+        nodes[k] = node
+
+    # Two harder inputs at k = 8: three distinct bins on a third of the
+    # features (HIGGS's b-tag columns), and a row count that is not a
+    # multiple of 4 (feature rows off the 32-bit boundary).
+    skewed = bins_t.clone()
+    skewed[: f // 3] = torch.randint(0, 3, (f // 3, n), device=dev, generator=gen,
+                                     dtype=torch.int32).to(torch.uint8)
+    records["k8_skewed"] = _kernel_case(torch, hh, "k8_skewed", skewed, grad, hess, count,
+                                        nodes[8], 8, b)
+    records["plans"] = _kernel_plans(torch, hh, bins_t, skewed, grad, hess, count, nodes, b)
+    del skewed
+    n_odd = N_KERNEL_ODD
+    records["k8_odd_n"] = _kernel_case(
+        torch, hh, "k8_odd_n",
+        torch.randint(0, b, (f, n_odd), device=dev, generator=gen, dtype=torch.int32).to(torch.uint8),
+        torch.randn(n_odd, device=dev, generator=gen),
+        torch.rand(n_odd, device=dev, generator=gen) * 0.25, torch.ones(n_odd, device=dev),
+        torch.randint(0, 9, (n_odd,), device=dev, generator=gen, dtype=torch.int32), 8, b)
+    del bins_t, grad, hess, count, nodes
     torch.cuda.empty_cache()
     return records
+
+
+def _kernel_case(torch, hh, label, bins_t, grad, hess, count, node, k, b):
+    """One more input for the node-panel entry: bit-equal to the plain
+    version, two launches bit-identical, and its time."""
+    args = (bins_t, grad, hess, count, node)
+    out = hh.build_histograms_cuda(*args, k, b)
+    again = hh.build_histograms_cuda(*args, k, b)
+    plain = hh.build_histograms_plain(*args, k, b)
+    torch.cuda.synchronize()
+    max_err = float((out - plain).abs().max())
+    if not torch.equal(out, plain):
+        raise AssertionError(f"{label}: kernel differs from the plain version "
+                             f"(max abs err {max_err})")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{label}: two launches on the same input differ")
+    del out, again, plain
+    rec = dict(case=label, k=k, rows=bins_t.shape[1], max_abs_err=max_err,
+               ms=_time_ms(torch, lambda: hh.build_histograms_cuda(*args, k, b), 20))
+    print("kernel case: " + json.dumps(rec), flush=True)
+    return rec
+
+
+# Launch plans of histogram.cu tried at HIGGS width: (name, shared-memory
+# budget a block, threads a block, threads an SM holds, waves of blocks).
+HIST_PLANS = (
+    ("half_smem_1024", 112 * 1024, 1024, 1024, 2),
+    ("full_smem_1024", 232_448, 1024, 1024, 2),
+    ("full_smem_1024_w1", 232_448, 1024, 1024, 1),
+    ("full_smem_1024_w4", 232_448, 1024, 1024, 4),
+    ("half_smem_512", 112 * 1024, 512, 1024, 2),
+)
+
+
+def _kernel_plans(torch, hh, bins_t, skewed, grad, hess, count, nodes, b):
+    """Times of the kernel under each plan of HIST_PLANS at k = 1, 8, 42 and
+    on the skewed bins at k = 8; every plan's result must equal the module's
+    own plan's bit for bit."""
+    names = ("HIST_SMEM_BUDGET", "HIST_THREADS", "HIST_THREADS_PER_SM", "HIST_WAVES")
+    saved = tuple(getattr(hh, a) for a in names)
+    props = torch.cuda.get_device_properties(0)
+    cases = [(f"k{k}", bins_t, k, node) for k, node in nodes.items()]
+    cases.append(("k8_skewed", skewed, 8, nodes[8]))
+    want = {label: hh.build_histograms_cuda(bt, grad, hess, count, node, k, b)
+            for label, bt, k, node in cases}
+    results = {}
+    try:
+        for plan in HIST_PLANS:
+            name, values = plan[0], plan[1:]
+            for a, v in zip(names, values):
+                setattr(hh, a, v)
+            times = {}
+            for label, bt, k, node in cases:
+                args = (bt, grad, hess, count, node)
+                got = hh.build_histograms_cuda(*args, k, b)
+                if not torch.equal(got, want[label]):
+                    raise AssertionError(f"plan {name} {label}: result differs")
+                lp = hh.launch_plan(bt.shape[1], bt.shape[0], k, b,
+                                    props.multi_processor_count)
+                times[label] = dict(
+                    ms=_time_ms(torch, lambda: hh.build_histograms_cuda(*args, k, b), 20),
+                    fg=lp.fg, groups=lp.groups, row_blocks=lp.row_blocks,
+                    smem_bytes=lp.smem_bytes)
+            results[name] = times
+            print(f"plan {name}: " + json.dumps(times), flush=True)
+    finally:
+        for a, v in zip(names, saved):
+            setattr(hh, a, v)
+    return results
 
 
 def phase_parity(torch, hh, histogram, binning, train):

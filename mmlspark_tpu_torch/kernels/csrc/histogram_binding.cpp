@@ -17,7 +17,7 @@
 extern "C" int mmlspark_hist_launch(const std::uint8_t* bins_t, const float* grad,
                                     const float* hess, const float* count,
                                     const std::int32_t* node, const double* scale,
-                                    long long n, int f, int k, int b, int fg, int grid_x,
+                                    long long n, int f, int k, int b, int fg, int row_blocks,
                                     long long rows_per_block, int threads, int smem_bytes,
                                     unsigned long long* acc, float* out, void* stream);
 extern "C" const char* mmlspark_hist_error_string(int code);
@@ -46,14 +46,14 @@ void check(int err, const char* what)
 
 void histogram(std::uintptr_t bins_t, std::uintptr_t grad, std::uintptr_t hess,
                std::uintptr_t count, std::uintptr_t node, std::uintptr_t scale, long long n,
-               int f, int k, int b, int fg, int grid_x, long long rows_per_block, int threads,
+               int f, int k, int b, int fg, int row_blocks, long long rows_per_block, int threads,
                int smem_bytes, std::uintptr_t acc, std::uintptr_t out, std::uintptr_t stream)
 {
     const int err = mmlspark_hist_launch(
         reinterpret_cast<const std::uint8_t*>(bins_t), reinterpret_cast<const float*>(grad),
         reinterpret_cast<const float*>(hess), reinterpret_cast<const float*>(count),
         reinterpret_cast<const std::int32_t*>(node), reinterpret_cast<const double*>(scale), n,
-        f, k, b, fg, grid_x, rows_per_block, threads, smem_bytes,
+        f, k, b, fg, row_blocks, rows_per_block, threads, smem_bytes,
         reinterpret_cast<unsigned long long*>(acc), reinterpret_cast<float*>(out),
         reinterpret_cast<void*>(stream));
     check(err, "histogram");

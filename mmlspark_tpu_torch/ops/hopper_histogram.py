@@ -17,6 +17,9 @@ feature-major, ``(F, N)`` uint8, laid out once per fit (the JAX kernel's
 g and h are summed in 64-bit fixed point (:func:`fixed_point_scales`), so
 the sums do not depend on the order of the rows: a launch is bit-identical to
 the next and to the plain version, and a fit grows the same trees every time.
+Counts must be non-negative integers whose sum in any one cell stays below
+2**24 (the grower passes ones): the kernel sums them as uint32, the plain
+version in float32, and the two agree exactly only there.
 
 On a CUDA tensor an entry point launches the kernel or raises. On a CPU
 tensor it computes :func:`build_histograms_plain`, the same function as one
@@ -42,17 +45,31 @@ import torch
 MAX_NODES = 42
 #: The bins are uint8.
 MAX_BINS = 256
-#: Threads per block.
+#: Threads per block of the packed-space kernels (U pass, bin-scatter).
 THREADS = 1024
-#: Dynamic shared memory one block may take: half an SM's 228 KB, so two
-#: 1024-thread blocks share an SM. A single feature's cells may exceed it
-#: (42 nodes x 256 bins = 210 KB); such passes run one block per SM.
+#: Dynamic shared memory a packed-space block takes: half an SM's 228 KB, so
+#: two 1024-thread blocks share an SM.
 SMEM_BUDGET = 112 * 1024
 #: Largest dynamic shared memory a Hopper block may opt into.
 SMEM_MAX = 232_448
-#: Grid size in waves of resident blocks.
+#: Shared memory of one SM that blocks can split, with 1 KB reserved a block.
+SMEM_PER_SM = 233_472
+#: Grid size of the packed-space kernels in waves of resident blocks.
 WAVES = 2
-#: Shared-memory bytes of one (node, bin) cell: int64 g, int64 h, float32 c.
+#: Threads per block of the histogram kernel (``histogram.cu``).
+HIST_THREADS = 1024
+#: Threads one SM holds for the histogram kernel: its ``__launch_bounds__
+#: (1024)`` lets it use up to 64 registers a thread, and an SM has 65,536.
+HIST_THREADS_PER_SM = 1024
+#: Dynamic shared memory one histogram block may take: the most a block may
+#: opt into, so a block holds as many features as fit (one block per SM).
+HIST_SMEM_BUDGET = SMEM_MAX
+#: Grid size of the histogram kernel in waves of resident blocks.
+HIST_WAVES = 2
+#: Consecutive rows a histogram thread takes per step (16-byte stat loads):
+#: every block's row range starts at a multiple of it.
+ROWS_PER_THREAD = 4
+#: Shared-memory bytes of one (node, bin) cell: int64 g, int64 h, uint32 c.
 CELL_BYTES = 20
 #: Fixed-point headroom: the scaled sum of all N rows stays below 2**62.
 FIXED_POINT_BITS = 62
@@ -61,33 +78,38 @@ FIXED_POINT_BITS = 62
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     fg: int  # features per block (one shared-memory histogram each)
-    grid_x: int  # row blocks
-    grid_y: int  # feature groups
-    rows_per_block: int
+    groups: int  # feature groups, the grid's fastest index
+    row_blocks: int  # row ranges
+    rows_per_block: int  # a multiple of ROWS_PER_THREAD
     smem_bytes: int
 
 
 def launch_plan(n: int, f: int, num_nodes: int, num_bins: int,
                 num_sms: int) -> LaunchPlan:
-    """Grid and shared-memory layout of one launch: as many features per
-    block as fit :data:`SMEM_BUDGET` (each feature re-reads the row stats,
-    so grouping cuts those reads by the group size), and enough row blocks
-    for :data:`WAVES` waves of resident blocks."""
+    """Grid and shared-memory layout of one histogram launch: as few
+    feature groups as :data:`HIST_SMEM_BUDGET` allows (every group reads the
+    row stats again, from L2 when the groups of a row range run together),
+    the features spread evenly over them, and enough row blocks for
+    :data:`HIST_WAVES` waves of resident blocks. Row ranges start at
+    multiples of :data:`ROWS_PER_THREAD`, so the kernel's vector loads are
+    aligned."""
     per_feature = num_nodes * num_bins * CELL_BYTES
     if per_feature > SMEM_MAX:
         raise ValueError(
             f"{num_nodes} nodes x {num_bins} bins need {per_feature} bytes of "
             f"shared memory per feature; a block has {SMEM_MAX}"
         )
-    fg = max(1, min(f, SMEM_BUDGET // per_feature))
-    grid_y = -(-f // fg)
+    groups = -(-f // max(1, min(f, HIST_SMEM_BUDGET // per_feature)))
+    fg = -(-f // groups)
     smem = fg * per_feature
-    resident = max(1, min(2048 // THREADS, 233_472 // (smem + 1024)))
-    target = max(1, WAVES * num_sms * resident // grid_y)
-    grid_x = max(1, min(target, -(-n // THREADS)))
-    rows_per_block = -(-n // grid_x)
-    grid_x = -(-n // rows_per_block)
-    return LaunchPlan(fg, grid_x, grid_y, rows_per_block, smem)
+    resident = max(1, min(HIST_THREADS_PER_SM // HIST_THREADS, SMEM_PER_SM // (smem + 1024)))
+    target = max(1, HIST_WAVES * num_sms * resident // groups)
+    step = HIST_THREADS * ROWS_PER_THREAD
+    row_blocks = max(1, min(target, -(-n // step)))
+    rows_per_block = -(-max(n, 1) // row_blocks)
+    rows_per_block = -(-rows_per_block // ROWS_PER_THREAD) * ROWS_PER_THREAD
+    row_blocks = -(-max(n, 1) // rows_per_block)
+    return LaunchPlan(fg, groups, row_blocks, rows_per_block, smem)
 
 
 def fixed_point_scales(*cols) -> torch.Tensor:
@@ -95,10 +117,11 @@ def fixed_point_scales(*cols) -> torch.Tensor:
     and c on the U path): the largest with ``N * max|x| * 2**s <= 2**62``, so
     ``round(x * 2**s)`` summed over all N rows fits an int64 whatever the
     order. Built from the exponent bits, so kernel and plain version share
-    them exactly; computed on the tensors' device, with no host sync."""
+    them exactly; computed on the tensors' device, with no host sync, and
+    ``max|x|`` in one read of each column."""
     n = cols[0].shape[0]
-    top = torch.stack([c.abs().amax() for c in cols]) if n else torch.zeros(
-        len(cols), device=cols[0].device)
+    top = torch.stack([torch.linalg.vector_norm(c, float("inf")) for c in cols]) if n else (
+        torch.zeros(len(cols), device=cols[0].device))
     exponent = torch.frexp(top.float()).exponent.long()  # top < 2**exponent
     s = (FIXED_POINT_BITS - max(n, 1).bit_length() - exponent).clamp(-1000, 1000)
     return ((s + 1023) << 52).view(torch.float64)
@@ -155,6 +178,12 @@ def _check(bins_t, grad, hess, count, node, num_nodes, num_bins):
         raise ValueError(f"num_bins={num_bins} outside [1, {MAX_BINS}]")
 
 
+def _aligned(t, nbytes):
+    """``t``, or a copy of it at a fresh (aligned) address when its data does
+    not start on an ``nbytes`` boundary: the kernel loads four rows at once."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
 def _launch(bins_t, grad, hess, count, node, num_nodes, num_bins):
     from mmlspark_tpu_torch.kernels.build import histogram_extension
 
@@ -165,6 +194,8 @@ def _launch(bins_t, grad, hess, count, node, num_nodes, num_bins):
         return out
     acc = torch.zeros((num_nodes, f, num_bins, 2), dtype=torch.int64, device=bins_t.device)
     scale = fixed_point_scales(grad, hess)
+    bins_t = _aligned(bins_t, 4)
+    grad, hess, count, node = (_aligned(t, 16) for t in (grad, hess, count, node))
     props = torch.cuda.get_device_properties(bins_t.device)
     plan = launch_plan(n, f, num_nodes, num_bins, props.multi_processor_count)
     with torch.cuda.device(bins_t.device):
@@ -172,8 +203,8 @@ def _launch(bins_t, grad, hess, count, node, num_nodes, num_bins):
         histogram_extension().histogram(
             bins_t.data_ptr(), grad.data_ptr(), hess.data_ptr(), count.data_ptr(),
             node.data_ptr(), scale.data_ptr(), n, f, num_nodes, num_bins, plan.fg,
-            plan.grid_x, plan.rows_per_block, THREADS, plan.smem_bytes, acc.data_ptr(),
-            out.data_ptr(), stream,
+            plan.row_blocks, plan.rows_per_block, HIST_THREADS, plan.smem_bytes,
+            acc.data_ptr(), out.data_ptr(), stream,
         )
     return out
 
@@ -181,7 +212,8 @@ def _launch(bins_t, grad, hess, count, node, num_nodes, num_bins):
 def build_histograms_cuda(bins_t, grad, hess, count, node, num_nodes: int,
                           num_bins: int) -> torch.Tensor:
     """Node-panel contract (``build_histograms_panel_pallas``): the frontier
-    pass of the leafwise grower, ``num_nodes`` keyed nodes at once."""
+    pass of the leafwise grower, ``num_nodes`` keyed nodes at once. ``count``
+    holds non-negative integers whose sum in a cell stays below 2**24."""
     _check(bins_t, grad, hess, count, node, num_nodes, num_bins)
     if not bins_t.is_cuda:
         return build_histograms_plain(bins_t, grad, hess, count, node, num_nodes, num_bins)
@@ -194,7 +226,9 @@ def build_histograms_combined_cuda(bins_t, grad, hess, count, node, num_nodes: i
                                    num_bins: int) -> torch.Tensor:
     """Combined-id contract (``build_histograms_pallas``): the one-hot of
     ``node*B + bin`` against ``[g, h, c]``; a node outside ``[0, num_nodes)``
-    matches no id. The root pass of the leafwise grower (one node)."""
+    matches no id. The root pass of the leafwise grower (one node).
+    ``count`` holds non-negative integers whose sum in a cell stays below
+    2**24."""
     _check(bins_t, grad, hess, count, node, num_nodes, num_bins)
     if not bins_t.is_cuda:
         return build_histograms_plain(bins_t, grad, hess, count, node, num_nodes, num_bins)
@@ -254,7 +288,7 @@ def bin_scatter_plan(n: int, spec, num_nodes: int, quant: bool, num_sms: int) ->
     first = np.searchsorted(ends, c0, side="right")
     last = np.searchsorted(offsets, np.minimum(c0 + chunk, spec.k), side="left") - 1
     smem = chunk * 3 * num_nodes * acc_bytes
-    resident = max(1, min(2048 // THREADS, 233_472 // (smem + 1024)))
+    resident = max(1, min(2048 // THREADS, SMEM_PER_SM // (smem + 1024)))
     target = max(1, WAVES * num_sms * resident // grid_x)
     grid_y = max(1, min(target, -(-n // THREADS)))
     rows_per_block = max(1, -(-n // grid_y))

@@ -213,15 +213,17 @@ def test_wrapper_rejects_inputs_the_kernel_does_not_take(bad):
         hh.build_histograms_cuda(**args)
 
 
-@pytest.mark.parametrize("n", [1, 1000, 11_000_000])
+@pytest.mark.parametrize("n", [1, 3, 1000, 1001, 11_000_000])
 @pytest.mark.parametrize("k", [1, 8, 42])
 @pytest.mark.parametrize("b", [64, 256])
 def test_launch_plan_covers_rows_and_fits_shared_memory(n, k, b):
     plan = hh.launch_plan(n, 28, k, b, num_sms=132)
     assert plan.smem_bytes <= hh.SMEM_MAX
     assert plan.smem_bytes == plan.fg * k * b * hh.CELL_BYTES
-    assert plan.fg * plan.grid_y >= 28 > plan.fg * (plan.grid_y - 1)
-    assert plan.grid_x * plan.rows_per_block >= n > (plan.grid_x - 1) * plan.rows_per_block
+    assert plan.fg * plan.groups >= 28 > plan.fg * (plan.groups - 1)
+    assert plan.row_blocks * plan.rows_per_block >= n > (plan.row_blocks - 1) * plan.rows_per_block
+    assert plan.rows_per_block % hh.ROWS_PER_THREAD == 0  # aligned vector loads
+    assert plan.row_blocks <= 65_535  # the grid's second dimension
 
 
 def test_launch_plan_refuses_more_shared_memory_than_a_block_has():
@@ -229,13 +231,190 @@ def test_launch_plan_refuses_more_shared_memory_than_a_block_has():
         hh.launch_plan(100, 3, 80, 256, num_sms=132)
 
 
+# -- the kernel's arithmetic, mirrored in numpy ------------------------------
+
+MASK32 = (1 << 32) - 1
+
+
+def _carry_add(word, q):
+    """histogram.cu's exact 64-bit add into a shared (lo, hi) word with two
+    uint32 atomics: add the low half, carry out of it into the high half,
+    and skip the high add when it adds 0. ``word`` is a [lo, hi] list."""
+    lo = q & MASK32
+    old = word[0]
+    word[0] = (old + lo) & MASK32
+    hi = ((q >> 32) + (1 if old > MASK32 - lo else 0)) & MASK32
+    if hi:
+        word[1] = (word[1] + hi) & MASK32
+
+
+def _signed(word):
+    v = word[0] | (word[1] << 32)
+    return v - (1 << 64) if v >> 63 else v
+
+
+def _largest_q(n):
+    """The largest ``round(x * 2**s)`` that :func:`fixed_point_scales` lets
+    N rows take: x just below a power of two."""
+    x = np.float32(np.nextafter(np.float32(1), np.float32(0)))
+    scale = hh.fixed_point_scales(torch.full((1,), float(x)).expand(n))[0].item()
+    return int(round(float(x) * scale))
+
+
+Q_MAX = _largest_q(11_000_000)
+EDGES = [0, 1, -1, -(2 ** 32), 2 ** 32 - 1, -(2 ** 32 - 1), 2 ** 38, -(2 ** 38), Q_MAX, -Q_MAX]
+
+
+def test_largest_fixed_point_value_at_full_height_is_below_2_38():
+    assert 2 ** 37 < Q_MAX < 2 ** 38
+    assert 11_000_000 * Q_MAX < 2 ** 62
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("edge", EDGES)
+def test_two_word_carry_add_is_the_exact_sum_in_any_order(edge, seed):
+    rng = np.random.default_rng(seed)
+    values = ([edge] * 40 + [int(v) for v in rng.choice(EDGES, 60)]
+              + [int(v) for v in rng.integers(-Q_MAX, Q_MAX, 60)])
+    exact = sum(values)
+    for _ in range(3):
+        rng.shuffle(values)
+        word = [0, 0]
+        for v in values:
+            _carry_add(word, v & ((1 << 64) - 1))
+        assert _signed(word) == exact
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 7])
+def test_block_words_flushed_with_64_bit_adds_give_the_exact_sum(blocks):
+    """Per-block words from the carry add, then the flush's native 64-bit
+    global adds (mod 2**64): the exact int64 sum whatever the split."""
+    rng = np.random.default_rng(blocks)
+    values = [int(v) for v in rng.integers(-Q_MAX, Q_MAX, 500)] + [Q_MAX] * 50
+    total = 0
+    for part in np.array_split(np.array(values, dtype=object), blocks):
+        word = [0, 0]
+        for v in part:
+            _carry_add(word, int(v) & ((1 << 64) - 1))
+        total = (total + (word[0] | (word[1] << 32))) & ((1 << 64) - 1)
+    assert total - (1 << 64) * (total >> 63) == sum(values)
+
+
+def _mirror_kernel(bins_t, g, h, c, node, k, b, plan, seed):
+    """histogram.cu in numpy at a small size: the plan's blocks, each
+    summing its group's cells with the carry add in a shuffled row order
+    (atomics land in any order), the flush into int64 and float32
+    accumulators, and the finalize. Bins stay below ``b``, as the plain
+    version needs."""
+    f, n = bins_t.shape
+    scale = hh.fixed_point_scales(torch.from_numpy(g), torch.from_numpy(h)).numpy()
+    qg = np.round(g.astype(np.float64) * scale[0]).astype(np.int64)
+    qh = np.round(h.astype(np.float64) * scale[1]).astype(np.int64)
+    acc = {}
+    cnt_out = np.zeros((k, f, b), dtype=np.float32)
+    rng = np.random.default_rng(seed)
+    for group in range(plan.groups):
+        feats = range(group * plan.fg, min(f, (group + 1) * plan.fg))
+        for block in range(plan.row_blocks):
+            r0 = block * plan.rows_per_block
+            assert r0 % hh.ROWS_PER_THREAD == 0
+            words = {}
+            counts = {}
+            for i in rng.permutation(np.arange(r0, min(n, r0 + plan.rows_per_block))):
+                if not 0 <= node[i] < k:
+                    continue
+                for j in feats:
+                    if bins_t[j, i] >= b:
+                        continue
+                    cell = (int(node[i]), j, int(bins_t[j, i]))
+                    wg, wh = words.setdefault(cell, ([0, 0], [0, 0]))
+                    _carry_add(wg, int(qg[i]) & ((1 << 64) - 1))
+                    _carry_add(wh, int(qh[i]) & ((1 << 64) - 1))
+                    counts[cell] = (counts.get(cell, 0) + int(c[i])) & MASK32
+            for cell, (wg, wh) in words.items():
+                ag, ah = acc.get(cell, (0, 0))
+                acc[cell] = ((ag + (wg[0] | (wg[1] << 32))) % (1 << 64),
+                             (ah + (wh[0] | (wh[1] << 32))) % (1 << 64))
+                cnt_out[cell] += np.float32(counts[cell])
+    sums = np.zeros((k, f, b, 2))
+    for cell, words in acc.items():
+        sums[cell] = [_signed([w & MASK32, w >> 32]) for w in words]
+    sums /= scale
+    return np.concatenate([sums.astype(np.float32), cnt_out[..., None]], axis=-1)
+
+
+@pytest.mark.parametrize("n", [1, 3, 1001])
+@pytest.mark.parametrize("k", [1, 3, 42])
+def test_kernel_mirror_is_bit_equal_to_the_plain_version(n, k, monkeypatch):
+    monkeypatch.setattr(hh, "HIST_THREADS", 8)  # several row blocks at this size
+    monkeypatch.setattr(hh, "HIST_SMEM_BUDGET", 2 * k * 16 * hh.CELL_BYTES)  # 2 groups
+    bins, g, h, c, node = _case(n, 3, 16, k, seed=n + k)
+    bins_t = np.ascontiguousarray(bins.T)
+    plan = hh.launch_plan(n, 3, k, 16, num_sms=2)
+    mirror = _mirror_kernel(bins_t, g, h, c, node, k, 16, plan, seed=k)
+    plain = hh.build_histograms_plain(
+        torch.from_numpy(bins_t), torch.from_numpy(g), torch.from_numpy(h),
+        torch.from_numpy(c), torch.from_numpy(node), k, 16).numpy()
+    np.testing.assert_array_equal(mirror, plain)
+
+
+def _skewed(n, f, b, k, skew, seed):
+    """HIGGS-like skew: every row in one bin, or three distinct bins (the
+    b-tag columns) on the first third of the features."""
+    bins, g, h, c, node = _case(n, f, b, k, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    if skew == "one_bin":
+        bins[:] = b - 1
+    else:
+        bins[:, : max(1, f // 3)] = rng.integers(0, 3, size=(n, max(1, f // 3)))
+    return bins, g, h, c, node
+
+
+SKEWED = [(skew, k, n) for skew in ("one_bin", "three_bins") for k in (1, 8, 42)
+          for n in (1001, 2003)]
+
+
+@pytest.mark.parametrize("skew,k,n", SKEWED)
+def test_plain_version_matches_jax_panel_kernel_on_skewed_bins(skew, k, n):
+    _, jp = _reference_histograms()
+    bins, g, h, c, node = _skewed(n, 5, 32, k, skew, seed=n + k)
+    ref = jp.build_histograms_panel_pallas(
+        bins, g, h, c, node, k, 32, interpret=True, precision="highest"
+    )
+    _assert_close(_port(bins, g, h, c, node, k, 32), ref)
+
+
+@pytest.mark.parametrize("skew,k,n", SKEWED)
+def test_plain_version_matches_jax_combined_kernel_on_skewed_bins(skew, k, n):
+    _, jp = _reference_histograms()
+    bins, g, h, c, node = _skewed(n, 5, 32, k, skew, seed=n * 3 + k)
+    ref = jp.build_histograms_pallas(
+        bins, g, h, c, node, k, 32, interpret=True, precision="highest"
+    )
+    _assert_close(_port(bins, g, h, c, node, k, 32), ref)
+
+
+def test_aligned_copies_only_a_tensor_off_its_boundary():
+    t = torch.arange(9, dtype=torch.float32)
+    assert hh._aligned(t, 16) is t
+    view = t[1:]
+    moved = hh._aligned(view, 16)
+    assert moved.data_ptr() % 16 == 0
+    torch.testing.assert_close(moved, view, rtol=0, atol=0)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [200_003, 200_000])
+@pytest.mark.parametrize("skew", ["uniform", "one_bin", "three_bins"])
 @pytest.mark.parametrize("k", [1, 8, 42])
-def test_kernel_matches_plain_version_on_card(k):
+def test_kernel_matches_plain_version_on_card(k, skew, n):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernel has no CPU mode")
     dev = torch.device("cuda")
-    bins, g, h, c, node = _case(200_003, 28, 256, k, seed=k)
+    if skew == "uniform":
+        bins, g, h, c, node = _case(n, 28, 256, k, seed=k)
+    else:
+        bins, g, h, c, node = _skewed(n, 28, 256, k, skew, seed=k)
     args = [torch.from_numpy(a).to(dev) for a in
             (np.ascontiguousarray(bins.T), g, h, c, node)]
     out = build_histograms(*args, k, 256)
@@ -249,3 +428,27 @@ def test_kernel_matches_plain_version_on_card(k):
     err = (out[..., :2].double() - ref[..., :2]).abs()
     tol = 1e-5 * absref[..., :2].abs() + 1e-6
     assert bool((err <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8])
+def test_kernel_takes_inputs_off_the_vector_boundary_on_card(k):
+    """Stats and bins that start off a 16- or 4-byte boundary (views at an
+    offset) give the same sums as aligned copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    bins, g, h, c, node = _case(100_001, 28, 256, k, seed=10 + k)
+    flat = torch.zeros(28 * 100_001 + 1, dtype=torch.uint8, device=dev)
+    bins_t = flat[1:].view(28, 100_001)
+    bins_t.copy_(torch.from_numpy(np.ascontiguousarray(bins.T)))
+    stats = []
+    for a in (g, h, c, node):
+        buf = torch.zeros(a.shape[0] + 1, dtype=torch.from_numpy(a).dtype, device=dev)
+        buf[1:] = torch.from_numpy(a)
+        stats.append(buf[1:])
+    out = build_histograms(bins_t, *stats, k, 256)
+    aligned = build_histograms(bins_t.clone(), *(t.clone() for t in stats), k, 256)
+    torch.testing.assert_close(out, aligned, rtol=0, atol=0)
+    torch.testing.assert_close(out, hh.build_histograms_plain(bins_t, *stats, k, 256),
+                               rtol=0, atol=0)
