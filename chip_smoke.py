@@ -9,7 +9,9 @@ non-zero and prints no result):
 
 1. Device: the card's name and power limit.
 2. Build: compiles the histogram kernels (kernels/csrc/histogram.cu,
-   u_histogram.cu, bin_scatter.cu) for sm_90a in one extension.
+   u_histogram.cu, bin_scatter.cu) for sm_90a in one extension; counts the
+   atomic opcodes of each in its SASS (kernels/sass_atomics.py) and fails
+   on a compare-and-swap loop (ATOMS.CAST.SPIN).
 3. Kernel against its plain version on the card at HIGGS width (11,000,000
    rows x 28 features x 256 bins) for 1, 8 and 42 nodes: bit-equal to the
    plain version (both sum g and h in 64-bit fixed point), two launches
@@ -29,21 +31,25 @@ non-zero and prints no result):
    for 1, 8 and 42 nodes, quantized and bf16 stats: bit-equal to its plain
    version, two launches bit-identical; times of the kernel, the plain
    version and one PyTorch product (torch._int_mm, or a bf16 mm); the
-   byte bound.
+   byte bound; and the kernel's time under each budget of U_PLANS.
 7. Bin-scatter kernel (bin_scatter.cu) at 11,000,000 x 28 x 256, the same
    cases: driven once through build_histograms_bin_scatter (its launch
-   count), then bit-equal to its plain version and across two launches,
-   and equal to the U pass on the first 1,000,000 rows; times of the
-   kernel, the plain version and one packed-space index_add_; the bound.
+   count), then equal to the U pass on the first 1,000,000 rows; on the
+   flat (F, N) bins, on the same bins as the chunked U pass's stack of 19
+   row chunks (equal to the flat result), on skewed bins (3 values on 9 of
+   the 28 features) and on 11,000,003 rows: bit-equal to its plain version
+   and across two launches, with times of the kernel, the plain version and
+   one packed-space index_add_, and the bound. Then the kernel's time under
+   each launch plan of BIN_SCATTER_PLANS.
 8. U fit parity: 1,000,000 rows, 3 iterations of train(histogram_method=
    "u"), quantized and bf16: the kernel against its plain version forced
-   in gives identical trees and margins; on the quantized path chunked
-   passes give the resident passes' model text.
+   in gives identical trees and margins; chunked passes (bin-scatter, 4
+   chunks) give the resident passes' model text on both paths.
 9. The U path: train(histogram_method="u", use_quantized_grad=True) at
    HIGGS width (31 leaves, leaf_batch 8, 10 iterations) on 1,000,000 rows
-   (resident U) and on 11,000,000 rows (19 chunks at the 8 GB budget):
-   U-pass launches, binning / U build / boosting seconds, peak device bytes,
-   held-out AUC on 500,000 rows.
+   (resident U, U pass launches) and on 11,000,000 rows (19 chunks at the
+   8 GB budget, bin-scatter launches): binning / U build / boosting
+   seconds, peak device bytes, held-out AUC on 500,000 rows.
 10. One JSON line with every kernel, then the card line, then the result
    line.
 """
@@ -412,6 +418,26 @@ def phase_packed_kernels(torch, uh, hh, rates):
     torch.cuda.synchronize()
     entry_launches = hh.bin_scatter.launches
 
+    # Harder inputs for bin-scatter: the chunked U pass's stack of row chunks
+    # (19 of 599,040 rows at the 8 GB budget), three distinct bins on 9 of
+    # the 28 features (HIGGS's b-tag columns), and 11,000,003 rows (feature
+    # and stat rows off their vector boundary).
+    chunked = uh.chunked_u_spec(n, spec, uh.DEFAULT_U_BUDGET)
+    stack = uh.prepare_chunked_bins(bins_t, chunked)
+    skewed = bins_t.clone()
+    skewed[: f // 3] = torch.randint(0, 3, (f // 3, n), device=dev, generator=gen,
+                                     dtype=torch.int32).to(torch.uint8)
+    n_odd = N_KERNEL_ODD
+    odd_bins = torch.randint(0, b, (f, n_odd), device=dev, generator=gen,
+                             dtype=torch.int32).to(torch.uint8)
+    odd_cases = {path: (stats, scale) for path, stats, scale in _packed_cases(
+        torch, uh, torch.randn(n_odd, device=dev, generator=gen),
+        torch.rand(n_odd, device=dev, generator=gen) * 0.25, torch.ones(n_odd, device=dev),
+        gen)}
+    odd_nodes = {k: torch.randint(0, k + 1, (n_odd,), device=dev, generator=gen,
+                                  dtype=torch.int32) for k in nodes}
+    odd_nodes[1].zero_()
+
     records = {}
     u = uh.build_u(bins_t[:, :N_U].contiguous(), spec)
     n_pad = u.shape[1]
@@ -465,45 +491,169 @@ def phase_packed_kernels(torch, uh, hh, rates):
                 raise AssertionError(f"bin scatter k={k} {path}: differs from the U pass on "
                                      f"the first {N_U} rows")
             del out, prefix
-            sargs = (bins_t, stats, node, k, spec, scale)
-            out = hh.bin_scatter(*sargs)
-            again = hh.bin_scatter(*sargs)
-            plain = hh.bin_scatter_plain(*sargs)
-            torch.cuda.synchronize()
-            max_err = float((out - plain).abs().max())
-            if not torch.equal(out, plain):
-                raise AssertionError(f"bin scatter k={k} {path}: kernel differs from the "
-                                     f"plain version (max abs err {max_err})")
-            if not torch.equal(out, again):
-                raise AssertionError(f"bin scatter k={k} {path}: two launches differ")
-            del out, again, plain
-            ms = _time_ms(torch, lambda: hh.bin_scatter(*sargs), 20)
-            plain_ms = _time_ms(torch, lambda: hh.bin_scatter_plain(*sargs), 3)
-            # library yardstick: one float32 index_add_ in the packed space
-            rows = (node < k).nonzero().squeeze(1)
-            ids = ((bins_t[:, rows].long() + torch.arange(f, device=dev)[:, None] * b) * k
-                   + node[rows].long()[None, :]).reshape(-1)
-            data = stats[:, rows].float().t().repeat(f, 1)
-            acc = torch.zeros(spec.k_pad * k, 3, device=dev)
-            library_ms = _time_ms(torch, lambda: acc.index_add_(0, ids, data), 3)
-            n_in = int(rows.numel())
-            del ids, data, acc, rows
-            bound_ms, bound_by = _bound(
-                hh.bin_scatter_bytes(n, f, n_in, spec.k_pad, k, quant),
-                hh.adds_needed(f, n_in), rates)
-            rec = dict(kernel="bin_scatter", k=k, path=path, rows=n, rows_in_range=n_in,
-                       max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
-            print("bin scatter: " + json.dumps(rec), flush=True)
-            records[("bin_scatter", k, path)] = rec
-    del u, u_bf16, bins_t, g, h, c, cases, nodes
+            flat = _scatter_case(torch, hh, rates, "bin_scatter", bins_t, bins_t, stats, node,
+                                 k, spec, scale)
+            records[("bin_scatter", k, path)] = flat
+            # the chunked U pass's entry: the same bins as a stack of row
+            # chunks, one launch over all of them
+            stacked = _scatter_case(torch, hh, rates, "bin_scatter_stack", stack, bins_t, stats,
+                                    node, k, chunked, scale, want=flat["out"])
+            records[("bin_scatter_stack", k, path)] = stacked
+            records[("bin_scatter_skewed", k, path)] = _scatter_case(
+                torch, hh, rates, "bin_scatter_skewed", skewed, skewed, stats, node, k, spec,
+                scale)
+            odd_stats, odd_scale = odd_cases[path]
+            records[("bin_scatter_odd_n", k, path)] = _scatter_case(
+                torch, hh, rates, "bin_scatter_odd_n", odd_bins, odd_bins, odd_stats,
+                odd_nodes[k], k, spec, odd_scale)
+            for label in ("bin_scatter", "bin_scatter_stack", "bin_scatter_skewed",
+                          "bin_scatter_odd_n"):
+                records[(label, k, path)].pop("out", None)
+    records["u_plans"] = _u_plans(torch, uh, u, cases, nodes)
+    records["bin_scatter_plans"] = _scatter_plans(torch, hh, bins_t, skewed, cases, nodes, spec)
+    del u, u_bf16, bins_t, stack, skewed, odd_bins, g, h, c, cases, nodes, odd_nodes, odd_cases
     torch.cuda.empty_cache()
     return records, entry_launches
 
 
-def phase_u_parity(torch, uh, binning, train):
+def _scatter_case(torch, hh, rates, label, bins, flat_bins, stats, node, k, spec, scale,
+                  want=None):
+    """One bin-scatter input: bit-equal to the plain version (and to
+    ``want``, the flat entry's result, when given), two launches
+    bit-identical; the times of the kernel, the plain version and one
+    packed-space float32 index_add_ on the flat bins; the bound."""
+    dev = bins.device
+    quant = scale is None
+    args = (bins, stats, node, k, spec, scale)
+    out = hh.bin_scatter(*args)
+    again = hh.bin_scatter(*args)
+    plain = hh.bin_scatter_plain(*args)
+    torch.cuda.synchronize()
+    max_err = float((out - plain).abs().max())
+    path = "quant" if quant else "bf16"
+    if not torch.equal(out, plain):
+        raise AssertionError(f"{label} k={k} {path}: kernel differs from the plain version "
+                             f"(max abs err {max_err})")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{label} k={k} {path}: two launches differ")
+    if want is not None and not torch.equal(out, want):
+        raise AssertionError(f"{label} k={k} {path}: differs from the flat (F, N) entry")
+    del again, plain
+    ms = _time_ms(torch, lambda: hh.bin_scatter(*args), 20)
+    plain_ms = _time_ms(torch, lambda: hh.bin_scatter_plain(*args), 3)
+    f, n = flat_bins.shape
+    rows = ((node >= 0) & (node < k)).nonzero().squeeze(1)
+    ids = ((flat_bins[:, rows].long() + torch.arange(f, device=dev)[:, None] * NUM_BINS) * k
+           + node[rows].long()[None, :]).reshape(-1)
+    data = stats[:, rows].float().t().repeat(f, 1)
+    acc = torch.zeros(f * NUM_BINS * k, 3, device=dev)
+    library_ms = _time_ms(torch, lambda: acc.index_add_(0, ids, data), 3)
+    n_in = int(rows.numel())
+    del ids, data, acc, rows
+    bound_ms, bound_by = _bound(hh.bin_scatter_bytes(n, f, n_in, spec.k_pad, k, quant),
+                                hh.adds_needed(f, n_in), rates)
+    rec = dict(kernel=label, k=k, path=path, rows=n, rows_in_range=n_in, max_abs_err=max_err,
+               ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+               bound_by=bound_by)
+    print("bin scatter: " + json.dumps(rec), flush=True)
+    rec["out"] = out
+    return rec
+
+
+# Shared-memory budgets of u_histogram.cu tried on 1,000,000 rows: (name,
+# budget a block on int8 stats, on bf16 stats).
+U_PLANS = (
+    ("112KB", 112 * 1024, 112 * 1024),
+    ("quant_112KB_bf16_227KB", 112 * 1024, 232_448),
+    ("227KB", 232_448, 232_448),
+)
+
+
+def _u_plans(torch, uh, u, cases, nodes):
+    """Times of the U pass under each budget of U_PLANS at k = 1, 8, 42,
+    quantized and bf16; every plan's result must equal the module's own
+    plan's bit for bit."""
+    names = ("SMEM_BUDGET", "SMEM_BUDGET_BF16")
+    saved = tuple(getattr(uh, a) for a in names)
+    runs = [(f"k{k}_{path}", k, stats[:, :N_U].contiguous(), scale, nodes[k][:N_U].contiguous())
+            for k in nodes for path, stats, scale in cases]
+    want = {label: uh.fused_panel_dot(u, stats, node, k, scale)
+            for label, k, stats, scale, node in runs}
+    results = {}
+    try:
+        for name, *values in U_PLANS:
+            for a, v in zip(names, values):
+                setattr(uh, a, v)
+            times = {}
+            for label, k, stats, scale, node in runs:
+                args = (u, stats, node, k, scale)
+                if not torch.equal(uh.fused_panel_dot(*args), want[label]):
+                    raise AssertionError(f"U pass plan {name} {label}: result differs")
+                plan = uh.panel_dot_plan(*u.shape, k, scale is None,
+                                         torch.cuda.get_device_properties(0).multi_processor_count)
+                times[label] = dict(ms=_time_ms(torch, lambda: uh.fused_panel_dot(*args), 20),
+                                    chunks=plan.grid_x, smem_bytes=plan.smem_bytes)
+            results[name] = times
+            print(f"u pass plan {name}: " + json.dumps(times), flush=True)
+    finally:
+        for a, v in zip(names, saved):
+            setattr(uh, a, v)
+    return results
+
+
+# Launch plans of bin_scatter.cu tried at HIGGS width: (name, shared-memory
+# budget a block, threads a block, threads an SM holds, waves of blocks).
+BIN_SCATTER_PLANS = (
+    ("half_smem_1024", 112 * 1024, 1024, 1024, 2),
+    ("full_smem_1024", 232_448, 1024, 1024, 2),
+    ("full_smem_1024_w1", 232_448, 1024, 1024, 1),
+    ("full_smem_1024_w4", 232_448, 1024, 1024, 4),
+    ("full_smem_1024_w8", 232_448, 1024, 1024, 8),
+    ("half_smem_512", 112 * 1024, 512, 1024, 2),
+)
+
+
+def _scatter_plans(torch, hh, bins_t, skewed, cases, nodes, spec):
+    """Times of bin_scatter under each plan of BIN_SCATTER_PLANS at k = 1,
+    8, 42, quantized and bf16, and on the skewed bins at k = 8; every plan's
+    result must equal the module's own plan's bit for bit."""
+    names = ("BIN_SCATTER_SMEM_BUDGET", "BIN_SCATTER_THREADS", "BIN_SCATTER_THREADS_PER_SM",
+             "BIN_SCATTER_WAVES")
+    saved = tuple(getattr(hh, a) for a in names)
+    props = torch.cuda.get_device_properties(0)
+    runs = [(f"k{k}_{path}", bins_t, k, stats, scale)
+            for k in nodes for path, stats, scale in cases]
+    runs += [(f"k8_skewed_{path}", skewed, 8, stats, scale) for path, stats, scale in cases]
+    want = {label: hh.bin_scatter(bt, stats, nodes[k], k, spec, scale)
+            for label, bt, k, stats, scale in runs}
+    results = {}
+    try:
+        for plan in BIN_SCATTER_PLANS:
+            name, values = plan[0], plan[1:]
+            for a, v in zip(names, values):
+                setattr(hh, a, v)
+            times = {}
+            for label, bt, k, stats, scale in runs:
+                args = (bt, stats, nodes[k], k, spec, scale)
+                if not torch.equal(hh.bin_scatter(*args), want[label]):
+                    raise AssertionError(f"bin scatter plan {name} {label}: result differs")
+                bp = hh.bin_scatter_plan(bt.shape[1], spec, k, scale is None,
+                                         props.multi_processor_count)
+                times[label] = dict(ms=_time_ms(torch, lambda: hh.bin_scatter(*args), 20),
+                                    chunks=bp.grid_x, row_blocks=bp.grid_y,
+                                    smem_bytes=bp.smem_bytes)
+            results[name] = times
+            print(f"bin scatter plan {name}: " + json.dumps(times), flush=True)
+    finally:
+        for a, v in zip(names, saved):
+            setattr(hh, a, v)
+    return results
+
+
+def phase_u_parity(torch, uh, hh, binning, train):
     """3 iterations of the U path with the kernel and with its plain version
-    forced in, quantized and bf16; chunked against resident passes."""
+    forced in, quantized and bf16; chunked passes (bin-scatter) against
+    resident ones (the U pass), both paths."""
     X, y = _make_data(N_PARITY, N_FEATURES, seed=2)
     bins, mapper = binning.bin_dataset(X, max_bin=NUM_BINS - 1)
     Xs = X[:100_000]
@@ -528,25 +678,30 @@ def phase_u_parity(torch, uh, binning, train):
         dm = float(np.abs(kb.raw_margin(Xs, device="cuda") - pb.raw_margin(Xs, device="cuda")).max())
         if dm != 0.0:
             raise AssertionError(f"U fit parity: margins differ by {dm}")
-        line = (f"u fit parity: {N_PARITY} rows, 3 iterations, "
-                f"{'quant' if quant else 'bf16'}: identical trees, max margin delta {dm}")
-        if quant:
-            os.environ["MMLSPARK_TPU_U_BUDGET"] = str(U_BUDGET_4_CHUNKS)
-            try:
-                chunked = train.train(bins, y, opts, mapper=mapper, device="cuda")
-            finally:
-                del os.environ["MMLSPARK_TPU_U_BUDGET"]
-            if chunked.stats.histogram_path != "u_chunked":
-                raise AssertionError(f"chunked parity ran {chunked.stats}")
-            if chunked.booster.model_to_string() != kb.model_to_string():
-                raise AssertionError("chunked quantized model text differs from resident")
-            line += f"; {chunked.stats.u_chunks} chunks: identical model text"
-        print(line, flush=True)
+        path = "quant" if quant else "bf16"
+        os.environ["MMLSPARK_TPU_U_BUDGET"] = str(U_BUDGET_4_CHUNKS)
+        uh.fused_panel_dot.launches = hh.bin_scatter.launches = 0
+        try:
+            chunked = train.train(bins, y, opts, mapper=mapper, device="cuda")
+        finally:
+            del os.environ["MMLSPARK_TPU_U_BUDGET"]
+        if (chunked.stats.histogram_path != "u_chunked" or hh.bin_scatter.launches == 0
+                or uh.fused_panel_dot.launches != 0):
+            raise AssertionError(f"chunked parity ran {chunked.stats} with "
+                                 f"{hh.bin_scatter.launches} bin-scatter and "
+                                 f"{uh.fused_panel_dot.launches} U pass launches")
+        if chunked.booster.model_to_string() != kb.model_to_string():
+            raise AssertionError(f"chunked {path} model text differs from resident")
+        print(f"u fit parity: {N_PARITY} rows, 3 iterations, {path}: identical trees, max "
+              f"margin delta {dm}; {chunked.stats.u_chunks} chunks "
+              f"({hh.bin_scatter.launches} bin-scatter launches): identical model text",
+              flush=True)
 
 
-def phase_u_fit(torch, uh, binning, train, auc, rows):
+def phase_u_fit(torch, uh, hh, binning, train, auc, rows):
     """The U path at HIGGS width: binning, then train() with quantized
-    gradients; the U pass's launches in this run."""
+    gradients; the launches of the U pass (resident U) and of bin-scatter
+    (chunked passes) in this run."""
     X, y = _make_data(rows + N_TEST, N_FEATURES, seed=3)
     t0 = time.perf_counter()
     bins, mapper = binning.bin_dataset(X[:rows], max_bin=NUM_BINS - 1)
@@ -556,17 +711,19 @@ def phase_u_fit(torch, uh, binning, train, auc, rows):
                               histogram_method="u", use_quantized_grad=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    uh.fused_panel_dot.launches = 0
+    uh.fused_panel_dot.launches = hh.bin_scatter.launches = 0
     t1 = time.perf_counter()
     result = train.train(bins, y[:rows], opts, mapper=mapper, device="cuda")
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t1
-    launches = uh.fused_panel_dot.launches
+    u_launches, scatter_launches = uh.fused_panel_dot.launches, hh.bin_scatter.launches
     peak = torch.cuda.max_memory_allocated()
     st = result.stats
-    if launches == 0 or not st.quantized:
-        raise AssertionError(f"the U path did not run quantized U passes: {st}, "
-                             f"{launches} launches")
+    # the resident pass runs the U pass kernel; chunked passes run bin-scatter
+    launches = scatter_launches if st.histogram_path == "u_chunked" else u_launches
+    if launches == 0 or u_launches + scatter_launches != launches or not st.quantized:
+        raise AssertionError(f"the U path did not run its quantized passes: {st}, "
+                             f"{u_launches} U pass and {scatter_launches} bin-scatter launches")
     margin = result.booster.raw_margin(X[rows:], device="cuda")
     if margin.shape != (N_TEST, 1) or not np.isfinite(margin).all():
         raise AssertionError(f"bad margins {margin.shape}")
@@ -577,7 +734,8 @@ def phase_u_fit(torch, uh, binning, train, auc, rows):
                histogram_path=st.histogram_path, u_chunks=st.u_chunks,
                fit_s=binning_s + train_s, binning_s=binning_s, u_build_s=st.u_build_seconds,
                boosting_s=st.boost_seconds, trees=st.trees, passes=st.passes,
-               u_pass_launches=launches, launches_per_tree=launches / st.trees,
+               u_pass_launches=u_launches, bin_scatter_launches=scatter_launches,
+               launches_per_tree=launches / st.trees,
                host_syncs_per_tree=st.syncs / st.trees, peak_device_bytes=peak,
                held_out_auc=test_auc)
     print("u fit: " + json.dumps(rec), flush=True)
@@ -595,6 +753,7 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     from mmlspark_tpu_torch.data.table import Table
+    from mmlspark_tpu_torch.kernels import sass_atomics
     from mmlspark_tpu_torch.kernels.build import histogram_extension
     from mmlspark_tpu_torch.lightgbm import LightGBMClassifier, binning, train
     from mmlspark_tpu_torch.lightgbm.objectives import auc
@@ -612,17 +771,23 @@ def main():
     histogram_extension()
     print(f"build: histogram.cu, u_histogram.cu, bin_scatter.cu for sm_90a in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
+    for src, ops in sass_atomics.atomics().items():
+        print("sass: " + json.dumps({"source": src, "atomics": ops}), flush=True)
+        if any(op.startswith(sass_atomics.CAS_LOOP) for op in ops):
+            raise AssertionError(f"{src} compiled an atomic to a compare-and-swap loop: {ops}")
 
     kernel = phase_kernel(torch, hh, rates)
     phase_parity(torch, hh, histogram, binning, train)
     fit = phase_fit(torch, hh, histogram, Table, LightGBMClassifier, auc, N_FIT)
-    packed, scatter_launches = phase_packed_kernels(torch, uh, hh, rates)
-    phase_u_parity(torch, uh, binning, train)
-    u_fit = phase_u_fit(torch, uh, binning, train, auc, N_U)
-    u_fit_chunked = phase_u_fit(torch, uh, binning, train, auc, N_FIT)
+    packed, entry_launches = phase_packed_kernels(torch, uh, hh, rates)
+    phase_u_parity(torch, uh, hh, binning, train)
+    u_fit = phase_u_fit(torch, uh, hh, binning, train, auc, N_U)
+    u_fit_chunked = phase_u_fit(torch, uh, hh, binning, train, auc, N_FIT)
     if u_fit["histogram_path"] != "u" or u_fit_chunked["histogram_path"] != "u_chunked":
         raise AssertionError("the U fits did not take the resident and chunked passes")
 
+    if entry_launches == 0:
+        raise AssertionError("build_histograms_bin_scatter did not launch bin_scatter")
     csrc = "mmlspark_tpu_torch/kernels/csrc/"
     entries = []
     for name, src, replaces, launches, r in (
@@ -633,7 +798,7 @@ def main():
         ("u_panel_dot", "u_histogram.cu", "mmlspark_tpu/ops/u_histogram.py:361",
          u_fit["u_pass_launches"], packed[("u_panel_dot", 8, "quant")]),
         ("bin_scatter", "bin_scatter.cu", "mmlspark_tpu/ops/pallas_histogram.py:260",
-         scatter_launches, packed[("bin_scatter", 8, "quant")]),
+         u_fit_chunked["bin_scatter_launches"], packed[("bin_scatter_stack", 8, "quant")]),
     ):
         if launches == 0:
             raise AssertionError(f"{name} was not launched on its path")

@@ -27,11 +27,12 @@ extern "C" int mmlspark_u_panel_dot_launch(const std::uint8_t* u, const void* st
                                            int k, int chunk_rows, int grid_x, int grid_y,
                                            long long rows_per_block, int threads,
                                            int smem_bytes, void* out, void* stream);
-extern "C" int mmlspark_bin_scatter_launch(const std::uint8_t* bins_t, const void* stats,
+extern "C" int mmlspark_bin_scatter_launch(const std::uint8_t* bins, const void* stats,
                                            const std::int32_t* node, const double* scale,
                                            const std::int32_t* layout, int quant, long long n,
-                                           int f, int k_pad, int k, int chunk_rows, int grid_x,
-                                           int grid_y, long long rows_per_block, int threads,
+                                           long long chunk, int f, int k_rows, int k,
+                                           int chunk_rows, int grid_x, int grid_y,
+                                           long long rows_per_block, int threads,
                                            int smem_bytes, void* out, void* stream);
 
 namespace {
@@ -72,18 +73,18 @@ void u_panel_dot(std::uintptr_t u, std::uintptr_t stats, std::uintptr_t node,
           "U panel dot");
 }
 
-void bin_scatter(std::uintptr_t bins_t, std::uintptr_t stats, std::uintptr_t node,
-                 std::uintptr_t scale, std::uintptr_t layout, int quant, long long n, int f,
-                 int k_pad, int k, int chunk_rows, int grid_x, int grid_y,
-                 long long rows_per_block, int threads, int smem_bytes, std::uintptr_t out,
-                 std::uintptr_t stream)
+void bin_scatter(std::uintptr_t bins, std::uintptr_t stats, std::uintptr_t node,
+                 std::uintptr_t scale, std::uintptr_t layout, int quant, long long n,
+                 long long chunk, int f, int k_rows, int k, int chunk_rows, int grid_x,
+                 int grid_y, long long rows_per_block, int threads, int smem_bytes,
+                 std::uintptr_t out, std::uintptr_t stream)
 {
     check(mmlspark_bin_scatter_launch(
-              reinterpret_cast<const std::uint8_t*>(bins_t), reinterpret_cast<const void*>(stats),
+              reinterpret_cast<const std::uint8_t*>(bins), reinterpret_cast<const void*>(stats),
               reinterpret_cast<const std::int32_t*>(node), reinterpret_cast<const double*>(scale),
-              reinterpret_cast<const std::int32_t*>(layout), quant, n, f, k_pad, k, chunk_rows,
-              grid_x, grid_y, rows_per_block, threads, smem_bytes, reinterpret_cast<void*>(out),
-              reinterpret_cast<void*>(stream)),
+              reinterpret_cast<const std::int32_t*>(layout), quant, n, chunk, f, k_rows, k,
+              chunk_rows, grid_x, grid_y, rows_per_block, threads, smem_bytes,
+              reinterpret_cast<void*>(out), reinterpret_cast<void*>(stream)),
           "bin scatter");
 }
 

@@ -28,7 +28,8 @@
 //   as four 16-byte loads per lane, all in flight together. A vector that is
 //   all zero (most are) costs nothing more; for each set byte the lane adds
 //   the row's three stats into the cells of its key with shared-memory
-//   atomics;
+//   atomics: 32-bit ones on both paths, the bf16 path's 64-bit cells as two
+//   planes of uint32 halves with a carry (packed_hist.cuh);
 // - the block flushes its nonzero cells into the zeroed global accumulator
 //   with atomics.
 
@@ -40,8 +41,7 @@
 
 namespace {
 
-using mmlspark_packed::Acc;
-using mmlspark_packed::atomic_add;
+using mmlspark_packed::SharedAcc;
 using mmlspark_packed::stat_value;
 
 constexpr int kTileRows = 2048;
@@ -55,20 +55,20 @@ u_panel_dot_kernel(const std::uint8_t* __restrict__ u,  // (k_pad, n_pad)
                    const double* __restrict__ scale,       // (3,), bf16 stats only
                    long long n, long long n_pad, int k_pad, int k, int chunk_rows,
                    long long rows_per_block,
-                   typename Acc<kQuant>::T* __restrict__ out)  // (k_pad, 3k), zeroed
+                   typename SharedAcc<kQuant>::Out* __restrict__ out)  // (k_pad, 3k), zeroed
 {
-    using T = typename Acc<kQuant>::T;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
+    using T = typename SharedAcc<kQuant>::Value;
+    extern __shared__ __align__(16) unsigned smem[];
     const int width = 3 * k;
-    T* acc = reinterpret_cast<T*>(smem_raw);                 // (chunk_rows, 3k)
-    T* q = acc + chunk_rows * width;                         // (3, kTileRows)
-    int* key_of = reinterpret_cast<int*>(q + 3 * kTileRows);  // (kTileRows,)
-
     const int c0 = blockIdx.x * chunk_rows;
     const int nc = min(chunk_rows, k_pad - c0);
-    for (int j = threadIdx.x; j < nc * width; j += blockDim.x) {
-        acc[j] = T(0);
-    }
+    const SharedAcc<kQuant> acc(smem, nc * width);  // (nc, 3k) cells
+    // After the cells: the panel tile, (3, kTileRows) integer stats, then
+    // (kTileRows,) keys.
+    T* q = reinterpret_cast<T*>(smem + SharedAcc<kQuant>::kWords * chunk_rows * width);
+    int* key_of = reinterpret_cast<int*>(q + 3 * kTileRows);
+
+    mmlspark_packed::zero<kQuant>(smem, nc * width);
     double s0 = 0.0, s1 = 0.0, s2 = 0.0;
     if constexpr (!kQuant) {
         s0 = scale[0];
@@ -110,7 +110,7 @@ u_panel_dot_kernel(const std::uint8_t* __restrict__ u,  // (k_pad, n_pad)
                 v[p] = off < tn ? __ldcs(reinterpret_cast<const uint4*>(row + off))
                                 : make_uint4(0u, 0u, 0u, 0u);
             }
-            T* cells = acc + c * width;
+            const int cells = c * width;
 #pragma unroll
             for (int p = 0; p < kVecPerLane; ++p) {
                 const unsigned words[4] = {v[p].x, v[p].y, v[p].z, v[p].w};
@@ -128,16 +128,16 @@ u_panel_dot_kernel(const std::uint8_t* __restrict__ u,  // (k_pad, n_pad)
                         if (key < 0) {
                             continue;
                         }
-                        atomic_add(cells + key, q[r]);
-                        atomic_add(cells + k + key, q[kTileRows + r]);
-                        atomic_add(cells + 2 * k + key, q[2 * kTileRows + r]);
+                        acc.add(cells + key, q[r]);
+                        acc.add(cells + k + key, q[kTileRows + r]);
+                        acc.add(cells + 2 * k + key, q[2 * kTileRows + r]);
                     }
                 }
             }
         }
     }
     __syncthreads();
-    mmlspark_packed::flush(acc, nc * width, out + static_cast<long long>(c0) * width);
+    mmlspark_packed::flush<kQuant>(acc, nc * width, out + static_cast<long long>(c0) * width);
 }
 
 template <bool kQuant>
@@ -153,7 +153,7 @@ int launch(const std::uint8_t* u, const void* stats, const std::int32_t* node,
     }
     u_panel_dot_kernel<kQuant><<<dim3(grid_x, grid_y), threads, smem_bytes, stream>>>(
         u, stats, node, scale, n, n_pad, k_pad, k, chunk_rows, rows_per_block,
-        static_cast<typename Acc<kQuant>::T*>(out));
+        static_cast<typename SharedAcc<kQuant>::Out*>(out));
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,12 +30,15 @@ kernel's integer arithmetic.
 package's fused bin + scatter-add pass (``_bin_scatter_kernel``): the U
 pass's packed-space histogram (``ops/u_histogram.py``) computed straight
 from the bins by ``kernels/csrc/bin_scatter.cu`` (:func:`bin_scatter`),
-with :func:`bin_scatter_plain` beside it.
+with :func:`bin_scatter_plain` beside it. The kernel also takes the chunked
+U pass's stack of row chunks, so that pass reads each chunk's bins instead
+of rebuilding its one-hot.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -45,16 +48,20 @@ import torch
 MAX_NODES = 42
 #: The bins are uint8.
 MAX_BINS = 256
-#: Threads per block of the packed-space kernels (U pass, bin-scatter).
+#: Threads per block of the U pass kernel (``u_histogram.cu``).
 THREADS = 1024
-#: Dynamic shared memory a packed-space block takes: half an SM's 228 KB, so
-#: two 1024-thread blocks share an SM.
-SMEM_BUDGET = 112 * 1024
 #: Largest dynamic shared memory a Hopper block may opt into.
 SMEM_MAX = 232_448
+#: Dynamic shared memory a U pass block takes on int8 stats: half an SM's
+#: 228 KB.
+SMEM_BUDGET = 112 * 1024
+#: The same on bf16 stats, whose 64-bit cells and panel take twice the
+#: bytes: the most a block may opt into (the kernel's bf16 form takes 50
+#: registers a thread, so an SM holds one 1024-thread block anyway).
+SMEM_BUDGET_BF16 = SMEM_MAX
 #: Shared memory of one SM that blocks can split, with 1 KB reserved a block.
 SMEM_PER_SM = 233_472
-#: Grid size of the packed-space kernels in waves of resident blocks.
+#: Grid size of the U pass kernel in waves of resident blocks.
 WAVES = 2
 #: Threads per block of the histogram kernel (``histogram.cu``).
 HIST_THREADS = 1024
@@ -66,8 +73,9 @@ HIST_THREADS_PER_SM = 1024
 HIST_SMEM_BUDGET = SMEM_MAX
 #: Grid size of the histogram kernel in waves of resident blocks.
 HIST_WAVES = 2
-#: Consecutive rows a histogram thread takes per step (16-byte stat loads):
-#: every block's row range starts at a multiple of it.
+#: Consecutive rows a thread of the histogram and bin-scatter kernels takes
+#: per step (vector loads of the stats): every block's row range starts at
+#: a multiple of it.
 ROWS_PER_THREAD = 4
 #: Shared-memory bytes of one (node, bin) cell: int64 g, int64 h, uint32 c.
 CELL_BYTES = 20
@@ -256,13 +264,25 @@ def adds_needed(f: int, n_in: int) -> int:
 
 # -- fused bin + scatter-add into the packed (U) space -------------------------
 
+#: Dynamic shared memory one bin-scatter block may take: the most a block may
+#: opt into, so a block holds as many packed rows as fit and the fewest
+#: packed-row chunks re-read each row's key and stats.
+BIN_SCATTER_SMEM_BUDGET = SMEM_MAX
+#: Threads per bin-scatter block.
+BIN_SCATTER_THREADS = 1024
+#: Threads one SM holds for the bin-scatter kernel: its ``__launch_bounds__
+#: (1024)`` lets it use up to 64 registers a thread, and an SM has 65,536.
+BIN_SCATTER_THREADS_PER_SM = 1024
+#: Grid size of the bin-scatter kernel in waves of resident blocks.
+BIN_SCATTER_WAVES = 4
+
 
 @dataclasses.dataclass(frozen=True)
 class BinScatterPlan:
     chunk_rows: int  # packed rows per block (its shared-memory accumulator)
-    grid_x: int  # packed-row chunks
+    grid_x: int  # packed-row chunks, the grid's fastest index
     grid_y: int  # row blocks
-    rows_per_block: int
+    rows_per_block: int  # a multiple of ROWS_PER_THREAD
     smem_bytes: int
     features: tuple  # per chunk: (first, last) feature whose rows it holds
 
@@ -270,79 +290,117 @@ class BinScatterPlan:
 def bin_scatter_plan(n: int, spec, num_nodes: int, quant: bool, num_sms: int) -> BinScatterPlan:
     """The port's fit gate for :func:`bin_scatter` (in place of the TPU's
     VMEM gate ``bin_scatter_fits_vmem``) and its launch layout. A block owns
-    ``chunk_rows`` packed rows, whose (chunk_rows, 3k) accumulator fills
-    :data:`SMEM_BUDGET` (int32 quantized, int64 fixed point otherwise): many
-    features per block at few nodes, a part of one feature at 42 nodes.
-    Raises ``ValueError`` for a shape it cannot take: a panel wider than 128
-    (3k) or bins wider than uint8."""
+    ``chunk_rows`` packed rows, whose (chunk_rows, 3k) cells (4 bytes
+    quantized, 8 in fixed point) fit :data:`BIN_SCATTER_SMEM_BUDGET`: as
+    few packed-row chunks as fit (each reads every row's key and stats
+    again, from L2 when the chunks of a row range run together), the packed
+    rows spread evenly over them, and enough row blocks for
+    :data:`BIN_SCATTER_WAVES` waves of resident blocks. Row ranges start at
+    multiples of :data:`ROWS_PER_THREAD`, so the kernel's vector loads are
+    aligned. Raises ``ValueError`` for a shape it cannot take: a panel wider
+    than 128 (3k) or bins wider than uint8."""
     if not 1 <= 3 * num_nodes <= 128:
         raise ValueError(f"panel width 3*{num_nodes} exceeds one lane group")
     if spec.num_bins > MAX_BINS or max(spec.widths, default=1) > MAX_BINS:
         raise ValueError(f"bins wider than {MAX_BINS} do not fit uint8")
-    acc_bytes = 4 if quant else 8
-    chunk = max(1, min(spec.k, SMEM_BUDGET // (3 * num_nodes * acc_bytes)))
-    grid_x = -(-spec.k // chunk)
+    row_bytes = 3 * num_nodes * (4 if quant else 8)
+    grid_x = -(-spec.k // max(1, min(spec.k, BIN_SCATTER_SMEM_BUDGET // row_bytes)))
+    chunk = -(-spec.k // grid_x)
     offsets = np.asarray(spec.offsets, np.int64)
     ends = offsets + np.asarray(spec.widths, np.int64)
     c0 = np.arange(grid_x, dtype=np.int64) * chunk
     first = np.searchsorted(ends, c0, side="right")
     last = np.searchsorted(offsets, np.minimum(c0 + chunk, spec.k), side="left") - 1
-    smem = chunk * 3 * num_nodes * acc_bytes
-    resident = max(1, min(2048 // THREADS, SMEM_PER_SM // (smem + 1024)))
-    target = max(1, WAVES * num_sms * resident // grid_x)
-    grid_y = max(1, min(target, -(-n // THREADS)))
-    rows_per_block = max(1, -(-n // grid_y))
-    grid_y = max(1, -(-n // rows_per_block))
+    smem = chunk * row_bytes
+    resident = max(1, min(BIN_SCATTER_THREADS_PER_SM // BIN_SCATTER_THREADS,
+                          SMEM_PER_SM // (smem + 1024)))
+    target = max(1, BIN_SCATTER_WAVES * num_sms * resident // grid_x)
+    step = BIN_SCATTER_THREADS * ROWS_PER_THREAD
+    grid_y = max(1, min(target, -(-n // step)))
+    rows_per_block = -(-max(n, 1) // grid_y)
+    rows_per_block = -(-rows_per_block // ROWS_PER_THREAD) * ROWS_PER_THREAD
+    grid_y = -(-max(n, 1) // rows_per_block)
     features = tuple(int(v) for pair in zip(first, last) for v in pair)
     return BinScatterPlan(chunk, grid_x, grid_y, rows_per_block, smem, features)
 
 
-def bin_scatter_plain(bins_t, stats, node, num_nodes: int, spec, scale=None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`bin_scatter`: per feature, the packed
-    row ``off_f + bin`` of every keyed row whose bin is inside the feature's
+@functools.lru_cache(maxsize=64)
+def _bin_scatter_layout(spec, features: tuple, device: torch.device) -> torch.Tensor:
+    """The kernel's int32 ``layout`` on ``device``: the features' packed
+    offsets and widths, then each chunk's (first, last) feature. Made once
+    per (spec, plan features, device), so a launch copies nothing from the
+    host."""
+    return torch.tensor(list(spec.offsets) + list(spec.widths) + list(features),
+                        dtype=torch.int32, device=device)
+
+
+def _as_stack(bins):
+    """``bins`` as a (m, F, chunk) stack of row chunks: the (F, N) bins are
+    the stack of one chunk."""
+    return bins if bins.dim() == 3 else bins[None]
+
+
+def bin_scatter_plain(bins, stats, node, num_nodes: int, spec, scale=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bin_scatter`: chunk by chunk of the
+    stack (one chunk for (F, N) bins) and feature by feature, the packed row
+    ``off_f + bin`` of every keyed row whose bin is inside the feature's
     width, then one int64 ``index_add_`` per stat, in the kernel's integer
     arithmetic."""
-    f, n = bins_t.shape
+    stack = _as_stack(bins)
+    chunk = stack.shape[2]
+    n = node.shape[0]
     width = 3 * num_nodes
-    keep = (node >= 0) & (node < num_nodes)
-    rows = keep.nonzero().squeeze(1)
-    nd = node[rows].long()
-    if scale is None:
-        q = stats[:, rows].long()
-    else:
-        q = torch.round(stats[:, rows].double() * scale[:, None]).long()
-    acc = torch.zeros(spec.k_pad * width, dtype=torch.int64, device=bins_t.device)
-    for j, (off, w) in enumerate(zip(spec.offsets, spec.widths)):
-        b = bins_t[j, rows].long()
-        inside = b < w
-        ids = (off + b[inside]) * width + nd[inside]
-        for s in range(3):
-            acc.index_add_(0, ids + s * num_nodes, q[s][inside])
+    acc = torch.zeros(spec.k_pad * width, dtype=torch.int64, device=stack.device)
+    for j in range(-(-n // chunk) if chunk else 0):
+        lo, hi = j * chunk, min(n, (j + 1) * chunk)
+        nd = node[lo:hi]
+        rows = ((nd >= 0) & (nd < num_nodes)).nonzero().squeeze(1)
+        key = nd[rows].long()
+        if scale is None:
+            q = stats[:, lo:hi][:, rows].long()
+        else:
+            q = torch.round(stats[:, lo:hi][:, rows].double() * scale[:, None]).long()
+        for f, (off, w) in enumerate(zip(spec.offsets, spec.widths)):
+            b = stack[j, f, rows].long()
+            inside = b < w
+            ids = (off + b[inside]) * width + key[inside]
+            for s in range(3):
+                acc.index_add_(0, ids + s * num_nodes, q[s][inside])
     acc = acc.reshape(spec.k_pad, width)
     return acc.int() if scale is None else acc
 
 
-def bin_scatter(bins_t, stats, node, num_nodes: int, spec, scale=None) -> torch.Tensor:
-    """The packed-space histogram straight from the raw feature-major (F, N)
-    uint8 bins: ``acc[off_f + bins[f, i], s*k + node_i] += q_s[i]``, the
-    accumulator :func:`~mmlspark_tpu_torch.ops.u_histogram.fused_panel_dot`
-    returns for the one-hot of the same bins (int32 for int8 ``stats``,
-    int64 fixed point for bf16 ``stats`` with their ``scale``). Rows keyed
-    outside ``[0, num_nodes)`` and bins at or past their feature's width add
+def bin_scatter(bins, stats, node, num_nodes: int, spec, scale=None) -> torch.Tensor:
+    """The packed-space histogram straight from the raw uint8 bins:
+    ``acc[off_f + bins[f, i], s*k + node_i] += q_s[i]``, the accumulator
+    :func:`~mmlspark_tpu_torch.ops.u_histogram.fused_panel_dot` returns for
+    the one-hot of the same bins (int32 for int8 ``stats``, int64 fixed
+    point for bf16 ``stats`` with their ``scale``). Rows keyed outside
+    ``[0, num_nodes)`` and bins at or past their feature's width add
     nothing.
 
-    On a CUDA tensor it launches ``kernels/csrc/bin_scatter.cu``; on a CPU
-    tensor it computes :func:`bin_scatter_plain`."""
-    if bins_t.dim() != 2 or bins_t.dtype != torch.uint8 or not bins_t.is_contiguous():
-        raise TypeError(f"bins_t must be a contiguous (F, N) uint8 tensor, got "
-                        f"{tuple(bins_t.shape)} {bins_t.dtype}")
-    f, n = bins_t.shape
+    ``bins`` is feature-major (F, N), or the (m, F, chunk) stack of row
+    chunks from ``prepare_chunked_bins`` (row i at column ``i % chunk`` of
+    chunk ``i // chunk``; the stack's rows at or past N are not read). The
+    (3, N) ``stats`` and (N,) ``node`` are read in place.
+
+    On a CUDA tensor it launches ``kernels/csrc/bin_scatter.cu``, one
+    launch for the whole stack; on a CPU tensor it computes
+    :func:`bin_scatter_plain`."""
+    if bins.dim() not in (2, 3) or bins.dtype != torch.uint8 or not bins.is_contiguous():
+        raise TypeError(f"bins must be a contiguous (F, N) or (m, F, chunk) uint8 tensor, got "
+                        f"{tuple(bins.shape)} {bins.dtype}")
+    if stats.dim() != 2 or stats.shape[0] != 3 or stats.dtype not in (torch.int8, torch.bfloat16):
+        raise TypeError(f"stats must be (3, N) int8 or bfloat16, got {tuple(stats.shape)} "
+                        f"{stats.dtype}")
+    stack = _as_stack(bins)
+    m, f, chunk = stack.shape
+    n = stats.shape[1]
     if f != spec.num_features:
         raise ValueError(f"{f} features of bins for a spec of {spec.num_features}")
+    if (n != chunk) if bins.dim() == 2 else (n > m * chunk):
+        raise ValueError(f"{n} stat rows for bins of {tuple(bins.shape)}")
     quant = stats.dtype == torch.int8
-    if stats.shape != (3, n) or stats.dtype not in (torch.int8, torch.bfloat16):
-        raise TypeError(f"stats must be (3, {n}) int8 or bfloat16, got {tuple(stats.shape)} "
-                        f"{stats.dtype}")
     if node.shape != (n,) or node.dtype != torch.int32:
         raise TypeError(f"node must be ({n},) int32, got {tuple(node.shape)} {node.dtype}")
     if quant != (scale is None):
@@ -352,30 +410,29 @@ def bin_scatter(bins_t, stats, node, num_nodes: int, spec, scale=None) -> torch.
     for name, t in (("stats", stats), ("node", node), ("scale", scale)):
         if t is None:
             continue
-        if t.device != bins_t.device:
-            raise ValueError(f"{name} is on {t.device}, bins_t on {bins_t.device}")
+        if t.device != bins.device:
+            raise ValueError(f"{name} is on {t.device}, bins on {bins.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    num_sms = (torch.cuda.get_device_properties(bins_t.device).multi_processor_count
-               if bins_t.is_cuda else 1)
+    num_sms = (torch.cuda.get_device_properties(bins.device).multi_processor_count
+               if bins.is_cuda else 1)
     plan = bin_scatter_plan(n, spec, num_nodes, quant, num_sms)
-    if not bins_t.is_cuda:
-        return bin_scatter_plain(bins_t, stats, node, num_nodes, spec, scale)
+    if not bins.is_cuda:
+        return bin_scatter_plain(bins, stats, node, num_nodes, spec, scale)
     from mmlspark_tpu_torch.kernels.build import histogram_extension
 
     out = torch.zeros((spec.k_pad, 3 * num_nodes), dtype=torch.int32 if quant else torch.int64,
-                      device=bins_t.device)
+                      device=bins.device)
     if n == 0:
         return out
-    layout = torch.tensor(list(spec.offsets) + list(spec.widths) + list(plan.features),
-                          dtype=torch.int32).to(bins_t.device)
-    with torch.cuda.device(bins_t.device):
-        stream = torch.cuda.current_stream(bins_t.device).cuda_stream
+    layout = _bin_scatter_layout(spec, plan.features, bins.device)
+    with torch.cuda.device(bins.device):
+        stream = torch.cuda.current_stream(bins.device).cuda_stream
         histogram_extension().bin_scatter(
-            bins_t.data_ptr(), stats.data_ptr(), node.data_ptr(),
-            0 if scale is None else scale.data_ptr(), layout.data_ptr(), int(quant), n, f,
-            spec.k_pad, num_nodes, plan.chunk_rows, plan.grid_x, plan.grid_y,
-            plan.rows_per_block, THREADS, plan.smem_bytes, out.data_ptr(), stream,
+            stack.data_ptr(), stats.data_ptr(), node.data_ptr(),
+            0 if scale is None else scale.data_ptr(), layout.data_ptr(), int(quant), n, chunk,
+            f, spec.k, num_nodes, plan.chunk_rows, plan.grid_x, plan.grid_y,
+            plan.rows_per_block, BIN_SCATTER_THREADS, plan.smem_bytes, out.data_ptr(), stream,
         )
     bin_scatter.launches += 1
     return out
@@ -397,8 +454,10 @@ def build_histograms_bin_scatter(
     """Same contract as ``ops.u_histogram.build_histograms_u``, fed by the
     raw bins instead of U: per row it reads F bytes of bins and the stats
     instead of the K_pad-byte column of U. Counterpart of the JAX package's
-    ``build_histograms_bin_scatter``; no training path takes it (nor the
-    reference's), so it is an ops-level entry point."""
+    ``build_histograms_bin_scatter``, an ops-level entry point: no training
+    path calls it (nor the reference's). The chunked U pass
+    (``ops.u_histogram.build_histograms_u_chunked``) calls :func:`bin_scatter`
+    on its stack of row chunks."""
     from mmlspark_tpu_torch.ops.u_histogram import (
         _expand_packed,
         _finish,

@@ -24,11 +24,13 @@ depend on row order:
   (``ops.hopper_histogram.fixed_point_scales``), turned into float32 at the
   end. The reference sums the same bf16 values in float32.
 
-Past the U budget (``MMLSPARK_TPU_U_BUDGET``, default 8 GB) the pass streams
-row chunks: each chunk's one-hot is rebuilt from the pre-laid-out bins and
-contracted by the same kernel into one accumulator
-(:func:`build_histograms_u_chunked`), so chunked and resident passes agree
-bit for bit.
+Past the U budget (``MMLSPARK_TPU_U_BUDGET``, default 8 GB) the pass walks
+row chunks of the pre-laid-out bins (:func:`build_histograms_u_chunked`).
+The reference rebuilds each chunk's one-hot and contracts it on the MXU; on
+the card a chunk's contraction is computed straight from its bins, by the
+bin-scatter kernel (``kernels/csrc/bin_scatter.cu``) in one launch over all
+chunks, which reads F bytes a row where the one-hot would be K_pad. It sums
+the same integers, so chunked and resident passes agree bit for bit.
 """
 
 from __future__ import annotations
@@ -45,8 +47,10 @@ import torch
 from mmlspark_tpu_torch.ops.hopper_histogram import (
     MAX_NODES,
     SMEM_BUDGET,
+    SMEM_BUDGET_BF16,
     THREADS,
     WAVES,
+    bin_scatter,
     fixed_point_scales,
 )
 
@@ -69,8 +73,8 @@ class USpec:
     k: int  # sum of widths
     k_pad: int  # k rounded up to 128
     num_bins: int  # dense histogram width B the caller expects
-    # 0 = fit-resident U; > 0 = row-chunked passes of this many rows, each
-    # rebuilding its chunk's one-hot from prepare_chunked_bins' layout.
+    # 0 = fit-resident U; > 0 = row-chunked passes of this many rows over
+    # prepare_chunked_bins' layout.
     chunk_rows: int = 0
 
     @property
@@ -148,17 +152,13 @@ def _dense_maps_cached(spec: USpec) -> Tuple[np.ndarray, np.ndarray]:
     return idx, mask
 
 
-def _onehot(bins_t: torch.Tensor, spec: USpec, n_pad: int, out=None) -> torch.Tensor:
+def _onehot(bins_t: torch.Tensor, spec: USpec, n_pad: int) -> torch.Tensor:
     """(K_pad, n_pad) uint8 one-hot of the (F, n) bins; columns n..n_pad-1
     and the k..k_pad tail stay zero, and a bin >= its feature's width
-    matches nothing. ``out``, a one-hot of other bins of the same shape, is
-    overwritten in place (its zero regions stay zero)."""
+    matches nothing."""
     f, n = bins_t.shape
     dev = bins_t.device
-    if out is None:
-        u = torch.zeros((spec.k_pad, n_pad), dtype=torch.uint8, device=dev)
-    else:
-        u = out.zero_()
+    u = torch.zeros((spec.k_pad, n_pad), dtype=torch.uint8, device=dev)
     # One scatter of the F set bytes of each row. A bin past its feature's
     # width writes a 0 into the feature's first row instead, a byte no other
     # (feature, row) pair writes, so the writes never collide.
@@ -300,11 +300,13 @@ def panel_dot_plan(k_pad: int, n_pad: int, num_nodes: int, quant: bool,
                    num_sms: int) -> PanelDotPlan:
     """Launch layout: each block owns ``chunk_rows`` packed rows, whose
     (chunk_rows, 3k) accumulator and a (3 + 1, TILE_ROWS) panel tile fill
-    :data:`SMEM_BUDGET`, and walks a range of row tiles; enough row groups
-    for :data:`WAVES` waves of resident blocks."""
+    :data:`SMEM_BUDGET` (:data:`SMEM_BUDGET_BF16` on bf16 stats), and walks a
+    range of row tiles; enough row groups for :data:`WAVES` waves of
+    resident blocks."""
     acc_bytes = 4 if quant else 8
+    budget = SMEM_BUDGET if quant else SMEM_BUDGET_BF16
     tile = TILE_ROWS * (3 * acc_bytes + 4)
-    chunk = max(1, min(k_pad, (SMEM_BUDGET - tile) // (3 * num_nodes * acc_bytes)))
+    chunk = max(1, min(k_pad, (budget - tile) // (3 * num_nodes * acc_bytes)))
     grid_x = -(-k_pad // chunk)
     tiles = max(1, -(-n_pad // TILE_ROWS))
     target = max(1, WAVES * num_sms * (2048 // THREADS) // grid_x)
@@ -334,7 +336,7 @@ def _exact_contract(u: torch.Tensor, panel_t: torch.Tensor, limbs: int,
     return out
 
 
-def fused_panel_dot_plain(u, stats, node, num_nodes: int, scale=None, out=None):
+def fused_panel_dot_plain(u, stats, node, num_nodes: int, scale=None):
     """Plain PyTorch version of :func:`fused_panel_dot`: the reference's
     two-op formulation, the (3k, N_pad) panel (:func:`_stat_panel_t`) then
     one contraction, in the kernel's integer arithmetic."""
@@ -346,14 +348,10 @@ def fused_panel_dot_plain(u, stats, node, num_nodes: int, scale=None, out=None):
         q = torch.round(stats.to(torch.float64) * scale[:, None]).to(torch.int64)
         limbs = 3  # |q| < 2**62
     acc = _exact_contract(u, _stat_panel_t(q, node, num_nodes, n_pad), limbs)
-    acc = acc.to(torch.int32 if scale is None else torch.int64)
-    if out is None:
-        return acc
-    out += acc
-    return out
+    return acc.to(torch.int32 if scale is None else torch.int64)
 
 
-def _check_panel_dot(u, stats, node, num_nodes, scale, out):
+def _check_panel_dot(u, stats, node, num_nodes, scale):
     if u.dim() != 2 or u.dtype != torch.uint8 or not u.is_contiguous():
         raise TypeError(f"u must be a contiguous (K_pad, N_pad) uint8 tensor, got "
                         f"{tuple(u.shape)} {u.dtype}")
@@ -375,11 +373,7 @@ def _check_panel_dot(u, stats, node, num_nodes, scale, out):
         raise TypeError(f"scale must be (3,) float64, got {tuple(scale.shape)} {scale.dtype}")
     if not 1 <= num_nodes <= MAX_NODES:
         raise ValueError(f"num_nodes={num_nodes} outside [1, {MAX_NODES}]")
-    acc_dtype = torch.int32 if quant else torch.int64
-    if out is not None and (out.shape != (k_pad, 3 * num_nodes) or out.dtype != acc_dtype
-                            or not out.is_contiguous()):
-        raise TypeError(f"out must be a contiguous ({k_pad}, {3 * num_nodes}) {acc_dtype}")
-    for name, t in (("stats", stats), ("node", node), ("scale", scale), ("out", out)):
+    for name, t in (("stats", stats), ("node", node), ("scale", scale)):
         if t is None:
             continue
         if t.device != u.device:
@@ -388,28 +382,27 @@ def _check_panel_dot(u, stats, node, num_nodes, scale, out):
             raise ValueError(f"{name} must be contiguous")
     if u.is_cuda and u.data_ptr() % 16:
         raise ValueError("u must be 16-byte aligned")
-    return quant, acc_dtype
+    return quant
 
 
-def fused_panel_dot(u, stats, node, num_nodes: int, scale=None, out=None) -> torch.Tensor:
+def fused_panel_dot(u, stats, node, num_nodes: int, scale=None) -> torch.Tensor:
     """The U pass's contraction, ``acc[c, s*k + j] += sum_i U[c, i] *
     q_s[i] * (node_i == j)``: (K_pad, 3k) int32 for int8 ``stats`` (exact
     quantized sums), int64 for bf16 ``stats`` with their (3,) fixed-point
     ``scale`` (``q = round(x * scale)``). Rows keyed outside
     ``[0, num_nodes)`` and U columns past the stats add nothing; U must be
-    0/1. Adds into ``out`` when given (the chunked pass accumulates its
-    chunks there), else into a fresh zeroed accumulator.
+    0/1.
 
     On a CUDA tensor it launches ``kernels/csrc/u_histogram.cu``; on a CPU
     tensor it computes :func:`fused_panel_dot_plain`."""
-    quant, acc_dtype = _check_panel_dot(u, stats, node, num_nodes, scale, out)
+    quant = _check_panel_dot(u, stats, node, num_nodes, scale)
     if not u.is_cuda:
-        return fused_panel_dot_plain(u, stats, node, num_nodes, scale, out)
+        return fused_panel_dot_plain(u, stats, node, num_nodes, scale)
     from mmlspark_tpu_torch.kernels.build import histogram_extension
 
     k_pad, n_pad = u.shape
-    if out is None:
-        out = torch.zeros((k_pad, 3 * num_nodes), dtype=acc_dtype, device=u.device)
+    out = torch.zeros((k_pad, 3 * num_nodes), dtype=torch.int32 if quant else torch.int64,
+                      device=u.device)
     n = stats.shape[1]
     if n == 0:
         return out
@@ -482,29 +475,18 @@ def build_histograms_u_chunked(
     stats=None,
     dequant: bool = True,
 ) -> torch.Tensor:
-    """Row-chunked :func:`build_histograms_u`, same contract and arithmetic:
-    chunk by chunk, the chunk's one-hot is rebuilt from its bins and
-    contracted into one accumulator, in chunk order. The fixed-point scales
-    come from all N rows, so the result equals the resident pass bit for
-    bit."""
+    """Row-chunked :func:`build_histograms_u`, same contract and arithmetic,
+    with no U: each chunk's contraction with its stat panel is computed from
+    the chunk's bins by the bin-scatter kernel
+    (``ops.hopper_histogram.bin_scatter``), one launch over the whole
+    (m, F, chunk) stack, reading the (3, N) stats and (N,) keys in place.
+    The fixed-point scales come from all N rows and the sums are exact
+    integers, so the result equals the resident pass bit for bit."""
     stats, scales = _split_stats(stats, grad, hess, count)
     if 3 * num_nodes > _LANE:
         raise ValueError(f"panel width 3*{num_nodes} exceeds one lane group")
-    m, _, chunk = bins_chunks.shape
-    n = node.shape[0]
     scale = None if scales is not None else stat_scales(stats)
-    total = m * chunk
-    node_p = torch.full((total,), -1, dtype=torch.int32, device=node.device)
-    node_p[:n] = node
-    stats_p = torch.zeros((3, total), dtype=stats.dtype, device=stats.device)
-    stats_p[:, :n] = stats
-    node_c = node_p.reshape(m, chunk)
-    stats_c = stats_p.reshape(3, m, chunk).permute(1, 0, 2).contiguous()  # (m, 3, chunk)
-    acc = torch.zeros((spec.k_pad, 3 * num_nodes),
-                      dtype=torch.int32 if scale is None else torch.int64, device=node.device)
-    u_c = None
-    for j in range(m):
-        u_c = _onehot(bins_chunks[j], spec, chunk, out=u_c)
-        fused_panel_dot(u_c, stats_c[j], node_c[j], num_nodes, scale, out=acc)
-    packed = _finish(acc, scale, n, num_nodes)
+    acc = bin_scatter(bins_chunks, stats, node.to(torch.int32).contiguous(), num_nodes, spec,
+                      scale)
+    packed = _finish(acc, scale, node.shape[0], num_nodes)
     return _expand_packed(packed, scales, spec, num_nodes, dequant=dequant)

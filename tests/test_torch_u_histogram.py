@@ -338,7 +338,7 @@ def _wrapper_args(n=64, k=2):
         dict(node=torch.zeros(64, dtype=torch.int64)),
         dict(stats=torch.zeros((3, 64), dtype=torch.bfloat16)),  # bf16 without its scales
         dict(scale=torch.ones(3, dtype=torch.float64)),  # int8 with scales
-        dict(out=torch.zeros((128, 6), dtype=torch.int64)),
+        dict(u=torch.zeros((128, 528), dtype=torch.uint8)[:, :512]),  # not contiguous
     ],
 )
 def test_panel_dot_rejects_inputs_the_kernel_does_not_take(bad):
@@ -357,6 +357,8 @@ def test_panel_dot_rejects_inputs_the_kernel_does_not_take(bad):
         dict(stats=torch.zeros((3, 64), dtype=torch.float32)),
         dict(node=torch.zeros(64, dtype=torch.int64)),
         dict(scale=torch.ones(3, dtype=torch.float64)),
+        dict(bins_t=torch.zeros((2, 7, 31), dtype=torch.uint8)),  # a stack short of N rows
+        dict(bins_t=torch.zeros((7, 65), dtype=torch.uint8)),  # flat bins of another N
     ],
 )
 def test_bin_scatter_rejects_inputs_the_kernel_does_not_take(bad):
@@ -365,6 +367,7 @@ def test_bin_scatter_rejects_inputs_the_kernel_does_not_take(bad):
                 node=torch.zeros(64, dtype=torch.int32), num_nodes=2,
                 spec=tu.make_u_spec(32, len(WIDTHS), WIDTHS))
     args.update(bad)
+    args["bins"] = args.pop("bins_t")
     with pytest.raises((TypeError, ValueError)):
         hh.bin_scatter(**args)
 
@@ -374,21 +377,23 @@ def test_bin_scatter_rejects_inputs_the_kernel_does_not_take(bad):
 @pytest.mark.parametrize("n", [512, 1_000_448, 599_040])
 def test_panel_dot_plan_covers_u_and_fits_shared_memory(k, quant, n):
     plan = tu.panel_dot_plan(7168, n, k, quant, num_sms=132)
-    assert plan.smem_bytes <= tu.SMEM_BUDGET
+    assert plan.smem_bytes <= (tu.SMEM_BUDGET if quant else tu.SMEM_BUDGET_BF16) <= hh.SMEM_MAX
     assert plan.rows_per_block % tu.TILE_ROWS == 0
     assert plan.grid_x * plan.chunk_rows >= 7168 > (plan.grid_x - 1) * plan.chunk_rows
     assert plan.grid_y * plan.rows_per_block >= n > (plan.grid_y - 1) * plan.rows_per_block
 
 
-@pytest.mark.parametrize("per_feature", [None, WIDTHS])
-@pytest.mark.parametrize("k", [1, 8, 42])
-@pytest.mark.parametrize("quant", [True, False])
-def test_bin_scatter_plan_gives_each_chunk_its_features(per_feature, k, quant):
+def _check_scatter_plan(per_feature, k, quant, budget):
     spec = tu.make_u_spec(256, 28 if per_feature is None else len(per_feature), per_feature)
     plan = hh.bin_scatter_plan(11_000_000, spec, k, quant, num_sms=132)
-    assert plan.smem_bytes <= hh.SMEM_BUDGET
+    assert plan.smem_bytes <= budget <= hh.SMEM_MAX
+    assert plan.smem_bytes == plan.chunk_rows * 3 * k * (4 if quant else 8)
     assert plan.grid_x * plan.chunk_rows >= spec.k > (plan.grid_x - 1) * plan.chunk_rows
-    assert plan.grid_y * plan.rows_per_block >= 11_000_000
+    # the fewest chunks the budget allows
+    assert plan.grid_x == -(-spec.k // min(spec.k, budget // (3 * k * (4 if quant else 8))))
+    assert plan.rows_per_block % hh.ROWS_PER_THREAD == 0
+    assert plan.grid_y * plan.rows_per_block >= 11_000_000 > (
+        (plan.grid_y - 1) * plan.rows_per_block)
     for j in range(plan.grid_x):
         first, last = plan.features[2 * j : 2 * j + 2]
         c0, c1 = j * plan.chunk_rows, min((j + 1) * plan.chunk_rows, spec.k)
@@ -397,11 +402,251 @@ def test_bin_scatter_plan_gives_each_chunk_its_features(per_feature, k, quant):
         assert owners == set(range(first, last + 1))
 
 
+@pytest.mark.parametrize("per_feature", [None, WIDTHS])
+@pytest.mark.parametrize("k", [1, 8, 42])
+@pytest.mark.parametrize("quant", [True, False])
+def test_bin_scatter_plan_gives_each_chunk_its_features(per_feature, k, quant):
+    _check_scatter_plan(per_feature, k, quant, hh.BIN_SCATTER_SMEM_BUDGET)
+
+
+@pytest.mark.parametrize("budget", [112 * 1024, hh.SMEM_MAX], ids=["112KB", "227KB"])
+@pytest.mark.parametrize("per_feature", [None, WIDTHS])
+@pytest.mark.parametrize("k", [1, 8, 21, 42])
+@pytest.mark.parametrize("quant", [True, False])
+def test_bin_scatter_plan_at_both_budgets(per_feature, k, quant, budget, monkeypatch):
+    monkeypatch.setattr(hh, "BIN_SCATTER_SMEM_BUDGET", budget)
+    _check_scatter_plan(per_feature, k, quant, budget)
+
+
 def test_bin_scatter_plan_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="lane group"):
         hh.bin_scatter_plan(100, tu.make_u_spec(256, 3), 43, True, num_sms=132)
     with pytest.raises(ValueError, match="uint8"):
         hh.bin_scatter_plan(100, tu.make_u_spec(512, 3), 8, True, num_sms=132)
+
+
+# -- the packed-space kernels' arithmetic, mirrored in numpy ------------------
+
+MASK32 = (1 << 32) - 1
+MASK64 = (1 << 64) - 1
+
+
+def _plane_add(lo, hi, idx, v):
+    """``packed_hist.cuh``'s 64-bit shared add: the low half with one uint32
+    atomic, its carry out added with the high half by a second, and a half
+    that adds 0 skipped. ``lo`` and ``hi`` are the two planes."""
+    v &= MASK64
+    ql, qh = v & MASK32, v >> 32
+    if ql:
+        old = lo[idx]
+        lo[idx] = (old + ql) & MASK32
+        qh = (qh + (1 if old > MASK32 - ql else 0)) & MASK32  # old > ~ql
+    if qh:
+        hi[idx] = (hi[idx] + qh) & MASK32
+
+
+def _as_int64(v):
+    v &= MASK64
+    return v - (1 << 64) if v >> 63 else v
+
+
+def _largest_fixed_point(n):
+    """The largest ``round(x * 2**s)`` the U path's scales give N rows."""
+    x = torch.full((n,), 0.99609375, dtype=torch.bfloat16)  # just below a power of two
+    scale = tu.stat_scales(torch.stack([x, x, x]))[0].item()
+    return int(round(0.99609375 * scale))
+
+
+Q64 = _largest_fixed_point(11_000_000)
+EDGES64 = [1, -1, 2 ** 32 - 1, -(2 ** 32 - 1), 2 ** 32, -(2 ** 32), 2 ** 37, Q64, -Q64,
+           2 ** 62, -(2 ** 62)]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("edge", EDGES64)
+def test_two_plane_carry_add_gives_exact_int64_cells_in_any_order(edge, seed):
+    """Adds spread over the cells of a (c, s, key) block: the lo/hi planes
+    recombine to the exact int64 sum of each cell whatever the order,
+    including low halves that carry on every add (2**32 - 1, -1) and
+    partial sums that wrap past 2**63 when the cell's total does not."""
+    rng = np.random.default_rng(seed)
+    cells = 12
+    reps = max(1, min(40, 2 ** 61 // abs(edge)))
+    adds = [(int(c), edge) for c in rng.integers(0, cells, reps)]
+    adds += [(int(c), int(v)) for c, v in zip(rng.integers(0, cells, 80),
+                                              rng.integers(-Q64, Q64, 80))]
+    adds += [(3, 2 ** 62), (3, 2 ** 62), (3, -(2 ** 62)), (3, -(2 ** 62))]  # wraps, then back
+    exact = [0] * cells
+    for c, v in adds:
+        exact[c] += v
+    assert all(abs(v) < 2 ** 63 for v in exact)
+    for _ in range(3):
+        rng.shuffle(adds)
+        lo, hi = [0] * cells, [0] * cells
+        for c, v in adds:
+            _plane_add(lo, hi, c, v)
+        assert [_as_int64(lo[c] | (hi[c] << 32)) for c in range(cells)] == exact
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 7])
+def test_plane_cells_flushed_with_64_bit_adds_give_the_exact_sum(blocks):
+    """Per-block planes, then the flush's native 64-bit global adds of the
+    recombined words (mod 2**64): the exact sum whatever the split."""
+    rng = np.random.default_rng(blocks)
+    values = [int(v) for v in rng.integers(-Q64, Q64, 500)] + [Q64] * 50 + [-1] * 30
+    total = 0
+    for part in np.array_split(np.array(values, dtype=object), blocks):
+        lo, hi = [0], [0]
+        for v in part:
+            _plane_add(lo, hi, 0, int(v))
+        total = (total + (lo[0] | (hi[0] << 32))) & MASK64
+    assert _as_int64(total) == sum(values)
+
+
+def test_largest_fixed_point_value_of_the_u_path_sums_within_int64():
+    assert 2 ** 36 < Q64 < 2 ** 38
+    assert 11_000_000 * Q64 < 2 ** 62
+
+
+def _stack(bins_t, chunk, seed):
+    """(m, F, chunk) stack of the (F, N) bins, as ``prepare_chunked_bins``
+    lays it out, with random bins in the padded tail (rows at or past N),
+    which no version may read."""
+    f, n = bins_t.shape
+    m = -(-n // chunk)
+    x = torch.from_numpy(np.random.default_rng(seed).integers(0, 256, (f, m * chunk))
+                         .astype(np.uint8))
+    x[:, :n] = bins_t
+    return x.reshape(f, m, chunk).permute(1, 0, 2).contiguous()
+
+
+def _mirror_bin_scatter(stack, q, node, k, spec, plan, n, quant, seed):
+    """bin_scatter.cu in numpy: the plan's blocks, each walking its row
+    range in 4-row steps (in a shuffled order: threads run in any order),
+    finding each row's bytes in the stack (a step may cross a chunk's end),
+    adding into int32 cells or lo/hi planes, then the flush into the global
+    accumulator mod 2**64. ``q`` holds the (3, n) integers the kernel sums."""
+    m, f, chunk = stack.shape
+    flat = stack.reshape(-1).tolist()
+    width = 3 * k
+    out = [0] * (spec.k_pad * width)
+    rng = np.random.default_rng(seed)
+    for bx in range(plan.grid_x):
+        c0 = bx * plan.chunk_rows
+        nc = min(plan.chunk_rows, spec.k - c0)
+        first, last = plan.features[2 * bx : 2 * bx + 2]
+        for by in range(plan.grid_y):
+            r0 = by * plan.rows_per_block
+            assert r0 % hh.ROWS_PER_THREAD == 0
+            r1 = min(n, r0 + plan.rows_per_block)
+            lo, hi = [0] * (nc * width), [0] * (nc * width)
+            for i in rng.permutation(np.arange(r0, r1, 4)).tolist():
+                rows = range(i, min(i + 4, r1))
+                keys = [int(node[r]) if 0 <= node[r] < k else -1 for r in rows]
+                ci, col = divmod(i, chunk)
+                for ff in range(first, last + 1):
+                    for r, key in enumerate(keys):
+                        cr = (col + r) // chunk
+                        b = flat[((ci + cr) * f + ff) * chunk + col + r - cr * chunk]
+                        c = spec.offsets[ff] - c0 + b
+                        if key < 0 or b >= spec.widths[ff] or not 0 <= c < nc:
+                            continue
+                        for s in range(3):
+                            cell = c * width + s * k + key
+                            if quant:
+                                lo[cell] += q[s][i + r]
+                            else:
+                                _plane_add(lo, hi, cell, q[s][i + r])
+            for j in range(nc * width):
+                v = lo[j] if quant else lo[j] | (hi[j] << 32)
+                out[c0 * width + j] = (out[c0 * width + j] + v) & MASK64
+    acc = np.array([_as_int64(v) for v in out], dtype=np.int64).reshape(spec.k_pad, width)
+    return acc.astype(np.int32) if quant else acc
+
+
+@pytest.mark.parametrize("chunk", [None, 7, 512], ids=["flat", "chunk7", "chunk512"])
+@pytest.mark.parametrize("quant", [True, False], ids=["quant", "bf16"])
+@pytest.mark.parametrize("k", [1, 5, 42])
+def test_chunk_stack_mirror_equals_the_plain_version_on_flat_bins(chunk, quant, k, monkeypatch):
+    """The kernel's indexing of a stack of row chunks (odd N, pad bins in
+    the stack's tail, keys out of range, bins past their feature's width),
+    mirrored in numpy, against ``bin_scatter_plain`` on the flat (F, N)
+    bins; the wrapper on the stack (its plain version here) agrees too."""
+    n = 1001
+    bins, g, h, c, node, _, tstats = _pass_inputs(k, quant, seed=40 + k, n=n)
+    bins[::7, 1] = 31  # past feature 1's width (5)
+    spec = tu.make_u_spec(32, len(WIDTHS), WIDTHS)
+    (bt,) = _t(bins.T)
+    stats = tstats[0] if quant else tu.stat_rows(*_t(g, h, c))
+    scale = None if quant else tu.stat_scales(stats)
+    nd = torch.from_numpy(node)
+    stack = bt[None] if chunk is None else _stack(bt, chunk, seed=k)
+    row_bytes = 3 * k * (4 if quant else 8)
+    monkeypatch.setattr(hh, "BIN_SCATTER_THREADS", 8)  # several row blocks at this size
+    monkeypatch.setattr(hh, "BIN_SCATTER_SMEM_BUDGET", 40 * row_bytes)  # 4 packed-row chunks
+    plan = hh.bin_scatter_plan(n, spec, k, quant, num_sms=2)
+    assert plan.grid_x == 4 and plan.grid_y > 1
+    q = (stats.long() if quant else torch.round(stats.double() * scale[:, None]).long()).tolist()
+    mirror = _mirror_bin_scatter(stack, q, node, k, spec, plan, n, quant, seed=k)
+    flat = hh.bin_scatter_plain(bt, stats, nd, k, spec, scale)
+    np.testing.assert_array_equal(mirror, flat.numpy())
+    on_stack = hh.bin_scatter(stack if chunk else bt, stats, nd, k, spec, scale)
+    assert on_stack.dtype == flat.dtype
+    torch.testing.assert_close(on_stack, flat, rtol=0, atol=0)
+
+
+def test_bin_scatter_layout_is_made_once_per_spec_and_plan():
+    spec = tu.make_u_spec(32, len(WIDTHS), WIDTHS)
+    chunked = tu.chunked_u_spec(3000, spec, 1)
+    for sp in (spec, chunked):
+        plan = hh.bin_scatter_plan(3000, sp, 5, True, num_sms=132)
+        layout = hh._bin_scatter_layout(sp, plan.features, torch.device("cpu"))
+        assert layout.dtype == torch.int32
+        assert layout.tolist() == list(sp.offsets) + list(sp.widths) + list(plan.features)
+        again = hh.bin_scatter_plan(10_000, sp, 5, True, num_sms=132)
+        assert hh._bin_scatter_layout(sp, again.features, torch.device("cpu")) is layout
+    other = hh.bin_scatter_plan(3000, spec, 42, False, num_sms=132)
+    assert hh._bin_scatter_layout(spec, other.features, torch.device("cpu")) is not layout
+
+
+@pytest.mark.parametrize("quant", [True, False], ids=["quant", "bf16"])
+@pytest.mark.parametrize("dequant", [False, True], ids=["packed", "dequant"])
+@pytest.mark.parametrize("k", [1, 5, 42])
+def test_chunked_pass_is_bit_equal_to_the_resident_pass(k, quant, dequant):
+    bins, g, h, c, node, _, tstats = _pass_inputs(k, quant, seed=50 + k, n=2777)
+    ts = tu.make_u_spec(32, len(WIDTHS), WIDTHS)
+    (bt,) = _t(bins.T)
+    args = _t(g, h, c, node)
+    kw = dict(stats=tstats, dequant=dequant)
+    resident = tu.build_histograms_u(tu.build_u(bt, ts), *args, k, ts, **kw)
+    for budget in (1, 2 * ts.k_pad * 1024, 2 * ts.k_pad * 4096):  # 6, 3 and 1 chunks
+        cs = tu.chunked_u_spec(2777, ts, budget)
+        chunked = tu.build_histograms_u_chunked(tu.prepare_chunked_bins(bt, cs), *args, k, cs,
+                                                **kw)
+        assert chunked.dtype == resident.dtype
+        torch.testing.assert_close(chunked, resident, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("quant", [True, False], ids=["quant", "bf16"])
+@pytest.mark.parametrize("chunk_budget", [512, 1024, 2048])
+def test_chunked_pass_matches_jax_at_every_chunk_size(quant, chunk_budget):
+    k = 5
+    bins, g, h, c, node, jstats, tstats = _pass_inputs(k, quant, seed=60, n=3000)
+    js = ju.make_u_spec(32, len(WIDTHS), WIDTHS)
+    ts = tu.make_u_spec(32, len(WIDTHS), WIDTHS)
+    jc = ju.chunked_u_spec(3000, js, 2 * js.k_pad * chunk_budget)
+    tc = tu.chunked_u_spec(3000, ts, 2 * ts.k_pad * chunk_budget)
+    assert tc.chunk_rows == jc.chunk_rows == chunk_budget
+    ref = np.asarray(ju.build_histograms_u_chunked(
+        ju.prepare_chunked_bins(jnp.asarray(bins), jc), *map(jnp.asarray, (g, h, c, node)), k,
+        jc, stats=jstats, dequant=False))
+    (bt,) = _t(bins.T)
+    port = tu.build_histograms_u_chunked(tu.prepare_chunked_bins(bt, tc), *_t(g, h, c, node), k,
+                                         tc, stats=tstats, dequant=False)
+    if quant:
+        np.testing.assert_array_equal(port.numpy(), ref)
+    else:
+        _assert_bf16_close(port.numpy(), ref)
 
 
 # -- fits -----------------------------------------------------------------------
@@ -591,3 +836,102 @@ def test_kernels_match_plain_versions_on_card(quant, k):
     torch.testing.assert_close(scattered, hh.bin_scatter_plain(bins_t, stats, node, k, spec,
                                                                scale), rtol=0, atol=0)
     torch.testing.assert_close(scattered, out, rtol=0, atol=0)
+
+
+def _card_case(n, k, quant, skew, seed):
+    """Bins, stats, keys and scale on the card at HIGGS width: keys in
+    [0, k] (key k out of range), skewed bins with three values on 9 of the
+    28 features."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, 256, size=(28, n)).astype(np.uint8)
+    if skew:
+        bins[:9] = rng.integers(0, 3, size=(9, n))
+    g, h, c = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in
+               (rng.normal(size=n), rng.uniform(0.01, 0.25, size=n), np.ones(n)))
+    node = torch.from_numpy(rng.integers(0, k + 1, size=n).astype(np.int32)).to(dev)
+    if quant:
+        stats, _ = tu.stat_rows_quant(g, h, c, torch.rand((2, n), device=dev))
+        scale = None
+    else:
+        stats = tu.stat_rows(g, h, c)
+        scale = tu.stat_scales(stats)
+    return torch.from_numpy(bins).to(dev), stats, node, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [100_003, 100_000])
+@pytest.mark.parametrize("skew", [False, True], ids=["uniform", "skewed"])
+@pytest.mark.parametrize("quant", [True, False], ids=["quant", "bf16"])
+@pytest.mark.parametrize("k", [1, 8, 42])
+def test_chunk_stack_entry_matches_plain_version_on_card(k, quant, skew, n):
+    """The chunked pass's one launch over a stack of 7 row chunks (random
+    bins in its padded tail) against the plain version, the flat (F, N)
+    entry and a second launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    bins_t, stats, node, scale = _card_case(n, k, quant, skew, seed=k + n)
+    spec = tu.make_u_spec(256, 28)
+    cs = tu.chunked_u_spec(n, spec, 2 * spec.k_pad * 16_384)
+    stack = tu.prepare_chunked_bins(bins_t, cs)
+    assert stack.shape == (7, 28, 16_384)
+    stack.view(-1, 16_384)[-28:, n - 6 * 16_384:] = 255  # pad rows: never read
+    out = hh.bin_scatter(stack, stats, node, k, cs, scale)
+    plain = hh.bin_scatter_plain(stack, stats, node, k, cs, scale)
+    torch.testing.assert_close(out, plain, rtol=0, atol=0)
+    torch.testing.assert_close(out, hh.bin_scatter(stack, stats, node, k, cs, scale),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(out, hh.bin_scatter(bins_t, stats, node, k, spec, scale),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [True, False], ids=["quant", "bf16"])
+@pytest.mark.parametrize("k", [1, 8])
+def test_bin_scatter_takes_inputs_off_the_vector_boundary_on_card(k, quant):
+    """Bins, stats and keys that start off their vector boundary (views at
+    an offset) give the same sums as aligned copies and the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    n = 100_001
+    bins_t, stats, node, scale = _card_case(n, k, quant, False, seed=70 + k)
+    spec = tu.make_u_spec(256, 28)
+    views = []
+    for t in (bins_t, stats, node):
+        buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:] = t.reshape(-1)
+        views.append(buf[1:].view(t.shape))
+    out = hh.bin_scatter(views[0], views[1], views[2], k, spec, scale)
+    torch.testing.assert_close(out, hh.bin_scatter(bins_t, stats, node, k, spec, scale),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(out, hh.bin_scatter_plain(*views, k, spec, scale), rtol=0, atol=0)
+
+
+def test_sass_atomics_counts_each_atomic_opcode():
+    from mmlspark_tpu_torch.kernels import sass_atomics
+
+    sass = """
+        /*0a10*/   ATOMS.ADD RZ, [R3], R5 ;
+        /*0a20*/   ATOMS.CAST.SPIN.64 P0, [R2], R4, R6 ;
+        /*0a30*/   ATOMS.ADD R7, [R3+0x4], R5 ;
+        /*0a40*/   REDG.E.ADD.64.STRONG.GPU desc[UR4][R8.64], R10 ;
+        /*0a50*/   LDS R4, [R2] ;
+    """
+    found = sass_atomics._OPCODE.findall(sass)
+    assert sorted(found) == ["ATOMS.ADD", "ATOMS.ADD", "ATOMS.CAST.SPIN.64",
+                             "REDG.E.ADD.64.STRONG.GPU"]
+    assert any(op.startswith(sass_atomics.CAS_LOOP) for op in found)
+    assert set(sass_atomics.SOURCES) == {p.name for p in sass_atomics.CSRC_DIR.glob("*.cu")}
+
+
+@pytest.mark.cuda
+def test_kernels_compile_no_compare_and_swap_loop_on_card():
+    """The packed-space kernels' 64-bit shared adds are pairs of 32-bit
+    ATOMS.ADD, with no ATOMS.CAST.SPIN loop left (needs nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and its toolkit")
+    from mmlspark_tpu_torch.kernels import sass_atomics
+
+    for src, ops in sass_atomics.atomics().items():
+        assert ops.get("ATOMS.ADD", 0) > 0, src
+        assert not any(op.startswith(sass_atomics.CAS_LOOP) for op in ops), (src, ops)
