@@ -50,8 +50,32 @@ non-zero and prints no result):
    (resident U, U pass launches) and on 11,000,000 rows (19 chunks at the
    8 GB budget, bin-scatter launches): binning / U build / boosting
    seconds, peak device bytes, held-out AUC on 500,000 rows.
-10. One JSON line with every kernel, then the card line, then the result
-   line.
+10. Categorical fit, in the shape of the airline set of szilard/benchm-ml
+   (dep_delayed_15min; LightGBM's "Expo" categorical experiment):
+   10,000,000 rows, Month, DayofMonth, DayOfWeek, UniqueCarrier, Origin and
+   Dest categorical (Zipf-skewed; Origin and Dest overflow the 254 value
+   bins), DepTime and Distance numeric. LightGBMClassifier.fit with
+   categoricalSlotIndexes on the default path against the same fit on the
+   codes as numbers (held-out AUC on 500,000 rows must be higher, predict
+   throughput); then the quantized U path on 1,000,000 rows (resident U,
+   categorical routing by the membership product) and 10,000,000 (chunked);
+   the three kernels on the categorical bins, bit-equal to their plain
+   versions.
+11. Exclusive Feature Bundling: the same columns one-hot encoded (672 0/1
+   columns and the 2 numeric ones) at 1,000,000 rows (cut from 10,000,000:
+   the raw float matrix is 5.4 GB of host memory at 1M). The host parts
+   timed apart (binning, bundle plan, packing), C and K before and after;
+   bundled against unbundled fits on the default path (identical trees) and
+   the resident quantized U path (identical model text); the three kernels
+   on the packed columns and on widths 2 and 256, bit-equal to their plain
+   versions.
+12. The U path's out-of-memory ladder on phase 9's 1,000,000-row resident
+   fit: the port's hook raises torch.cuda.OutOfMemoryError at the first
+   pass; the fit halves the U budget once, takes chunked passes and writes
+   phase 9's model text. Then a real one: a ballast allocation takes the
+   card's free memory once U is built (the line says whether it raised).
+13. One JSON line with every kernel, then the card line, then the result
+   line. Each phase prints its wall time; TF32 matmuls must be off.
 """
 
 import json
@@ -75,6 +99,7 @@ N_TEST = 500_000
 FIT_ITERS = 10
 N_U = 1_000_000  # U pass rows: a 7.2 GB U at 28 x 256
 U_BUDGET_4_CHUNKS = 2 * 7168 * 262_144  # 1M rows in 4 chunks of 262,144
+PLAN_REPS = 5  # timed launches of each case in the launch-plan sweeps
 
 # Card memory rate (bytes/s) and float32 peak outside the tensor cores
 # (ops/s), by name: NVIDIA's data sheets at the full power limit.
@@ -272,7 +297,7 @@ def _kernel_plans(torch, hh, bins_t, skewed, grad, hess, count, nodes, b):
                 lp = hh.launch_plan(bt.shape[1], bt.shape[0], k, b,
                                     props.multi_processor_count)
                 times[label] = dict(
-                    ms=_time_ms(torch, lambda: hh.build_histograms_cuda(*args, k, b), 20),
+                    ms=_time_ms(torch, lambda: hh.build_histograms_cuda(*args, k, b), PLAN_REPS),
                     fg=lp.fg, groups=lp.groups, row_blocks=lp.row_blocks,
                     smem_bytes=lp.smem_bytes)
             results[name] = times
@@ -591,7 +616,7 @@ def _u_plans(torch, uh, u, cases, nodes):
                     raise AssertionError(f"U pass plan {name} {label}: result differs")
                 plan = uh.panel_dot_plan(*u.shape, k, scale is None,
                                          torch.cuda.get_device_properties(0).multi_processor_count)
-                times[label] = dict(ms=_time_ms(torch, lambda: uh.fused_panel_dot(*args), 20),
+                times[label] = dict(ms=_time_ms(torch, lambda: uh.fused_panel_dot(*args), PLAN_REPS),
                                     chunks=plan.grid_x, smem_bytes=plan.smem_bytes)
             results[name] = times
             print(f"u pass plan {name}: " + json.dumps(times), flush=True)
@@ -639,7 +664,7 @@ def _scatter_plans(torch, hh, bins_t, skewed, cases, nodes, spec):
                     raise AssertionError(f"bin scatter plan {name} {label}: result differs")
                 bp = hh.bin_scatter_plan(bt.shape[1], spec, k, scale is None,
                                          props.multi_processor_count)
-                times[label] = dict(ms=_time_ms(torch, lambda: hh.bin_scatter(*args), 20),
+                times[label] = dict(ms=_time_ms(torch, lambda: hh.bin_scatter(*args), PLAN_REPS),
                                     chunks=bp.grid_x, row_blocks=bp.grid_y,
                                     smem_bytes=bp.smem_bytes)
             results[name] = times
@@ -730,6 +755,7 @@ def phase_u_fit(torch, uh, hh, binning, train, auc, rows):
     test_auc = auc(y[rows:], margin[:, 0], np.ones(N_TEST))
     if not test_auc > 0.75:
         raise AssertionError(f"U path held-out AUC {test_auc} is too low for this data")
+    text = result.booster.model_to_string()
     rec = dict(rows=rows, features=N_FEATURES, iterations=FIT_ITERS,
                histogram_path=st.histogram_path, u_chunks=st.u_chunks,
                fit_s=binning_s + train_s, binning_s=binning_s, u_build_s=st.u_build_seconds,
@@ -739,7 +765,369 @@ def phase_u_fit(torch, uh, hh, binning, train, auc, rows):
                host_syncs_per_tree=st.syncs / st.trees, peak_device_bytes=peak,
                held_out_auc=test_auc)
     print("u fit: " + json.dumps(rec), flush=True)
+    return rec, text
+
+
+# -- categorical features, bundling and the out-of-memory ladder --------------
+
+N_AIR = 10_000_000  # the airline set's 10M-row training set
+N_AIR_U = 1_000_000  # resident U on the airline columns
+N_EFB = 1_000_000  # one-hot airline rows: the raw float matrix is 5.4 GB of host memory
+AIR_CATEGORICAL = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7), ("UniqueCarrier", 22),
+                   ("Origin", 300), ("Dest", 300))
+AIR_CATS = list(range(len(AIR_CATEGORICAL)))
+
+
+def _airline_data(n, seed):
+    """Rows in the shape of szilard/benchm-ml's airline set
+    (dep_delayed_15min; LightGBM's docs/Experiments.rst "Expo" categorical
+    run): six categorical columns with Zipf-skewed frequencies (Origin and
+    Dest have more values than maxBin 255's 254 value bins, so their rarest
+    ones share bin 0), then DepTime and Distance. The label carries a random
+    effect per category, so a category's code says nothing by its order."""
+    rng = np.random.default_rng(seed)
+    X = np.empty((n, len(AIR_CATEGORICAL) + 2), np.float64)
+    logit = np.full(n, -1.2)
+    for j, (_, card) in enumerate(AIR_CATEGORICAL):
+        p = 1.0 / np.arange(1, card + 1) ** 1.1
+        ids = rng.choice(card, size=n, p=p / p.sum())
+        logit += rng.normal(0.0, 0.45, card)[ids]
+        X[:, j] = rng.permutation(card)[ids] + 1  # codes unrelated to frequency
+    dep = rng.integers(0, 24, n) * 100 + rng.integers(0, 60, n)
+    dist = np.exp(rng.normal(6.5, 0.6, n)).round()
+    logit += 1.2 * (dep / 2400.0) + 0.15 * (np.log(dist) - 6.5)
+    X[:, -2], X[:, -1] = dep, dist
+    y = (logit + rng.logistic(size=n) > 0).astype(np.float64)
+    return X, y
+
+
+def _one_hot_airline(X):
+    """The airline rows with each categorical column one-hot encoded (672
+    0/1 columns), then DepTime and Distance: a column-major float64 matrix."""
+    n = X.shape[0]
+    width = sum(c for _, c in AIR_CATEGORICAL) + 2
+    out = np.zeros((n, width), np.float64, order="F")
+    off, rows = 0, np.arange(n)
+    for j, (_, card) in enumerate(AIR_CATEGORICAL):
+        out[rows, off + X[:, j].astype(np.int64) - 1] = 1.0
+        off += card
+    out[:, off:] = X[:, -2:]
+    return out
+
+
+def _zero_counts(uh, hh):
+    hh.build_histograms_cuda.launches = 0
+    hh.build_histograms_combined_cuda.launches = 0
+    uh.fused_panel_dot.launches = 0
+    hh.bin_scatter.launches = 0
+
+
+def _counts(uh, hh):
+    return {"hist_panel": hh.build_histograms_cuda.launches,
+            "hist_combined": hh.build_histograms_combined_cuda.launches,
+            "u_panel_dot": uh.fused_panel_dot.launches,
+            "bin_scatter": hh.bin_scatter.launches}
+
+
+def _need(counts, names, label):
+    """Fail unless each named kernel launched in the run just read."""
+    missing = [k for k in names if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: {missing} not launched ({counts})")
+
+
+def _kernels_on_bins(torch, uh, hh, label, bins_t, spec, num_bins, k=8, seed=0):
+    """The three histogram kernels on one fit's bins (categorical value
+    bins or packed bundle columns) at k nodes, quantized and bf16 stats:
+    each bit-equal to its plain version; the times of the kernels."""
+    dev = bins_t.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = bins_t.shape[1]
+    g = torch.randn(n, device=dev, generator=gen)
+    h = torch.rand(n, device=dev, generator=gen) * 0.25
+    c = torch.ones(n, device=dev)
+    node = torch.randint(0, k + 1, (n,), device=dev, generator=gen, dtype=torch.int32)
+    rec = dict(case=label, rows=n, columns=bins_t.shape[0], k=k, widths_min=min(spec.widths),
+               widths_max=max(spec.widths), k_pad=spec.k_pad)
+    out = hh.build_histograms_cuda(bins_t, g, h, c, node, k, num_bins)
+    if not torch.equal(out, hh.build_histograms_plain(bins_t, g, h, c, node, k, num_bins)):
+        raise AssertionError(f"{label}: histogram.cu differs from its plain version")
+    rec["hist_ms"] = _time_ms(torch, lambda: hh.build_histograms_cuda(
+        bins_t, g, h, c, node, k, num_bins), 5)
+    del out
+    u = uh.build_u(bins_t, spec) if uh.u_bytes(n, spec) <= (12 << 30) else None
+    for path, stats, scale in _packed_cases(torch, uh, g, h, c, gen):
+        if u is not None:
+            got = uh.fused_panel_dot(u, stats, node, k, scale)
+            if not torch.equal(got, uh.fused_panel_dot_plain(u, stats, node, k, scale)):
+                raise AssertionError(f"{label} {path}: u_histogram.cu differs from its plain "
+                                     f"version")
+            rec[f"u_pass_{path}_ms"] = _time_ms(
+                torch, lambda: uh.fused_panel_dot(u, stats, node, k, scale), 5)
+        scat = hh.bin_scatter(bins_t, stats, node, k, spec, scale)
+        if not torch.equal(scat, hh.bin_scatter_plain(bins_t, stats, node, k, spec, scale)):
+            raise AssertionError(f"{label} {path}: bin_scatter.cu differs from its plain version")
+        if u is not None and not torch.equal(scat, got):
+            raise AssertionError(f"{label} {path}: bin_scatter.cu differs from the U pass")
+        rec[f"bin_scatter_{path}_ms"] = _time_ms(
+            torch, lambda: hh.bin_scatter(bins_t, stats, node, k, spec, scale), 5)
+    del u
+    torch.cuda.empty_cache()
+    print("kernels on bins: " + json.dumps(rec), flush=True)
     return rec
+
+
+def phase_categorical(torch, uh, hh, binning, train, Table, LightGBMClassifier, auc):
+    """The airline set's categorical fit: the estimator on the default path
+    against the same fit with the six columns read as numeric codes; then
+    train(histogram_method="u", use_quantized_grad=True) on 1,000,000 rows
+    (resident U, the membership product) and on 10,000,000 (chunked); the
+    kernels on the categorical bins."""
+    X, y = _airline_data(N_AIR + N_TEST, seed=7)
+    Xtr, ytr, Xte, yte = X[:N_AIR], y[:N_AIR], X[N_AIR:], y[N_AIR:]
+    params = dict(numIterations=FIT_ITERS, numLeaves=31, maxBin=NUM_BINS - 1, leafBatch=8,
+                  learningRate=0.1, device="cuda")
+    recs = {}
+    for name, extra in (("categorical", dict(categoricalSlotIndexes=AIR_CATS)),
+                        ("numeric_codes", {})):
+        est = LightGBMClassifier(**params, **extra)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(uh, hh)
+        t0 = time.perf_counter()
+        model = est.fit(Table({"features": Xtr, "label": ytr}))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = _counts(uh, hh)
+        _need(counts, ("hist_panel", "hist_combined"), f"airline {name} fit")
+        peak = torch.cuda.max_memory_allocated()
+        t1 = time.perf_counter()
+        prob = model.transform(Table({"features": Xte}))["probability"]
+        predict_s = time.perf_counter() - t1
+        if prob.shape != (N_TEST, 2) or not np.isfinite(prob).all():
+            raise AssertionError(f"airline {name}: bad probability column {prob.shape}")
+        st = model.fit_stats
+        booster = model.booster
+        recs[name] = dict(
+            rows=N_AIR, fit_s=fit_s, binning_s=st.binning_seconds, boosting_s=st.boost_seconds,
+            trees=st.trees, passes=st.passes, host_syncs_per_tree=st.syncs / st.trees,
+            predict_s=predict_s, predict_rows_per_s=N_TEST / predict_s,
+            held_out_auc=auc(yte, prob[:, 1], np.ones(N_TEST)), peak_device_bytes=peak,
+            categorical_splits=int(booster.cat_nodes.sum()) if booster.has_categorical else 0,
+            launches=counts)
+        print(f"airline fit {name}: " + json.dumps(recs[name]), flush=True)
+    if not recs["categorical"]["categorical_splits"]:
+        raise AssertionError("the categorical fit made no categorical split")
+    if not recs["categorical"]["held_out_auc"] > recs["numeric_codes"]["held_out_auc"]:
+        raise AssertionError(f"categorical AUC {recs['categorical']['held_out_auc']} is not above "
+                             f"the numeric codes' {recs['numeric_codes']['held_out_auc']}")
+
+    opts = train.TrainOptions(objective="binary", num_iterations=FIT_ITERS, num_leaves=31,
+                              learning_rate=0.1, max_bin=NUM_BINS - 1, leaf_batch=8,
+                              histogram_method="u", use_quantized_grad=True)
+    for rows, path, kernel in ((N_AIR_U, "u", "u_panel_dot"),
+                               (N_AIR, "u_chunked", "bin_scatter")):
+        t0 = time.perf_counter()
+        bins, mapper = binning.bin_dataset(Xtr[:rows], max_bin=NUM_BINS - 1,
+                                           categorical_features=AIR_CATS)
+        binning_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(uh, hh)
+        t1 = time.perf_counter()
+        res = train.train(bins, ytr[:rows], opts, mapper=mapper, device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+        counts = _counts(uh, hh)
+        _need(counts, (kernel,), f"airline U fit {rows}")
+        st = res.stats
+        if st.histogram_path != path or not st.quantized:
+            raise AssertionError(f"airline U fit {rows} ran {st}")
+        margin = res.booster.raw_margin(Xte, device="cuda")
+        if margin.shape != (N_TEST, 1) or not np.isfinite(margin).all():
+            raise AssertionError(f"airline U fit {rows}: bad margins {margin.shape}")
+        rec = dict(rows=rows, histogram_path=st.histogram_path, u_chunks=st.u_chunks,
+                   binning_s=binning_s, u_build_s=st.u_build_seconds, boosting_s=st.boost_seconds,
+                   train_s=train_s, passes=st.passes, host_syncs_per_tree=st.syncs / st.trees,
+                   peak_device_bytes=torch.cuda.max_memory_allocated(),
+                   held_out_auc=auc(yte, margin[:, 0], np.ones(N_TEST)),
+                   categorical_splits=int(res.booster.cat_nodes.sum()), launches=counts)
+        print(f"airline u fit {rows}: " + json.dumps(rec), flush=True)
+        recs[f"u_{rows}"] = rec
+        if rows == N_AIR_U:
+            spec = uh.make_u_spec(NUM_BINS, bins.shape[1], mapper.num_bins)
+            bins_t = torch.as_tensor(bins, device="cuda").t().contiguous()
+            recs["kernels"] = _kernels_on_bins(torch, uh, hh, "airline categorical bins",
+                                               bins_t, spec, NUM_BINS)
+            del bins_t
+        del bins
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_bundling(torch, uh, hh, binning, bundling, train, auc):
+    """Exclusive Feature Bundling on the one-hot airline columns (672 0/1
+    columns and 2 numeric) at 1,000,000 rows: the host parts timed apart,
+    then the unbundled and the bundled fit on the default path (the same
+    trees: no conflicts) and on the resident quantized U path (the same
+    model text); the kernels on the packed columns, and on packed widths at
+    both of the kernels' limits (256-wide bundles, width-2 columns)."""
+    Xa, y = _airline_data(N_EFB + N_TEST, seed=8)
+    t0 = time.perf_counter()
+    X = _one_hot_airline(Xa[:N_EFB])
+    Xte = _one_hot_airline(Xa[N_EFB:])
+    yte = y[N_EFB:]
+    y = y[:N_EFB]
+    onehot_s = time.perf_counter() - t0
+    del Xa
+    t0 = time.perf_counter()
+    mapper = binning.fit_bin_mapper(X, max_bin=NUM_BINS - 1)
+    fit_mapper_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw = binning.apply_bins(X, mapper)
+    apply_s = time.perf_counter() - t0
+    mapper_b = binning.BinMapper(edges=mapper.edges, num_bins=mapper.num_bins,
+                                 max_bin=mapper.max_bin)
+    t0 = time.perf_counter()
+    spec = binning.fit_bundles_inplace(mapper_b, raw)
+    bundle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    packed = bundling.pack_bundles(raw, spec)
+    pack_s = time.perf_counter() - t0
+    k_before = int(sum(int(w) for w in mapper.num_bins))
+    plan = dict(rows=N_EFB, features=X.shape[1], columns=spec.num_columns, k_before=k_before,
+                k_after=spec.k_packed, conflicts=spec.conflict_count,
+                widths=sorted(spec.widths), onehot_s=onehot_s, fit_mapper_s=fit_mapper_s,
+                apply_bins_s=apply_s, fit_bundles_s=bundle_s, pack_s=pack_s)
+    print("efb plan: " + json.dumps(plan), flush=True)
+    if spec.conflict_count != 0 or spec.num_columns >= X.shape[1]:
+        raise AssertionError(f"one-hot columns did not bundle without conflicts: {plan}")
+    del X
+
+    recs = {"plan": plan}
+    for path, kw in (("compare", {}), ("u", dict(histogram_method="u", use_quantized_grad=True))):
+        opts = train.TrainOptions(objective="binary", num_iterations=FIT_ITERS, num_leaves=31,
+                                  learning_rate=0.1, max_bin=NUM_BINS - 1, leaf_batch=8, **kw)
+        boosters = {}
+        for name, bins, m in (("unbundled", raw, mapper), ("bundled", packed, mapper_b)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts(uh, hh)
+            t0 = time.perf_counter()
+            res = train.train(bins, y, opts, mapper=m, device="cuda")
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            counts = _counts(uh, hh)
+            _need(counts, ("u_panel_dot",) if path == "u" else ("hist_panel", "hist_combined"),
+                  f"efb {path} {name}")
+            st = res.stats
+            if st.histogram_path != path:
+                raise AssertionError(f"efb {path} {name} ran {st}")
+            margin = res.booster.raw_margin(Xte, device="cuda")
+            rec = dict(path=path, bins=name, columns=bins.shape[1], train_s=train_s,
+                       u_build_s=st.u_build_seconds, boosting_s=st.boost_seconds,
+                       passes=st.passes, peak_device_bytes=torch.cuda.max_memory_allocated(),
+                       held_out_auc=auc(yte, margin[:, 0], np.ones(N_TEST)), launches=counts)
+            print("efb fit: " + json.dumps(rec), flush=True)
+            recs[(path, name)] = rec
+            boosters[name] = res.booster
+        ub, bb = boosters["unbundled"], boosters["bundled"]
+        for field in ("split_feature", "split_bin", "left_child", "right_child", "is_leaf"):
+            if not np.array_equal(getattr(ub, field), getattr(bb, field)):
+                raise AssertionError(f"efb {path}: bundled {field} differs from unbundled")
+        if path == "u" and bb.model_to_string() != ub.model_to_string():
+            raise AssertionError("efb: the quantized bundled fit's model text differs")
+        print(f"efb {path}: bundled trees equal the unbundled ones"
+              + (", model text identical" if path == "u" else
+                 f", max leaf delta {float(np.abs(ub.leaf_values - bb.leaf_values).max())}"),
+              flush=True)
+
+    bins_t = torch.as_tensor(packed, device="cuda").t().contiguous()
+    uspec = uh.make_u_spec(spec.num_bins, spec.num_columns, spec.widths)
+    recs["kernels"] = _kernels_on_bins(torch, uh, hh, "efb packed columns", bins_t, uspec,
+                                       spec.num_bins)
+    del bins_t, raw, packed
+    # packed widths at the kernels' limits: 256-wide bundles and width-2 columns
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    widths = (256, 2, 2, 256, 2, 37, 2, 256) + (2,) * 20
+    cols = [torch.randint(0, w, (N_EFB,), device="cuda", generator=gen, dtype=torch.int32)
+            for w in widths]
+    bins_t = torch.stack(cols).to(torch.uint8)
+    recs["kernels_limits"] = _kernels_on_bins(
+        torch, uh, hh, "widths 2 and 256", bins_t, uh.make_u_spec(256, len(widths), widths), 256)
+    del bins_t, cols
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_oom(torch, uh, hh, binning, train, want_text):
+    """The out-of-memory ladder on phase 9's 1,000,000-row resident U fit:
+    the port's hook raises torch.cuda.OutOfMemoryError at the first pass;
+    the fit must halve the U budget once, take chunked passes and write the
+    undisturbed fit's model text. Then a real one: after U is built, a
+    ballast allocation takes the card's free memory."""
+    X, y = _make_data(N_U + N_TEST, N_FEATURES, seed=3)
+    bins, mapper = binning.bin_dataset(X[:N_U], max_bin=NUM_BINS - 1)
+    y = y[:N_U]
+    opts = train.TrainOptions(objective="binary", num_iterations=FIT_ITERS, num_leaves=31,
+                              learning_rate=0.1, max_bin=NUM_BINS - 1, leaf_batch=8,
+                              histogram_method="u", use_quantized_grad=True)
+    fault = train.DeviceOomFault((0, 0))
+    _zero_counts(uh, hh)
+    with train.inject_device_oom(fault):
+        res = train.train(bins, y, opts, mapper=mapper, device="cuda")
+    counts = _counts(uh, hh)
+    _need(counts, ("bin_scatter",), "oom ladder (injected)")
+    st = res.stats
+    if (fault.fired != [(0, 0)] or st.oom_retries != 1 or st.histogram_path != "u_chunked"
+            or st.u_budget != uh.u_budget() // 2):
+        raise AssertionError(f"injected OOM: fired {fault.fired}, {st}")
+    if res.booster.model_to_string() != want_text:
+        raise AssertionError("injected OOM: the degraded fit's model text differs")
+    recs = {"injected": dict(retries=st.oom_retries, u_budget=st.u_budget,
+                             histogram_path=st.histogram_path, u_chunks=st.u_chunks,
+                             launches=counts, model_text_identical=True)}
+    print("oom ladder injected: " + json.dumps(recs["injected"]), flush=True)
+
+    # A real allocation failure: fill the card once U is built.
+    ballast = []
+    build_u = uh.build_u
+
+    def build_u_then_fill(bins_t, spec):
+        u = build_u(bins_t, spec)
+        if not ballast:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            free = torch.cuda.mem_get_info()[0]
+            # the largest block that the allocator grants, leaving a few MB
+            for slack_mb in (4, 16, 64, 256, 1024):
+                try:
+                    ballast.append(torch.empty(max(0, free - (slack_mb << 20)),
+                                               dtype=torch.uint8, device="cuda"))
+                    break
+                except torch.cuda.OutOfMemoryError:
+                    continue
+        return u
+
+    uh.build_u = build_u_then_fill
+    _zero_counts(uh, hh)
+    try:
+        res = train.train(bins, y, opts, mapper=mapper, device="cuda")
+    finally:
+        uh.build_u = build_u
+        ballast_bytes = ballast[0].numel() if ballast else 0
+        ballast.clear()
+        torch.cuda.empty_cache()
+    st = res.stats
+    rec = dict(ballast_bytes=ballast_bytes, retries=st.oom_retries, u_budget=st.u_budget,
+               histogram_path=st.histogram_path, launches=_counts(uh, hh))
+    if st.oom_retries:
+        rec["model_text_identical"] = res.booster.model_to_string() == want_text
+        if not rec["model_text_identical"]:
+            raise AssertionError("ballast OOM: the degraded fit's model text differs")
+    print("oom ladder ballast: " + json.dumps(rec), flush=True)
+    recs["ballast"] = rec
+    return recs
 
 
 def main():
@@ -755,7 +1143,7 @@ def main():
     from mmlspark_tpu_torch.data.table import Table
     from mmlspark_tpu_torch.kernels import sass_atomics
     from mmlspark_tpu_torch.kernels.build import histogram_extension
-    from mmlspark_tpu_torch.lightgbm import LightGBMClassifier, binning, train
+    from mmlspark_tpu_torch.lightgbm import LightGBMClassifier, binning, bundling, train
     from mmlspark_tpu_torch.lightgbm.objectives import auc
     from mmlspark_tpu_torch.ops import histogram
     from mmlspark_tpu_torch.ops import hopper_histogram as hh
@@ -776,15 +1164,32 @@ def main():
         if any(op.startswith(sass_atomics.CAS_LOOP) for op in ops):
             raise AssertionError(f"{src} compiled an atomic to a compare-and-swap loop: {ops}")
 
-    kernel = phase_kernel(torch, hh, rates)
-    phase_parity(torch, hh, histogram, binning, train)
-    fit = phase_fit(torch, hh, histogram, Table, LightGBMClassifier, auc, N_FIT)
-    packed, entry_launches = phase_packed_kernels(torch, uh, hh, rates)
-    phase_u_parity(torch, uh, hh, binning, train)
-    u_fit = phase_u_fit(torch, uh, hh, binning, train, auc, N_U)
-    u_fit_chunked = phase_u_fit(torch, uh, hh, binning, train, auc, N_FIT)
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("TF32 matmuls are on: the split search's float32 products "
+                             "would round to TF32")
+    print(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, float32 matmul precision "
+          f"{torch.get_float32_matmul_precision()}", flush=True)
+
+    def timed(name, fn, *args):
+        t_phase = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t_phase:.3f} s", flush=True)
+        return out
+
+    kernel = timed("kernel", phase_kernel, torch, hh, rates)
+    timed("parity", phase_parity, torch, hh, histogram, binning, train)
+    fit = timed("fit", phase_fit, torch, hh, histogram, Table, LightGBMClassifier, auc, N_FIT)
+    packed, entry_launches = timed("packed_kernels", phase_packed_kernels, torch, uh, hh, rates)
+    timed("u_parity", phase_u_parity, torch, uh, hh, binning, train)
+    u_fit, u_text = timed("u_fit_1m", phase_u_fit, torch, uh, hh, binning, train, auc, N_U)
+    u_fit_chunked, _ = timed("u_fit_11m", phase_u_fit, torch, uh, hh, binning, train, auc, N_FIT)
     if u_fit["histogram_path"] != "u" or u_fit_chunked["histogram_path"] != "u_chunked":
         raise AssertionError("the U fits did not take the resident and chunked passes")
+    timed("categorical", phase_categorical, torch, uh, hh, binning, train, Table,
+          LightGBMClassifier, auc)
+    timed("bundling", phase_bundling, torch, uh, hh, binning, bundling, train, auc)
+    timed("oom", phase_oom, torch, uh, hh, binning, train, u_text)
 
     if entry_launches == 0:
         raise AssertionError("build_histograms_bin_scatter did not launch bin_scatter")

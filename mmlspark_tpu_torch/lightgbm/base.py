@@ -114,8 +114,7 @@ class LightGBMParams(HasFeaturesCol, HasLabelCol, HasPredictionCol, HasWeightCol
 
     #: Params of paths the port has not taken over, with the values it takes.
     _PORTED_VALUES = {
-        "maxBinByFeature": ([],), "featureBundling": (False,),
-        "categoricalSlotIndexes": ([],), "categoricalSlotNames": ([],),
+        "maxBinByFeature": ([],),
         "numBatches": (0,), "modelString": ("",), "featuresShapCol": ("",),
         "leafPredictionCol": ("",), "numExecutors": (0,), "numProcesses": (0, 1),
         "parallelism": ("data_parallel", "serial"), "metric": ("",),
@@ -203,9 +202,12 @@ class LightGBMBase(LightGBMParams, Estimator):
         if slot_names and len(slot_names) != num_features:
             raise ValueError(f"slotNames has {len(slot_names)} entries for {num_features} features")
         feature_names = list(slot_names) or [f"f{i}" for i in range(num_features)]
+        cat_slots = self._categorical_slots(feature_names)
         t0 = time.perf_counter()
-        bins, mapper = bin_dataset(X, max_bin=opts.max_bin,
-                                   sample_cnt=self.getBinSampleCount())
+        bins, mapper = bin_dataset(
+            X, max_bin=opts.max_bin, categorical_features=sorted(cat_slots) or None,
+            sample_cnt=self.getBinSampleCount(), feature_bundling=self.getFeatureBundling(),
+            max_conflict_rate=self.getMaxConflictRate())
         binning_seconds = time.perf_counter() - t0
         result = train(bins, y, opts, w=w, mapper=mapper, feature_names=feature_names,
                        device=self.getDevice())
@@ -214,6 +216,22 @@ class LightGBMBase(LightGBMParams, Estimator):
         model.parent = self
         model.fit_stats = result.stats
         return model
+
+    def _categorical_slots(self, feature_names) -> set:
+        """``categoricalSlotIndexes`` united with ``categoricalSlotNames``
+        resolved against the feature names (LightGBMBase.scala:148-156)."""
+        num_features = len(feature_names)
+        cat_slots = set(self.getCategoricalSlotIndexes() or [])
+        bad = sorted(i for i in cat_slots if not 0 <= i < num_features)
+        if bad:
+            raise ValueError(f"categoricalSlotIndexes out of range for {num_features} "
+                             f"features: {bad}")
+        name_to_idx = {nm: i for i, nm in enumerate(feature_names)}
+        for nm in self.getCategoricalSlotNames() or []:
+            if nm not in name_to_idx:
+                raise ValueError(f"categoricalSlotNames: unknown feature name {nm!r}")
+            cat_slots.add(name_to_idx[nm])
+        return cat_slots
 
     def _make_model(self, result: TrainResult) -> "LightGBMModelBase":
         raise NotImplementedError

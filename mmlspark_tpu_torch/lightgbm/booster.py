@@ -15,7 +15,9 @@ as (num_trees, M), tree ``i*C + c`` = iteration i, class c):
 
 :meth:`Booster.raw_margin` routes every row through every tree at once with
 plain torch gathers, ``max_depth`` rounds (the reference predicts through a
-path-matrix product; neither is a kernel). Categorical and linear-tree
+path-matrix product; neither is a kernel). At a categorical node a row goes
+left iff its category's value bin is in the node's left set; unseen and NaN
+categories take bin 0, which no left set holds, so they go right. Linear-tree
 models keep their fields for serde but do not predict here yet.
 """
 
@@ -56,8 +58,11 @@ class Booster:
     bin_edges: Optional[np.ndarray] = None  # (F, max_bin-1)
     # (T, M) bool: where a NaN routes at each node (None = always left)
     nan_left: Optional[np.ndarray] = None
-    # Categorical splits, zero_as_missing and linear leaves: carried for
-    # serde and model text, not predicted by this port yet.
+    # Categorical splits: cat_nodes (T, M) marks categorical decisions,
+    # cat_masks (T, M, Bc) is each one's left set over value bins, and
+    # cat_values maps a feature to its raw category values (bin i+1 <->
+    # values[i]). zero_as_missing routes; linear leaves are carried for serde
+    # and model text, not predicted by this port yet.
     cat_nodes: Optional[np.ndarray] = None
     cat_masks: Optional[np.ndarray] = None
     cat_values: Optional[Dict[int, np.ndarray]] = None
@@ -104,23 +109,30 @@ class Booster:
                    device: DeviceLike = None) -> np.ndarray:
         """(N, C) raw margins (init_score + sum of tree outputs) of a dense
         (N, F) batch, routed on ``device`` (CUDA unless ``device='cpu'``)."""
-        if self.has_categorical or self.has_linear:
-            raise NotImplementedError(
-                "categorical and linear-tree boosters do not predict in the "
-                "port yet"
-            )
+        if self.has_linear:
+            raise NotImplementedError("linear-tree boosters do not predict in the port yet")
         dev = resolve_device(device)
+        has_cat = self.has_categorical
         X = np.asarray(X)
         n = X.shape[0]
         t = self._used_trees(num_iteration)
         if t == 0:
             return np.broadcast_to(self.init_score[None, :], (n, self.num_classes)).copy()
-        tables = _tree_tables(self, t, dev)
+        tables = _tree_tables(self, t, dev, has_cat)
+        cats = _cat_lookup(self, dev) if has_cat else ()
         chunk = max(1, _PREDICT_CHUNK_BYTES // (64 * t))
         init = torch.as_tensor(np.asarray(self.init_score, np.float32), device=dev)
         outs = []
         for lo in range(0, max(n, 1), chunk):
-            xd = torch.as_tensor(np.asarray(X[lo : lo + chunk], np.float32), device=dev)
+            if cats:
+                # Raw category ids are read as float64 before they become
+                # value bins, so ids above 2**24 are not rounded on the way.
+                xd = torch.tensor(np.asarray(X[lo : lo + chunk], np.float64), device=dev)
+                for f, sv, order in cats:
+                    xd[:, f] = _cat_to_bins(xd[:, f].contiguous(), sv, order)
+                xd = xd.to(torch.float32)
+            else:
+                xd = torch.as_tensor(np.asarray(X[lo : lo + chunk], np.float32), device=dev)
             leaf = _route_rows(xd, tables, self.max_depth)  # (n, T)
             contrib = torch.gather(tables["leaf_values"].expand(leaf.shape[0], -1, -1),
                                    2, leaf[:, :, None])[:, :, 0]
@@ -211,9 +223,11 @@ def _thr_f32(thr) -> np.ndarray:
     return t32
 
 
-def _tree_tables(b: Booster, t: int, dev: torch.device) -> Dict[str, torch.Tensor]:
+def _tree_tables(b: Booster, t: int, dev: torch.device,
+                 has_cat: bool = False) -> Dict[str, torch.Tensor]:
     """The first ``t`` trees' node tables on ``dev``, shaped (1, T, M) so
-    they broadcast against an (N, T) node index."""
+    they broadcast against an (N, T) node index; with categorical splits
+    also the flat (T * M * Bc,) left-set table."""
     nan_left = b.nan_left if b.nan_left is not None else np.ones_like(b.is_leaf)
     zero_missing = (
         b.zero_missing if b.zero_missing is not None else np.zeros_like(b.is_leaf)
@@ -222,7 +236,7 @@ def _tree_tables(b: Booster, t: int, dev: torch.device) -> Dict[str, torch.Tenso
     def put(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a[:t]), dtype=dtype, device=dev)[None]
 
-    return {
+    tables = {
         "feat": put(b.split_feature, torch.int64),
         "thr": put(_thr_f32(b.split_threshold), torch.float32),
         "left": put(b.left_child, torch.int64),
@@ -232,14 +246,44 @@ def _tree_tables(b: Booster, t: int, dev: torch.device) -> Dict[str, torch.Tenso
         "zero_missing": put(zero_missing, torch.bool),
         "leaf_values": put(b.leaf_values, torch.float32),
     }
+    if has_cat:
+        tables["cat_node"] = put(b.cat_nodes, torch.bool)
+        tables["cat_mask"] = torch.as_tensor(
+            np.ascontiguousarray(b.cat_masks[:t]).reshape(-1), dtype=torch.bool, device=dev)
+    return tables
+
+
+def _cat_lookup(b: Booster, dev: torch.device):
+    """Per categorical feature: (feature, its values sorted, float64; each
+    sorted value's bin - 1), on ``dev``."""
+    out = []
+    for f, vals in sorted((b.cat_values or {}).items()):
+        vals = np.asarray(vals, np.float64)
+        order = np.argsort(vals, kind="stable")
+        out.append((int(f), torch.as_tensor(vals[order], device=dev),
+                    torch.as_tensor(order, dtype=torch.int64, device=dev)))
+    return out
+
+
+def _cat_to_bins(col: torch.Tensor, sv: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """``binning.cat_to_bins`` on the device: value ``sv[i]`` -> bin
+    ``order[i] + 1``; NaN, unseen and overflowed values -> bin 0."""
+    if sv.numel() == 0:
+        return torch.zeros_like(col)
+    pos = torch.searchsorted(sv, col).clamp(max=sv.numel() - 1)
+    return torch.where(sv[pos] == col, (order[pos] + 1).to(col.dtype), torch.zeros_like(col))
 
 
 def _route_rows(X: torch.Tensor, tables: Dict[str, torch.Tensor], depth: int) -> torch.Tensor:
     """(N, T) final leaf slot of every row in every tree: ``depth`` rounds
     of gathers through the pointer arrays; rows at a leaf stay there."""
     n = X.shape[0]
-    t = tables["feat"].shape[1]
+    t, m = tables["feat"].shape[1:]
     node = torch.zeros((n, t), dtype=torch.int64, device=X.device)
+    has_cat = "cat_mask" in tables
+    if has_cat:
+        bc = tables["cat_mask"].shape[0] // (t * m)
+        tree_base = torch.arange(t, device=X.device)[None, :] * m
 
     def at(name):
         return torch.gather(tables[name].expand(n, -1, -1), 2, node[:, :, None])[:, :, 0]
@@ -248,6 +292,11 @@ def _route_rows(X: torch.Tensor, tables: Dict[str, torch.Tensor], depth: int) ->
         x = torch.gather(X, 1, at("feat"))
         miss = torch.isnan(x) | (at("zero_missing") & (x.abs() <= K_ZERO_THRESHOLD))
         go_left = torch.where(miss, at("nan_left"), x <= at("thr"))
+        if has_cat:
+            # categorical columns hold value bins; bin 0 is in no left set
+            xb = torch.nan_to_num(x, nan=0.0).clamp(0, bc - 1).to(torch.int64)
+            left_cat = tables["cat_mask"][(tree_base + node) * bc + xb]
+            go_left = torch.where(at("cat_node"), left_cat, go_left)
         nxt = torch.where(go_left, at("left"), at("right"))
         node = torch.where(at("is_leaf"), node, nxt)
     return node

@@ -12,11 +12,13 @@ import numpy as np
 
 from mmlspark_tpu_torch.lightgbm.binning import BinMapper
 from mmlspark_tpu_torch.lightgbm.booster import Booster
+from mmlspark_tpu_torch.lightgbm.bundling import BundleSpec
 
 
 def booster_from_jax(d: Dict[str, Any]) -> Booster:
     """The port's :class:`Booster` from a JAX ``Booster.to_dict()``. The two
-    dataclasses share their fields; values arrive as numpy arrays."""
+    dataclasses share their fields; values arrive as numpy arrays, and a
+    categorical booster brings its split sets and category values."""
     fields = {f.name for f in Booster.__dataclass_fields__.values()}
     unknown = set(d) - fields
     if unknown:
@@ -27,12 +29,23 @@ def booster_from_jax(d: Dict[str, Any]) -> Booster:
 def bin_mapper_from_jax(edges, num_bins, max_bin: int, cat_values=None,
                         bundles=None) -> BinMapper:
     """The port's :class:`BinMapper` from a JAX mapper's ``edges``,
-    ``num_bins`` and ``max_bin``. Categorical and bundled mappers are not
-    ported yet and raise."""
-    if cat_values or bundles is not None:
-        raise NotImplementedError("categorical and bundled bin mappers are not ported yet")
+    ``num_bins``, ``max_bin``, ``cat_values`` (feature -> raw category
+    values) and ``bundles`` (a JAX ``BundleSpec``, or the dict of its
+    fields); the bundle spec is rebuilt field for field from its tuples."""
+    if bundles is not None:
+        fields = (bundles if isinstance(bundles, dict)
+                  else {k: getattr(bundles, k) for k in BundleSpec.__dataclass_fields__})
+        bundles = BundleSpec(**{
+            k: (tuple(tuple(int(j) for j in m) for m in v) if k == "members"
+                else tuple(bool(x) for x in v) if k == "identity"
+                else tuple(int(x) for x in v) if isinstance(v, (tuple, list)) else int(v))
+            for k, v in fields.items()
+        })
     return BinMapper(
         edges=np.array(edges, dtype=np.float64),
         num_bins=np.array(num_bins, dtype=np.int32),
         max_bin=int(max_bin),
+        cat_values=({int(j): np.array(v, dtype=np.float64) for j, v in cat_values.items()}
+                    if cat_values else None),
+        bundles=bundles,
     )

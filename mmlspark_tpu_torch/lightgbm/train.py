@@ -2,8 +2,9 @@
 
 The port's counterpart of ``mmlspark_tpu/lightgbm/train.py`` for the
 flagship path: gbdt boosting, leafwise growth with ``leaf_batch`` frontier
-leaves per histogram pass, sibling histogram subtraction, numeric features,
-and the precomputed-U histogram path with quantized gradients. Each
+leaves per histogram pass, sibling histogram subtraction, numeric and
+categorical features, Exclusive Feature Bundling, and the precomputed-U
+histogram path with quantized gradients and its out-of-memory ladder. Each
 iteration:
 
   gradients -> histogram pass(es) on the Hopper kernels -> split search over
@@ -19,14 +20,22 @@ host loop: each pass reads the frontier's candidate gains to the host once
 (one device sync), which decides both whether the loop goes on and which
 leaves split. :class:`FitStats` counts those syncs.
 
+Under bundling (a mapper with a :class:`~.bundling.BundleSpec`) the bins
+are the packed (N, C) columns: every histogram pass, and the subtraction
+cache, lives in the packed space, and :func:`_expand` takes a pass back to
+the original (k, F, B, 3) after subtraction and dequantization, so the
+split search, the trees and the model text stay in original feature ids.
+
 Not ported yet: depthwise growth, multiclass, rf/dart/goss, bagging and
-feature fraction, categorical splits, feature bundling, validation sets,
-callbacks, meshes, and the U path's out-of-memory ladder.
+feature fraction, validation sets, early stopping, callbacks, meshes and
+linear trees.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import logging
 import math
 import time
@@ -38,6 +47,7 @@ import torch
 from mmlspark_tpu_torch.device import DeviceLike, resolve_device
 from mmlspark_tpu_torch.lightgbm.binning import BinMapper
 from mmlspark_tpu_torch.lightgbm.booster import Booster
+from mmlspark_tpu_torch.lightgbm.bundling import cat_row_maps_bundled, expand_maps, route_maps
 from mmlspark_tpu_torch.lightgbm.objectives import get_objective
 from mmlspark_tpu_torch.ops import histogram
 from mmlspark_tpu_torch.ops import u_histogram as uh
@@ -51,6 +61,10 @@ QUANT_ROW_CAP = min((1 << 31) // 127, 1 << 24)
 #: Device bytes the sibling-subtraction cache may take; above it the grower
 #: builds both children of every split instead.
 SUBTRACTION_CACHE_BYTES = 256 << 20
+#: Retries of one iteration on the out-of-memory ladder.
+OOM_RETRY_CAP = 8
+#: The ladder's floor for the U budget.
+OOM_MIN_BUDGET = 1 << 20
 
 
 @dataclasses.dataclass
@@ -130,7 +144,6 @@ _UNPORTED = {
     "bagging_freq": 0,
     "feature_fraction": 1.0,
     "early_stopping_round": 0,
-    "categorical_slots": (),
     "provide_training_metric": False,
 }
 
@@ -158,7 +171,8 @@ class FitStats:
     (device upload to the packed booster, less the U build), of building U
     and of the host binning before it, where the caller binned; and which
     histogram path ran ("compare", "u" or "u_chunked", with its chunk count)
-    and whether its stats were quantized."""
+    and whether its stats were quantized; the out-of-memory retries the
+    ladder took and the U budget in force at the end (0: no U path)."""
 
     trees: int = 0
     passes: int = 0
@@ -169,6 +183,8 @@ class FitStats:
     histogram_path: str = "compare"
     u_chunks: int = 0
     quantized: bool = False
+    oom_retries: int = 0
+    u_budget: int = 0
 
 
 @dataclasses.dataclass
@@ -190,6 +206,8 @@ class TreeArrays(NamedTuple):
     cover: torch.Tensor
     gain: torch.Tensor
     row_leaf: torch.Tensor  # (N,) final leaf slot of every training row
+    cat_node: torch.Tensor  # (M,) bool: categorical split at this node
+    cat_mask: torch.Tensor  # (M, B) bool left-set bins ((M, 1) when no categoricals)
 
 
 class SplitSearch(NamedTuple):
@@ -206,12 +224,30 @@ class SplitSearch(NamedTuple):
     rval: torch.Tensor
     lcov: torch.Tensor
     rcov: torch.Tensor
+    is_cat: torch.Tensor  # (k,) bool: categorical split (bin = the prefix-defining bin)
+    cat_mask: torch.Tensor  # (k, B) bool: bins of the LEFT set (all False if numeric)
+    value_cat: torch.Tensor  # (k,) own leaf value under l2 + cat_l2
 
 
 def _soft_threshold(g: torch.Tensor, l1: float) -> torch.Tensor:
     if l1 == 0.0:
         return g
     return torch.sign(g) * torch.clamp(g.abs() - l1, min=0.0)
+
+
+@functools.lru_cache(maxsize=64)
+def _cat_static_maps(cat_slots: tuple, onehot_slots: tuple, num_features: int,
+                     device: torch.device):
+    """Index maps of the categorical split search, on ``device`` once per
+    fit: sorted categorical feature indices, the is-categorical mask, the
+    feature -> categorical position map, and the one-vs-rest mask."""
+    cat_idx = np.asarray(sorted(cat_slots), np.int64)
+    is_cat = np.zeros(num_features, bool)
+    is_cat[cat_idx] = True
+    inv = np.zeros(num_features, np.int64)
+    inv[cat_idx] = np.arange(len(cat_idx))
+    onehot = np.isin(cat_idx, np.asarray(onehot_slots, np.int64))
+    return tuple(torch.as_tensor(a, device=device) for a in (cat_idx, is_cat, inv, onehot))
 
 
 def _split_search(
@@ -221,8 +257,11 @@ def _split_search(
     feature_mask: torch.Tensor,  # (F,)
     opts: TrainOptions,
 ) -> SplitSearch:
-    """Best numeric split per node from its histogram."""
+    """Best split per node from its histogram: numeric thresholds, and on
+    categorical features LightGBM's sorted-set search (both directions) or,
+    up to ``max_cat_to_onehot`` seen categories, one-vs-rest."""
     k, f, b, _ = hist.shape
+    dev = hist.device
     l1, l2, lr = opts.lambda_l1, opts.lambda_l2, opts.learning_rate
     g_tot, h_tot, c_tot = totals[:, 0], totals[:, 1], totals[:, 2]
 
@@ -239,7 +278,7 @@ def _split_search(
     parent_score = (tg * tg) / (h_tot + l2)
     gain = tl * tl / (hl + l2) + tr * tr / (hr + l2) - parent_score[:, None, None]
 
-    bins_ok = torch.arange(b, device=hist.device)[None, None, :] < b - 1
+    bins_ok = torch.arange(b, device=dev)[None, None, :] < b - 1
     valid = (
         (cl >= opts.min_data_in_leaf)
         & (cr >= opts.min_data_in_leaf)
@@ -250,19 +289,100 @@ def _split_search(
     )
     gain = torch.where(valid, gain, torch.full_like(gain, -math.inf))
 
+    has_cat = bool(opts.categorical_slots)
+    if has_cat:
+        # LightGBM's sorted-prefix search without a sort: the prefix of the
+        # g/h-ratio order that ends at category i is {j : key_j <= key_i},
+        # ties broken by bin index (a stable sort's order), so each
+        # candidate's left sums are one masked prefix against the order
+        # indicator M, candidate index = the prefix-defining bin, and the
+        # winner's left set is M's row. Axis d: 0 ascending ratio, 1
+        # descending. Bin 0 (unseen/NaN) never enters a left set.
+        cat_idx, is_cat_f, inv, oh_mask = _cat_static_maps(
+            tuple(opts.categorical_slots), tuple(opts.onehot_slots), f, dev)
+        hist_c = hist[:, cat_idx]  # (k, Fc, B, 3)
+        gsum, hsum, cnt = hist_c[..., 0], hist_c[..., 1], hist_c[..., 2]
+        jpos = torch.arange(b, device=dev)[None, None, :]
+        # min_data_per_group gates the sorted candidates only (one-vs-rest
+        # is exempt, as in native LightGBM)
+        nonempty = (cnt >= max(1, opts.min_data_per_group)) & (jpos > 0)
+        ratio = gsum / (hsum + opts.cat_smooth)
+        l2c = l2 + opts.cat_l2
+        parent_c = (tg * tg) / (h_tot + l2c)
+        fm_c = feature_mask[cat_idx]
+        keys = torch.stack([ratio, -ratio])  # (2, k, Fc, B)
+        ki = keys[..., :, None]  # candidate i
+        kj = keys[..., None, :]  # member j
+        ar = torch.arange(b, device=dev)
+        tie = ar[None, :] <= ar[:, None]  # [i, j]: j <= i
+        M = ((kj < ki) | ((kj == ki) & tie)) & nonempty[None, :, :, None, :]
+        Mf = M.to(torch.float32)
+
+        def prefix(stat):
+            """(k, Fc, B) member sums -> (2, k, Fc, B) per candidate, in
+            float32 (TF32 must stay off on the card: ``chip_smoke.py``)."""
+            return torch.einsum("dkfij,kfj->dkfi", Mf, stat)
+
+        sg, sh, sc = prefix(gsum), prefix(hsum), prefix(cnt)
+        sizes = prefix(nonempty.to(torch.float32))
+        grc = g_tot[None, :, None, None] - sg
+        hrc = h_tot[None, :, None, None] - sh
+        crc = c_tot[None, :, None, None] - sc
+        tlc, trc = _soft_threshold(sg, l1), _soft_threshold(grc, l1)
+        gain_c = (tlc * tlc / (sh + l2c) + trc * trc / (hrc + l2c)
+                  - parent_c[None, :, None, None])
+        valid_c = (
+            nonempty[None]  # the prefix-defining category itself qualifies
+            & (sizes <= opts.max_cat_threshold)
+            & (sc >= opts.min_data_in_leaf)
+            & (crc >= opts.min_data_in_leaf)
+            & (sh >= opts.min_sum_hessian_in_leaf)
+            & (hrc >= opts.min_sum_hessian_in_leaf)
+            & (fm_c[None, None, :, None] > 0)
+        )
+        gain_dirs = torch.where(valid_c, gain_c, torch.full_like(gain_c, -math.inf))
+        gain_cat = torch.maximum(gain_dirs[0], gain_dirs[1])
+        use_desc = gain_dirs[1] > gain_dirs[0]  # (k, Fc, B)
+
+        # One-vs-rest for low-cardinality features: the candidates are the
+        # single-category left sets {bin j}; no cat_smooth, no
+        # min_data_per_group.
+        has_oh = bool(set(opts.onehot_slots) & set(opts.categorical_slots))
+        if has_oh:
+            gr_oh = g_tot[:, None, None] - gsum
+            hr_oh = h_tot[:, None, None] - hsum
+            cr_oh = c_tot[:, None, None] - cnt
+            tl_oh, tr_oh = _soft_threshold(gsum, l1), _soft_threshold(gr_oh, l1)
+            gain_oh = (tl_oh * tl_oh / (hsum + l2c) + tr_oh * tr_oh / (hr_oh + l2c)
+                       - parent_c[:, None, None])
+            valid_oh = (
+                (jpos > 0)
+                & (cnt >= opts.min_data_in_leaf)
+                & (cr_oh >= opts.min_data_in_leaf)
+                & (hsum >= opts.min_sum_hessian_in_leaf)
+                & (hr_oh >= opts.min_sum_hessian_in_leaf)
+                & (fm_c[None, :, None] > 0)
+            )
+            gain_oh = torch.where(valid_oh, gain_oh, torch.full_like(gain_oh, -math.inf))
+            gain_cat = torch.where(oh_mask[None, :, None], gain_oh, gain_cat)
+        gain = gain.clone()
+        gain[:, cat_idx] = gain_cat
+
     flat = gain.reshape(k, f * b)
     best_idx = torch.argmax(flat, dim=1)  # first maximum, as jnp.argmax
     best_gain = flat.gather(1, best_idx[:, None])[:, 0]
     best_f = best_idx // b
     best_b = best_idx % b
 
-    def leaf_value(g, h):
-        v = -_soft_threshold(g, l1) / (h + l2)
+    def finish(v):
         if opts.max_delta_step > 0:
             v = torch.clamp(v, -opts.max_delta_step, opts.max_delta_step)
         return v * lr
 
-    iota = torch.arange(k, device=hist.device)
+    def leaf_value(g, h):
+        return finish(-_soft_threshold(g, l1) / (h + l2))
+
+    iota = torch.arange(k, device=dev)
     glb = gl[iota, best_f, best_b]
     hlb = hl[iota, best_f, best_b]
     clb = cl[iota, best_f, best_b]
@@ -270,6 +390,42 @@ def _split_search(
     # Raw threshold: split bin t means "x <= edges[f, t-1]"; t=0 => NaN-only left.
     thr_raw = edges[best_f, torch.clamp(best_b - 1, min=0)]
     thr_raw = torch.where(best_b == 0, torch.full_like(thr_raw, -math.inf), thr_raw)
+
+    if has_cat:
+        # Leaves made by a categorical split take l2 + cat_l2 outputs
+        # (native LightGBM's categorical CalculateSplittedLeafOutput).
+        def leaf_value_cat(g, h):
+            return finish(-_soft_threshold(g, l1) / (h + l2 + opts.cat_l2))
+
+        is_cat_best = is_cat_f[best_f]
+        cpos = inv[best_f]
+        dsel = use_desc[iota, cpos, best_b].long()
+        glb_c = sg[dsel, iota, cpos, best_b]
+        hlb_c = sh[dsel, iota, cpos, best_b]
+        clb_c = sc[dsel, iota, cpos, best_b]
+        if has_oh:
+            # one-vs-rest winners read their left stats straight from the bin
+            is_oh_best = oh_mask[cpos] & is_cat_best
+            glb_c = torch.where(is_oh_best, gsum[iota, cpos, best_b], glb_c)
+            hlb_c = torch.where(is_oh_best, hsum[iota, cpos, best_b], hlb_c)
+            clb_c = torch.where(is_oh_best, cnt[iota, cpos, best_b], clb_c)
+        glb = torch.where(is_cat_best, glb_c, glb)
+        hlb = torch.where(is_cat_best, hlb_c, hlb)
+        clb = torch.where(is_cat_best, clb_c, clb)
+        thr_raw = torch.where(is_cat_best, torch.full_like(thr_raw, math.inf), thr_raw)
+        cat_mask = M[dsel, iota, cpos, best_b, :] & is_cat_best[:, None]
+        if has_oh:
+            cat_mask = torch.where(is_oh_best[:, None], ar[None, :] == best_b[:, None], cat_mask)
+        lval = torch.where(is_cat_best, leaf_value_cat(glb, hlb), leaf_value(glb, hlb))
+        rval = torch.where(is_cat_best, leaf_value_cat(g_tot - glb, h_tot - hlb),
+                           leaf_value(g_tot - glb, h_tot - hlb))
+        value_cat = leaf_value_cat(g_tot, h_tot)
+    else:
+        is_cat_best = torch.zeros(k, dtype=torch.bool, device=dev)
+        cat_mask = torch.zeros((k, b), dtype=torch.bool, device=dev)
+        lval = leaf_value(glb, hlb)
+        rval = leaf_value(g_tot - glb, h_tot - hlb)
+        value_cat = leaf_value(g_tot, h_tot)
 
     return SplitSearch(
         value=leaf_value(g_tot, h_tot),
@@ -279,19 +435,108 @@ def _split_search(
         feat=best_f,
         bin=best_b,
         thr=thr_raw,
-        lval=leaf_value(glb, hlb),
-        rval=leaf_value(g_tot - glb, h_tot - hlb),
+        lval=lval,
+        rval=rval,
         lcov=clb,
         rcov=c_tot - clb,
+        is_cat=is_cat_best,
+        cat_mask=cat_mask,
+        value_cat=value_cat,
     )
 
 
+@functools.lru_cache(maxsize=32)
+def _bundle_route_consts(bundle, device: torch.device):
+    """Device copies of the per-original-feature routing arrays of
+    ``bundling.route_maps``: (col, lo, span, skip, dflt), each (F,) int64."""
+    return tuple(torch.as_tensor(a, dtype=torch.int64, device=device)
+                 for a in route_maps(bundle))
+
+
+def _orig_bins(packed_cols, feats, consts):
+    """Packed column values -> original-feature bin ids. ``packed_cols``
+    holds each row's value of the packed column of feature ``feats`` (same
+    shape); q = x - lo recovers the member-local offset, the +1 step crosses
+    the member's elided default bin, and a value out of the member's span
+    means another member was non-default, so this feature sat at its
+    default bin."""
+    _, lo, span, skip, dflt = consts
+    xb = packed_cols.to(torch.int64)
+    q = xb - lo[feats]
+    inb = (q >= 0) & (q < span[feats])
+    return torch.where(inb, q + (q >= skip[feats]).to(torch.int64), dflt[feats])
+
+
+@functools.lru_cache(maxsize=32)
+def _expand_consts(bundle, num_bins: int, device: torch.device):
+    cidx, gmask, dmask = expand_maps(bundle, num_bins)
+    return (torch.as_tensor(cidx.reshape(-1), dtype=torch.int64, device=device),
+            torch.as_tensor(gmask, device=device), torch.as_tensor(dmask, device=device))
+
+
+def _expand_bundled(h, totals, bundle, num_bins: int):
+    """Packed-space histogram (k, C, B_b, 3) -> original space (k, F, B, 3):
+    each feature's non-default bins gather from its packed column, and a
+    bundled member's default bin is the node totals less its other bins.
+    On integer (quantized) sums the subtraction is exact, so the result is
+    the unbundled histogram bit for bit (returned as int64); on float32 sums
+    counts are exact and g and h within float32 rounding of a direct build."""
+    cidx, gmask, dmask = _expand_consts(bundle, num_bins, h.device)
+    k = h.shape[0]
+    dense = h.reshape(k, -1, 3)[:, cidx].reshape(k, bundle.num_features, num_bins, 3)
+    dense = dense * gmask.to(h.dtype)[None, :, :, None]
+    resid = totals[:, None, :] - dense.sum(dim=2)
+    return dense + dmask.to(resid.dtype)[None, :, :, None] * resid[:, :, None, :]
+
+
+class DeviceOomFault:
+    """Test hook of the out-of-memory ladder: raises
+    ``torch.cuda.OutOfMemoryError`` at the first histogram pass of each
+    listed (iteration, attempt), once, as a full card would. Install it with
+    :func:`inject_device_oom`; ``fired`` lists the keys that raised."""
+
+    def __init__(self, *keys):
+        self.pending = set(keys or [(0, 0)])
+        self.fired: List[tuple] = []
+        self._armed = None
+
+    def arm(self, iteration: int, attempt: int) -> None:
+        key = (int(iteration), int(attempt))
+        self._armed = key if key in self.pending else None
+
+    def on_histogram(self) -> None:
+        if self._armed is None:
+            return
+        key, self._armed = self._armed, None
+        self.pending.discard(key)
+        self.fired.append(key)
+        raise torch.cuda.OutOfMemoryError(
+            f"CUDA out of memory: injected at histogram iteration {key[0]} attempt {key[1]}")
+
+
+_FAULT: Optional[DeviceOomFault] = None
+
+
+@contextlib.contextmanager
+def inject_device_oom(fault: DeviceOomFault):
+    """Install ``fault`` for the fits run inside the block."""
+    global _FAULT
+    saved, _FAULT = _FAULT, fault
+    try:
+        yield fault
+    finally:
+        _FAULT = saved
+
+
 def _packed_pass(bins_t, u, u_spec, grad, hess, count, key, num_nodes, num_bins, tree_stats):
-    """One histogram pass and its per-node totals (feature 0 covers every
-    row of a node), before dequantization: the representation the sibling
-    cache keeps. float32 on the compare-built and bf16 U paths; on the
-    quantized U path the narrow integer accumulator, so that parent - child
-    is exact."""
+    """One histogram pass and its per-node totals (column 0 covers every
+    row of a node), before dequantization and bundle expansion: the
+    representation the sibling cache keeps. ``num_bins`` is the packed
+    width under bundling. float32 on the compare-built and bf16 U paths; on
+    the quantized U path the narrow integer accumulator, so that parent -
+    child is exact."""
+    if _FAULT is not None:
+        _FAULT.on_histogram()
     if u is None:
         h = histogram.build_histograms(bins_t, grad, hess, count, key, num_nodes, num_bins)
     elif u_spec.chunk_rows:
@@ -303,13 +548,19 @@ def _packed_pass(bins_t, u, u_spec, grad, hess, count, key, num_nodes, num_bins,
     return h, h[:, 0].sum(dim=1)
 
 
-def _expand(h, totals, tree_stats):
-    """A packed pass ready for the split search: the quantized path's scales
-    applied once, after any subtraction."""
-    if h.is_floating_point():
-        return h, totals
-    scales = tree_stats[1]
-    return uh.dequant_hist(h, scales), uh.dequant_hist(totals, scales)
+def _expand(h, totals, tree_stats, bundle=None, num_bins: int = 0):
+    """A packed pass ready for the split search: under bundling the packed
+    columns expanded to the original features' ``num_bins`` bins, then the
+    quantized path's scales applied once, after any subtraction. The
+    reference applies the scales before the expansion; expanding the
+    integers first makes a member's default bin exact, so a quantized fit
+    with conflict-free bundles writes the unbundled fit's model text."""
+    if bundle is not None:
+        h = _expand_bundled(h, totals, bundle, num_bins)
+    if not h.is_floating_point():
+        scales = tree_stats[1]
+        h, totals = uh.dequant_hist(h, scales), uh.dequant_hist(totals, scales)
+    return h, totals
 
 
 def _tree_stats(grad, hess, count, noise=None):
@@ -321,7 +572,7 @@ def _tree_stats(grad, hess, count, noise=None):
 
 
 def _build_tree_leafwise(
-    bins_t: torch.Tensor,  # (F, N) uint8
+    bins_t: torch.Tensor,  # (C, N) uint8: F original or C packed columns
     grad: torch.Tensor,  # (N,)
     hess: torch.Tensor,
     count: torch.Tensor,
@@ -334,6 +585,8 @@ def _build_tree_leafwise(
     u: Optional[torch.Tensor] = None,  # U (resident) or the chunked bins layout
     u_spec: Optional[uh.USpec] = None,
     noise: Optional[torch.Tensor] = None,  # (2, N) uniforms: quantized stats
+    bundle=None,
+    cat_u: Optional[tuple] = None,  # categorical rows of U and their maps
 ) -> TreeArrays:
     """Best-first growth, ``leaf_batch`` frontier leaves per histogram pass,
     with the reference's semantics: the top-k frontier leaves by cached gain
@@ -343,24 +596,41 @@ def _build_tree_leafwise(
     elsewhere) and the sibling is the parent's cached histogram minus it;
     the cache is gated on its size, as the reference's is, and without it
     both children are keyed (``2*lane + went_right``) in one pass of 2k
-    nodes, so k is capped at 21 instead of 42."""
-    f, n = bins_t.shape
+    nodes, so k is capped at 21 instead of 42.
+
+    Under bundling ``bins_t`` holds the packed columns; the cache and the
+    subtraction live in the packed space, while the search and the tree
+    are in original features (``f`` below), and routing decodes a row's
+    packed value to the split feature's bin before every compare. A
+    categorical split sends a row left iff its bin is in the split's set:
+    on the resident U path from one membership product against U's
+    categorical rows (``cat_u``), elsewhere from a gather of the set."""
+    c_cols, n = bins_t.shape
     dev = bins_t.device
+    f = bundle.num_features if bundle is not None else c_cols
+    rconsts = _bundle_route_consts(bundle, dev) if bundle is not None else None
     b = num_bins
+    b_pack = bundle.num_bins if bundle is not None else b
     num_leaves = opts.num_leaves
     m = 2 * num_leaves - 1
     max_depth = opts.max_depth if (opts.max_depth and opts.max_depth > 0) else m
     acc_bytes = uh.histogram_acc_dtype(n, u is not None and noise is not None).itemsize
     use_sub = (
         opts.histogram_subtraction
-        and max(1, opts.num_class) * m * f * b * 3 * acc_bytes <= SUBTRACTION_CACHE_BYTES
+        and max(1, opts.num_class) * m * c_cols * b_pack * 3 * acc_bytes
+        <= SUBTRACTION_CACHE_BYTES
     )
     k = max(1, min(opts.leaf_batch, num_leaves - 1, 42 if use_sub else 21))
     tree_stats = _tree_stats(grad, hess, count, noise) if u is not None else None
+    has_cat = bool(opts.categorical_slots)
 
     def packed(key, num_nodes):
         stats.passes += 1
-        return _packed_pass(bins_t, u, u_spec, grad, hess, count, key, num_nodes, b, tree_stats)
+        return _packed_pass(bins_t, u, u_spec, grad, hess, count, key, num_nodes, b_pack,
+                            tree_stats)
+
+    def expand(h, totals):
+        return _expand(h, totals, tree_stats, bundle, b)
 
     def searchk(histk, totalsk, depthk):
         """Candidate searches for fresh children: depth-capped, NaN gains
@@ -371,7 +641,7 @@ def _build_tree_leafwise(
         return s._replace(gain=capped)
 
     root_p, root_tp = packed(torch.zeros(n, dtype=torch.int32, device=dev), 1)
-    root_hist, root_tot = _expand(root_p, root_tp, tree_stats)
+    root_hist, root_tot = expand(root_p, root_tp)
     root = _split_search(root_hist, root_tot, edges, feature_mask, opts)
 
     zi = torch.zeros(m, dtype=torch.int64, device=dev)
@@ -401,16 +671,24 @@ def _build_tree_leafwise(
     st["c_feat"][0] = root.feat[0]
     st["c_bin"][0] = root.bin[0]
     st["c_thr"][0] = root.thr[0]
+    if has_cat:
+        st["cat_node"] = torch.zeros(m, dtype=torch.bool, device=dev)
+        st["cat_mask"] = torch.zeros((m, b), dtype=torch.bool, device=dev)
+        st["c_iscat"] = torch.zeros(m, dtype=torch.bool, device=dev)
+        st["c_catmask"] = torch.zeros((m, b), dtype=torch.bool, device=dev)
+        st["c_iscat"][0] = root.is_cat[0]
+        st["c_catmask"][0] = root.cat_mask[0]
     if use_sub:
         # Packed-space cache, in the pass's accumulator dtype: subtraction
-        # happens before dequantization.
+        # happens before dequantization and bundle expansion.
         st["c_subR"] = torch.zeros(m, dtype=torch.bool, device=dev)
         st["c_subR"][0] = root.rcov[0] < root.lcov[0]
-        st["leaf_hist"] = torch.zeros((m, f, b, 3), dtype=root_p.dtype, device=dev)
+        st["leaf_hist"] = torch.zeros((m, c_cols, b_pack, 3), dtype=root_p.dtype, device=dev)
         st["leaf_tot"] = torch.zeros((m, 3), dtype=root_tp.dtype, device=dev)
         st["leaf_hist"][0] = root_p[0]
         st["leaf_tot"][0] = root_tp[0]
 
+    rows = torch.arange(n, device=dev)
     # slot -> lane of the pass (-1: row's leaf does not split this pass)
     lane_of = torch.full((m,), -1, dtype=torch.int64, device=dev)
     n_splits = 0
@@ -445,8 +723,22 @@ def _build_tree_leafwise(
         lane_of[top_l] = -1
         active = lane >= 0
         lc = lane.clamp(min=0)
-        col = bins_t[sf[lc], torch.arange(n, device=dev)]
-        right = col.long() > sb[lc]
+        feat_r = sf[lc]  # each row's split feature (original id)
+        if rconsts is not None:
+            col = _orig_bins(bins_t[rconsts[0][feat_r], rows], feat_r, rconsts)
+        else:
+            col = bins_t[feat_r, rows].long()
+        right = col > sb[lc]
+        if has_cat:
+            sic = st["c_iscat"][top_l]
+            scm = st["c_catmask"][top_l]  # (ka, B)
+            if cat_u is not None:
+                u_rows, feat_of_row, local_of_row = cat_u
+                in_set = uh.membership_matmul(u_rows, feat_of_row, local_of_row, sf, scm, n)
+                left_cat = in_set[lc, rows]
+            else:
+                left_cat = scm[lc, col]
+            right = torch.where(sic[lc], ~left_cat, right)
         new_node = torch.where(
             active, torch.where(right, rslot[lc], lslot[lc]), node.long()
         ).to(torch.int32)
@@ -463,10 +755,10 @@ def _build_tree_leafwise(
                                  torch.where(sel, hist_s, hist_o)])
             tot_lr = torch.cat([torch.where(small_r[:, None], tot_o, tot_s),
                                 torch.where(small_r[:, None], tot_s, tot_o)])
-            hist_x, tot_x = _expand(hist_lr, tot_lr, tree_stats)
+            hist_x, tot_x = expand(hist_lr, tot_lr)
         else:
             key = torch.where(active, 2 * lane + right.long(), out_of_range)
-            h2, t2 = _expand(*packed(key.to(torch.int32), 2 * ka), tree_stats)
+            h2, t2 = expand(*packed(key.to(torch.int32), 2 * ka))
             h2 = h2.reshape(ka, 2, f, b, 3)
             t2 = t2.reshape(ka, 2, 3)
             hist_x = torch.cat([h2[:, 0], h2[:, 1]])
@@ -481,6 +773,11 @@ def _build_tree_leafwise(
             st["leaf_hist"][both] = hist_lr
             st["leaf_tot"][both] = tot_lr
             st["c_subR"][both] = cs.rcov < cs.lcov
+        # A leaf's value comes from the split that made it: children of a
+        # categorical split take the l2 + cat_l2 output.
+        values = cs.value
+        if has_cat:
+            values = torch.where(torch.cat([sic, sic]), cs.value_cat, cs.value)
         st["node"] = new_node
         st["feat"][top_l] = sf
         st["bin"][top_l] = sb
@@ -489,7 +786,7 @@ def _build_tree_leafwise(
         st["right"][top_l] = rslot
         st["is_leaf"][top_l] = False
         st["is_leaf"][both] = True
-        st["leaf_val"][both] = cs.value
+        st["leaf_val"][both] = values
         st["cover"][both] = cs.cover
         st["gain"][top_l] = torch.as_tensor(top_g[:ka], dtype=torch.float32, device=dev)
         st["depth"][both] = torch.cat([child_depth, child_depth])
@@ -498,6 +795,11 @@ def _build_tree_leafwise(
         st["c_feat"][both] = cs.feat
         st["c_bin"][both] = cs.bin
         st["c_thr"][both] = cs.thr
+        if has_cat:
+            st["cat_node"][top_l] = sic
+            st["cat_mask"][top_l] = scm
+            st["c_iscat"][both] = cs.is_cat
+            st["c_catmask"][both] = cs.cat_mask
         n_splits += ka
 
     return TreeArrays(
@@ -511,6 +813,9 @@ def _build_tree_leafwise(
         cover=st["cover"],
         gain=st["gain"],
         row_leaf=st["node"],
+        cat_node=st["cat_node"] if has_cat else torch.zeros(m, dtype=torch.bool, device=dev),
+        cat_mask=(st["cat_mask"] if has_cat
+                  else torch.zeros((m, 1), dtype=torch.bool, device=dev)),
     )
 
 
@@ -530,7 +835,7 @@ def quant_noise(seed: int, iteration: int, column: int, n: int, device) -> torch
 
 
 def _make_step(opts: TrainOptions, num_bins: int, stats: FitStats, u=None, u_spec=None,
-               quant: bool = False):
+               quant: bool = False, bundle=None, cat_u=None):
     """One boosting iteration (gbdt): gradients, one tree, margin update."""
     objective = get_objective(opts.objective)
 
@@ -541,7 +846,7 @@ def _make_step(opts: TrainOptions, num_bins: int, stats: FitStats, u=None, u_spe
         tree = _build_tree_leafwise(
             bins_t, grad[:, 0].contiguous(), hess[:, 0].contiguous(), count, edges,
             feature_mask, num_bins=num_bins, opts=opts, stats=stats, u=u, u_spec=u_spec,
-            noise=noise,
+            noise=noise, bundle=bundle, cat_u=cat_u,
         )
         stats.trees += 1
         contrib = tree.leaf_val[tree.row_leaf.long()]
@@ -553,15 +858,21 @@ def _make_step(opts: TrainOptions, num_bins: int, stats: FitStats, u=None, u_spe
 def _histogram_path(opts: TrainOptions, n: int, f: int, num_bins: int,
                     mapper: Optional[BinMapper]):
     """The U spec (None: the compare-built path) and whether the stats are
-    quantized, by the reference's rules: U only when ``histogram_method`` is
-    "u" (the reference also picks it by itself on a TPU), chunked rows when
-    the resident U would pass the U budget; quantized stats only on the U
-    path and up to :data:`QUANT_ROW_CAP` rows, else a warning and exact
-    stats."""
+    quantized, by the reference's rules: U only when
+    ``histogram_method`` is "u" (the reference also picks it by itself on a
+    TPU), laid out over the packed columns under bundling, chunked rows
+    when the resident U would pass the U budget; quantized stats only on the
+    U path and up to :data:`QUANT_ROW_CAP` rows, else a warning and exact
+    stats. ``f`` is the width of the bins: packed columns under bundling."""
     u_spec = None
     if opts.histogram_method == "u":
-        per_feature = None if mapper is None else [int(x) for x in mapper.num_bins]
-        u_spec = uh.make_u_spec(num_bins, f, per_feature)
+        bundle = None if mapper is None else mapper.bundles
+        if bundle is not None:
+            # K = sum of the packed widths: fewer rows of U per pass
+            u_spec = uh.make_u_spec(bundle.num_bins, f, [int(x) for x in bundle.widths])
+        else:
+            per_feature = None if mapper is None else [int(x) for x in mapper.num_bins]
+            u_spec = uh.make_u_spec(num_bins, f, per_feature)
         budget = uh.u_budget()
         if uh.u_bytes(n, u_spec) > budget:
             u_spec = uh.chunked_u_spec(n, u_spec, budget)
@@ -585,8 +896,24 @@ def _histogram_path(opts: TrainOptions, n: int, f: int, num_bins: int,
     return u_spec, quant
 
 
+def _cat_u_rows(u, u_spec, bundle, cat_slots):
+    """The resident U's categorical rows for the membership product (bf16,
+    cut once per fit) and their feature and local-bin maps; None off the
+    resident U path or without categoricals."""
+    if u is None or u_spec is None or u_spec.chunk_rows or not cat_slots:
+        return None
+    if bundle is not None:
+        rows, feats, locals_ = cat_row_maps_bundled(u_spec, bundle, cat_slots)
+    else:
+        rows, feats, locals_ = uh.cat_row_maps(u_spec, cat_slots)
+    dev = u.device
+    return (u[torch.as_tensor(rows, dtype=torch.int64, device=dev)].to(torch.bfloat16),
+            torch.as_tensor(feats, dtype=torch.int64, device=dev),
+            torch.as_tensor(locals_, dtype=torch.int64, device=dev))
+
+
 def train(
-    bins: np.ndarray,  # (N, F) uint8
+    bins: np.ndarray,  # (N, F) uint8, or (N, C) packed columns under bundling
     y: np.ndarray,
     opts: TrainOptions,
     w: Optional[np.ndarray] = None,
@@ -594,7 +921,17 @@ def train(
     feature_names: Optional[List[str]] = None,
     device: DeviceLike = None,
 ) -> TrainResult:
-    """Run boosting on ``device`` (CUDA unless ``device='cpu'``)."""
+    """Run boosting on ``device`` (CUDA unless ``device='cpu'``).
+
+    A mapper with categorical features makes their slots categorical (the
+    mapper is the one source of truth, as in the reference); one with a
+    bundle spec takes the packed bins of ``apply_bins``/``bin_dataset``.
+
+    On the U path a device out-of-memory error in an iteration walks the
+    reference's ladder: halve the U budget (down to 1 MiB), re-plan the
+    chunked passes, rebuild their bins layout and retry the same iteration,
+    at most :data:`OOM_RETRY_CAP` times. Chunked and resident passes sum the
+    same integers, so the fit's model text does not change."""
     check_supported(opts)
     dev = resolve_device(device)
     t0 = time.perf_counter()
@@ -602,6 +939,21 @@ def train(
     num_classes = objective.num_outputs_fn(opts.num_class)
     n, f = bins.shape
     num_bins = opts.max_bin + 1  # + missing bin
+    bundle = None if mapper is None else mapper.bundles
+    if bundle is not None and f != bundle.num_columns:
+        raise ValueError(
+            f"bundled mapper expects packed bins with {bundle.num_columns} columns, got {f}"
+            " - bin through apply_bins/bin_dataset with this mapper")
+    f_feat = bundle.num_features if bundle is not None else f
+    if mapper is not None and mapper.cat_values:
+        opts = dataclasses.replace(
+            opts,
+            categorical_slots=tuple(sorted(mapper.cat_values)),
+            # native max_cat_to_onehot: features with few seen categories
+            # take the one-vs-rest search
+            onehot_slots=tuple(j for j in sorted(mapper.cat_values)
+                               if len(mapper.cat_values[j]) <= opts.max_cat_to_onehot),
+        )
 
     w_np = np.ones(n, dtype=np.float32) if w is None else np.asarray(w, dtype=np.float32)
     y_np = np.asarray(y, dtype=np.float32)
@@ -614,7 +966,7 @@ def train(
         edges = np.where(np.isfinite(mapper.edges), mapper.edges,
                          np.float32(np.finfo(np.float32).max))
     else:
-        edges = np.zeros((f, 1))
+        edges = np.zeros((f_feat, 1))
     edges_dev = torch.as_tensor(edges.astype(np.float32), device=dev)
     # Feature-major uint8 bins, laid out once per fit on the device: the
     # kernel's rows are then contiguous per feature, and routing gathers
@@ -623,27 +975,76 @@ def train(
     y_dev = torch.as_tensor(y_np, device=dev)
     w_dev = torch.as_tensor(w_np, device=dev)
     margins = torch.as_tensor(init_score, device=dev)[None, :].expand(n, num_classes).clone()
-    feature_mask = torch.ones(f, dtype=torch.float32, device=dev)
+    feature_mask = torch.ones(f_feat, dtype=torch.float32, device=dev)
 
     stats = FitStats()
     u_spec, quant = _histogram_path(opts, n, f, num_bins, mapper)
-    u = None
-    if u_spec is not None:
-        # Built once per fit: the resident one-hot, or the chunked pass's
-        # bins layout.
-        t_u = time.perf_counter()
-        u = uh.prepare_chunked_bins(bins_t, u_spec) if u_spec.chunk_rows else uh.build_u(
-            bins_t, u_spec)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        stats.u_build_seconds = time.perf_counter() - t_u
-        stats.histogram_path = "u_chunked" if u_spec.chunk_rows else "u"
-        stats.u_chunks = uh.num_u_chunks(n, u_spec)
+    stats.u_budget = uh.u_budget() if u_spec is not None else 0
     stats.quantized = quant
-    step = _make_step(opts, num_bins, stats, u=u, u_spec=u_spec, quant=quant)
+    u = None
+
+    def build_u_path():
+        """Lay out the U path for ``u_spec``: the resident one-hot or the
+        chunked pass's bins layout, and the step over it."""
+        nonlocal u
+        u = None
+        if u_spec is not None:
+            t_u = time.perf_counter()
+            u = uh.prepare_chunked_bins(bins_t, u_spec) if u_spec.chunk_rows else uh.build_u(
+                bins_t, u_spec)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            stats.u_build_seconds += time.perf_counter() - t_u
+            stats.histogram_path = "u_chunked" if u_spec.chunk_rows else "u"
+            stats.u_chunks = uh.num_u_chunks(n, u_spec)
+        cat_u = _cat_u_rows(u, u_spec, bundle, opts.categorical_slots)
+        return _make_step(opts, num_bins, stats, u=u, u_spec=u_spec, quant=quant,
+                          bundle=bundle, cat_u=cat_u)
+
+    def degrade(err, it, retries) -> bool:
+        """One rung down the out-of-memory ladder; True when the caller may
+        retry the iteration."""
+        nonlocal u_spec, u
+        if u_spec is None:
+            return False  # no U path: nothing to shrink
+        new_budget = max(stats.u_budget // 2, OOM_MIN_BUDGET)
+        if new_budget == stats.u_budget and u_spec.chunk_rows:
+            return False  # at the floor: the memory is really not there
+        stats.u_budget = new_budget
+        u_spec = uh.chunked_u_spec(n, dataclasses.replace(u_spec, chunk_rows=0), new_budget)
+        _log.warning(
+            "histogram pass ran out of device memory at iteration %d (%s); degrading: U "
+            "budget -> %d bytes, chunk_rows -> %d, retry %d", it, str(err)[:120],
+            new_budget, u_spec.chunk_rows, retries)
+        return True
+
+    step = build_u_path()
     trees = []
     for it in range(opts.num_iterations):
-        tree, margins = step(bins_t, y_dev, w_dev, margins, edges_dev, feature_mask, it)
+        retries = 0
+        while True:
+            if _FAULT is not None:
+                _FAULT.arm(it, retries)
+            failed = None
+            try:
+                tree, new_margins = step(bins_t, y_dev, w_dev, margins, edges_dev,
+                                         feature_mask, it)
+            except torch.cuda.OutOfMemoryError as err:
+                failed = err
+            if failed is None:
+                break
+            if retries >= OOM_RETRY_CAP or not degrade(failed, it, retries + 1):
+                raise failed
+            # Outside the handler, so that the failed step's frames are gone:
+            # free U, return the cached blocks, then lay out the new plan.
+            retries += 1
+            stats.oom_retries += 1
+            failed = step = None
+            u = None
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            step = build_u_path()
+        margins = new_margins
         trees.append(tree._replace(row_leaf=None))
     booster = _pack_booster(trees, opts, num_classes, init_score, mapper, feature_names)
     stats.syncs += 1  # the packing fetch
@@ -659,7 +1060,8 @@ def _pack_booster(
     mapper: Optional[BinMapper],
     feature_names: Optional[List[str]] = None,
 ) -> Booster:
-    """Per-tree device arrays -> one host :class:`Booster` (one fetch)."""
+    """Per-tree device arrays -> one host :class:`Booster` (one fetch, and
+    one more for the categorical split sets)."""
     fields = ("feat", "bin", "thr", "left", "right", "is_leaf", "leaf_val", "cover", "gain")
     if trees:
         packed = torch.stack([
@@ -672,6 +1074,10 @@ def _pack_booster(
     def stack(field, dtype):
         return packed[fields.index(field)].astype(dtype)
 
+    cat_nodes = cat_masks = None
+    if opts.categorical_slots and trees:
+        cat_nodes = torch.stack([tr.cat_node for tr in trees]).cpu().numpy().astype(bool)
+        cat_masks = torch.stack([tr.cat_mask for tr in trees]).cpu().numpy().astype(bool)
     left = stack("left", np.int32)
     right = stack("right", np.int32)
     is_leaf = stack("is_leaf", bool)
@@ -692,6 +1098,12 @@ def _pack_booster(
         best_iteration=-1,
         feature_names=feature_names,
         bin_edges=None if mapper is None else mapper.edges,
+        cat_nodes=cat_nodes,
+        cat_masks=cat_masks,
+        cat_values=(
+            None if (mapper is None or not mapper.cat_values)
+            else {int(j): np.asarray(v) for j, v in mapper.cat_values.items()}
+        ),
     )
 
 

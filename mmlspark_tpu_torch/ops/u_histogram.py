@@ -60,6 +60,8 @@ _N_ALIGN = 512  # row padding granularity of U
 DEFAULT_U_BUDGET = 8 << 30
 #: Rows of U per shared-memory panel tile of the kernel.
 TILE_ROWS = 2048
+#: Bytes of int64 scatter positions one feature group of the U build takes.
+ONEHOT_GROUP_BYTES = 256 << 20
 
 _log = logging.getLogger("mmlspark_tpu_torch.lightgbm")
 
@@ -152,6 +154,46 @@ def _dense_maps_cached(spec: USpec) -> Tuple[np.ndarray, np.ndarray]:
     return idx, mask
 
 
+def cat_row_maps(spec: USpec, cat_slots) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The categorical features' rows of U: (row ids into U, feature id per
+    row, feature-local bin per row), so the membership product reads only
+    those rows (about the sum of the categorical widths, not K_pad)."""
+    rows, feats, locals_ = [], [], []
+    for f_ in sorted(int(s) for s in cat_slots):
+        w = spec.widths[f_]
+        o = spec.offsets[f_]
+        rows.extend(range(o, o + w))
+        feats.extend([f_] * w)
+        locals_.extend(range(w))
+    return (
+        np.asarray(rows, np.int32),
+        np.asarray(feats, np.int32),
+        np.asarray(locals_, np.int32),
+    )
+
+
+def membership_matmul(
+    u_rows: torch.Tensor,  # (Kc, N_pad) bf16: the categorical rows of U
+    feat_of_row: torch.Tensor,  # (Kc,) feature id per row
+    local_of_row: torch.Tensor,  # (Kc,) feature-local bin per row
+    sf: torch.Tensor,  # (k,) split feature per leaf
+    scm: torch.Tensor,  # (k, B) bool left set per leaf (feature-local bins)
+    n: int,
+) -> torch.Tensor:
+    """(k, n) bool: row in leaf j's categorical left set, for all k leaves as
+    one (k, Kc) x (Kc, N) product against the categorical rows of the
+    fit-resident U: each leaf's mask is scattered into packed-row space,
+    multiplied, and thresholded. Exact: both operands are 0/1 and a row has
+    one set byte per feature, so every output is 0 or 1 (accumulated in
+    float32 by the bf16 product)."""
+    k = sf.shape[0]
+    kc = feat_of_row.shape[0]
+    sel = feat_of_row[None, :] == sf[:, None]
+    masks = torch.gather(scm, 1, local_of_row[None, :].expand(k, kc).long()) & sel
+    in_set = masks.to(u_rows.dtype) @ u_rows  # (k, N_pad)
+    return in_set[:, :n] > 0
+
+
 def _onehot(bins_t: torch.Tensor, spec: USpec, n_pad: int) -> torch.Tensor:
     """(K_pad, n_pad) uint8 one-hot of the (F, n) bins; columns n..n_pad-1
     and the k..k_pad tail stay zero, and a bin >= its feature's width
@@ -161,14 +203,17 @@ def _onehot(bins_t: torch.Tensor, spec: USpec, n_pad: int) -> torch.Tensor:
     u = torch.zeros((spec.k_pad, n_pad), dtype=torch.uint8, device=dev)
     # One scatter of the F set bytes of each row. A bin past its feature's
     # width writes a 0 into the feature's first row instead, a byte no other
-    # (feature, row) pair writes, so the writes never collide.
+    # (feature, row) pair writes, so the writes never collide. Features go
+    # in groups whose int64 positions take at most ONEHOT_GROUP_BYTES.
     offsets = torch.tensor(spec.offsets, dtype=torch.int64, device=dev)[:, None]
     widths = torch.tensor(spec.widths, dtype=torch.int64, device=dev)[:, None]
-    b = bins_t.to(torch.int64)
-    inside = b < widths
-    rows = offsets + torch.where(inside, b, 0)
-    pos = rows * n_pad + torch.arange(n, dtype=torch.int64, device=dev)[None, :]
-    u.view(-1)[pos.view(-1)] = inside.view(-1).to(torch.uint8)
+    cols = torch.arange(n, dtype=torch.int64, device=dev)[None, :]
+    group = max(1, ONEHOT_GROUP_BYTES // max(1, 8 * n))
+    for f0 in range(0, f, group):
+        b = bins_t[f0 : f0 + group].to(torch.int64)
+        inside = b < widths[f0 : f0 + group]
+        pos = (offsets[f0 : f0 + group] + torch.where(inside, b, 0)) * n_pad + cols
+        u.view(-1)[pos.view(-1)] = inside.view(-1).to(torch.uint8)
     return u
 
 

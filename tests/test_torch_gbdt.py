@@ -228,7 +228,8 @@ def test_model_text_round_trips():
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = (
         "import sys, mmlspark_tpu_torch, mmlspark_tpu_torch.lightgbm, "
-        "mmlspark_tpu_torch.lightgbm.convert, mmlspark_tpu_torch.ops.histogram, "
+        "mmlspark_tpu_torch.lightgbm.convert, mmlspark_tpu_torch.lightgbm.bundling, "
+        "mmlspark_tpu_torch.lightgbm.train, mmlspark_tpu_torch.ops.histogram, "
         "mmlspark_tpu_torch.ops.hopper_histogram, mmlspark_tpu_torch.ops.u_histogram, "
         "mmlspark_tpu_torch.kernels.build\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mmlspark_tpu.'))"
@@ -268,7 +269,7 @@ def test_entry_points_refuse_the_cpu_unless_asked():
 
 @pytest.mark.parametrize(
     "option", [dict(growth="depthwise"), dict(bagging_freq=1, bagging_fraction=0.5),
-               dict(objective="multiclass"), dict(categorical_slots=(0,))],
+               dict(objective="multiclass"), dict(boosting_type="dart")],
 )
 def test_unported_options_raise(option):
     with pytest.raises((NotImplementedError, ValueError)):
@@ -278,5 +279,5 @@ def test_unported_options_raise(option):
 def test_unported_estimator_params_raise():
     X, logit = _higgs_like(100, 4)
     with pytest.raises(NotImplementedError):
-        LightGBMClassifier(device="cpu", featureBundling=True).fit(
+        LightGBMClassifier(device="cpu", maxBinByFeature=[15, 15, 15, 15]).fit(
             Table({"features": X, "label": (logit > 0).astype(float)}))

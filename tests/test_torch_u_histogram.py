@@ -156,6 +156,20 @@ def test_build_u_and_chunked_bins_match_jax():
                                   np.asarray(ju.prepare_chunked_bins(jnp.asarray(bins), jc)))
 
 
+@pytest.mark.parametrize("group_features", [1, 2, 7])
+def test_u_build_in_feature_groups_matches_jax(monkeypatch, group_features):
+    """The U build scatters a few features at a time (its int64 positions
+    bounded by ONEHOT_GROUP_BYTES); every grouping gives the reference's U."""
+    bins, *_ = _mixed_case(seed=3, n=2777)
+    bins[::5, 2] = 200  # past feature 2's width
+    js = ju.make_u_spec(32, len(WIDTHS), WIDTHS)
+    ts = tu.make_u_spec(32, len(WIDTHS), WIDTHS)
+    monkeypatch.setattr(tu, "ONEHOT_GROUP_BYTES", 8 * 2777 * group_features)
+    (bt,) = _t(bins.T)
+    np.testing.assert_array_equal(tu.build_u(bt, ts).numpy(),
+                                  np.asarray(ju.build_u(jnp.asarray(bins), js)).astype(np.uint8))
+
+
 # -- stat rows ------------------------------------------------------------------
 
 
@@ -802,6 +816,94 @@ def test_estimator_with_quantized_grad_warns_and_trains_exact(caplog):
     exact = LightGBMClassifier(**params).fit(Table({"features": X, "label": y}))
     assert quant.get_model_string() == exact.get_model_string()
     assert not quant.fit_stats.quantized
+
+
+# -- the out-of-memory ladder --------------------------------------------------
+
+
+def _oom_fit(X, y, fault=None, bundling=False, cats=None, **kw):
+    bt, mt = tbinning.bin_dataset(X, max_bin=63, feature_bundling=bundling,
+                                  categorical_features=cats)
+    opts = ttrain.TrainOptions(**{**FIT, "histogram_method": "u", **kw})
+    if fault is None:
+        return ttrain.train(bt, y, opts, mapper=mt, device="cpu")
+    with ttrain.inject_device_oom(fault):
+        return ttrain.train(bt, y, opts, mapper=mt, device="cpu")
+
+
+@pytest.mark.parametrize("subtraction", [True, False], ids=["sub", "nosub"])
+@pytest.mark.parametrize("quant", [True, False], ids=["quant", "bf16"])
+def test_oom_ladder_degrades_to_identical_model_text(monkeypatch, quant, subtraction):
+    """An out-of-memory error at the first pass halves the U budget once,
+    re-plans chunked passes and retries the iteration: the model text is the
+    undisturbed fit's, byte for byte (the reference's
+    ``tests/test_pressure.py`` degraded-fit parity)."""
+    monkeypatch.delenv("MMLSPARK_TPU_U_BUDGET", raising=False)
+    X, y = _fit_case(seed=41)
+    kw = dict(use_quantized_grad=quant, histogram_subtraction=subtraction)
+    clean = _oom_fit(X, y, **kw)
+    fault = ttrain.DeviceOomFault((0, 0))
+    hit = _oom_fit(X, y, fault, **kw)
+    assert fault.fired == [(0, 0)]
+    assert clean.stats.histogram_path == "u" and clean.stats.oom_retries == 0
+    assert hit.stats.histogram_path == "u_chunked" and hit.stats.oom_retries == 1
+    assert hit.stats.u_budget == clean.stats.u_budget // 2
+    assert hit.booster.model_to_string() == clean.booster.model_to_string()
+
+
+@pytest.mark.parametrize("data", ["categorical", "bundled"])
+def test_oom_ladder_on_categorical_and_bundled_fits(monkeypatch, data):
+    monkeypatch.delenv("MMLSPARK_TPU_U_BUDGET", raising=False)
+    X, y = _fit_case(seed=42)
+    kw = dict(use_quantized_grad=True)
+    if data == "categorical":
+        X[:, 0] = np.floor(np.abs(X[:, 0]) * 4)
+        kw["cats"] = [0]
+    else:
+        hot = np.random.default_rng(42).integers(0, 5, len(X))
+        X = np.hstack([X, np.eye(5)[hot]])
+        kw["bundling"] = True
+    clean = _oom_fit(X, y, **kw)
+    hit = _oom_fit(X, y, ttrain.DeviceOomFault((0, 0)), **kw)
+    assert hit.stats.histogram_path == "u_chunked" and hit.stats.oom_retries == 1
+    assert hit.booster.model_to_string() == clean.booster.model_to_string()
+
+
+@pytest.mark.parametrize("keys,retries", [([(2, 0)], 1), ([(0, 0), (0, 1), (0, 2)], 3),
+                                          ([(1, 0), (3, 0)], 2)])
+def test_oom_ladder_walks_down_per_fault(monkeypatch, keys, retries):
+    """Faults at later iterations and repeated faults: one halving each."""
+    monkeypatch.delenv("MMLSPARK_TPU_U_BUDGET", raising=False)
+    X, y = _fit_case(seed=43)
+    clean = _oom_fit(X, y, use_quantized_grad=True)
+    fault = ttrain.DeviceOomFault(*keys)
+    hit = _oom_fit(X, y, fault, use_quantized_grad=True)
+    assert fault.fired == keys and hit.stats.oom_retries == retries
+    assert hit.stats.u_budget == clean.stats.u_budget >> retries
+    assert hit.booster.model_to_string() == clean.booster.model_to_string()
+
+
+def test_oom_off_the_u_path_is_raised():
+    X, y = _fit_case(seed=44)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        _oom_fit(X, y, ttrain.DeviceOomFault((0, 0)), histogram_method=None)
+
+
+def test_oom_at_the_budget_floor_is_raised(monkeypatch):
+    """Chunked from the start at the 1 MiB floor: nothing left to shrink."""
+    monkeypatch.setenv("MMLSPARK_TPU_U_BUDGET", str(ttrain.OOM_MIN_BUDGET))
+    X, y = _fit_case(seed=45, n=3000)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        _oom_fit(X, y, ttrain.DeviceOomFault((0, 0)))
+
+
+def test_oom_ladder_stops_after_its_retry_cap(monkeypatch):
+    monkeypatch.delenv("MMLSPARK_TPU_U_BUDGET", raising=False)
+    X, y = _fit_case(seed=46)
+    fault = ttrain.DeviceOomFault(*[(0, a) for a in range(ttrain.OOM_RETRY_CAP + 1)])
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        _oom_fit(X, y, fault)
+    assert len(fault.fired) == ttrain.OOM_RETRY_CAP + 1
 
 
 # -- on the card ---------------------------------------------------------------
