@@ -74,7 +74,30 @@ non-zero and prints no result):
    pass; the fit halves the U budget once, takes chunked passes and writes
    phase 9's model text. Then a real one: a ballast allocation takes the
    card's free memory once U is built (the line says whether it raised).
-13. One JSON line with every kernel, then the card line, then the result
+13. Validation sets, bagging and early stopping at full width:
+   LightGBMClassifier.fit on 11,500,000 HIGGS-shaped rows, 500,000 of them
+   flagged by validationIndicatorCol, with metric auc, baggingFraction 0.8,
+   baggingFreq 5, featureFraction 0.8, a decaying learning-rate schedule
+   (a callback), earlyStoppingRound and improvementTolerance set so that
+   the fit stops before numIterations: the iterations run, the best
+   iteration (below them), the valid AUC history, the held-out AUC on
+   500,000 separate rows, the per-iteration seconds of the bag draw, the
+   mask upload, boosting, the valid update and the evaluation, peak device
+   bytes and the histogram.cu launches. Then the training metric
+   (isProvideTrainingMetric) on a 1,000,000-row fit, timed.
+14. Warm start: phase 13's model continued for 5 iterations through
+   modelString and through initScoreCol holding the raw margins of the
+   model that text holds; the two delta boosters' model texts are equal.
+15. The quantized path's noise on the card: train.quant_noise (jax's
+   threefry2x32 and uniform) against known answers computed with
+   jax.random on the CPU (bits at four positions and the sum of all bits
+   of each row); the split search's prefix sums (torch.cumsum over the bin
+   axis) add in bin order in float32 on the card, as the quantized path's
+   parity with the reference needs; one 11,000,000-row draw and one
+   1,000,000-row draw timed; then a bagged quantized U
+   fit (baggingFraction 0.8, baggingFreq 5, featureFraction 0.8) on
+   1,000,000 rows, resident and forced chunked: equal model text.
+16. One JSON line with every kernel, then the card line, then the result
    line. Each phase prints its wall time; TF32 matmuls must be off.
 """
 
@@ -1130,6 +1153,209 @@ def phase_oom(torch, uh, hh, binning, train, want_text):
     return recs
 
 
+# -- validation, early stopping, warm start and the quantized path's noise -----
+
+N_ES = 11_500_000  # phase 13's table: N_VALID of its rows are flagged for validation
+N_VALID = 500_000
+ES_MAX_ITERS = 60
+ES_ROUNDS = 3
+ES_TOLERANCE = 5e-4  # valid AUC gains below this count as no improvement
+N_TRAIN_METRIC = 1_000_000
+WARM_ITERS = 5
+BAGGING = dict(baggingFraction=0.8, baggingFreq=5, featureFraction=0.8)
+
+
+def _lr_decay(iteration):
+    """Phase 13's learning-rate schedule: 0.5, decaying 15% an iteration."""
+    return 0.5 * 0.85 ** iteration
+
+
+def phase_early_stopping(torch, uh, hh, binning, train, callbacks, Table, LightGBMClassifier,
+                         auc):
+    """Validation set, bagging, feature fraction, an LR schedule and early
+    stopping through the estimator at HIGGS width; then the training
+    metric on a 1,000,000-row fit. Returns the record, the model and the
+    rows it was trained on (the validation rows left out)."""
+    X, y = _make_data(N_ES + N_TEST, N_FEATURES, seed=4)
+    flag = np.zeros(N_ES, bool)
+    flag[N_ES - N_VALID:] = True
+    est = LightGBMClassifier(numIterations=ES_MAX_ITERS, numLeaves=31, maxBin=NUM_BINS - 1,
+                             leafBatch=8, learningRate=0.1, metric="auc",
+                             earlyStoppingRound=ES_ROUNDS, improvementTolerance=ES_TOLERANCE,
+                             validationIndicatorCol="valid", device="cuda", **BAGGING)
+    est.set_delegate(callbacks.LearningRateSchedule(_lr_decay))
+    table = Table({"features": X[:N_ES], "label": y[:N_ES], "valid": flag})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(uh, hh)
+    t0 = time.perf_counter()
+    model = est.fit(table)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = _counts(uh, hh)
+    _need(counts, ("hist_panel", "hist_combined"), "early stopping fit")
+    peak = torch.cuda.max_memory_allocated()
+    booster, st = model.booster, model.fit_stats
+    run, best = booster.num_iterations, booster.best_iteration
+    history = model._train_evals["valid_0"]["auc"]
+    if not 0 < best < run < ES_MAX_ITERS or len(history) != run:
+        raise AssertionError(f"early stopping: {run} iterations run, best {best}, "
+                             f"{len(history)} evals")
+    out = model.transform(Table({"features": X[N_ES:]}))
+    prob = out["probability"]
+    if prob.shape != (N_TEST, 2) or not np.isfinite(prob).all():
+        raise AssertionError(f"bad probability column {prob.shape}")
+    test_auc = auc(y[N_ES:], prob[:, 1], np.ones(N_TEST))
+    if not test_auc > 0.75:
+        raise AssertionError(f"early stopping fit: held-out AUC {test_auc} is too low")
+    per_it = st.per_iteration
+    rec = dict(rows=N_ES - N_VALID, valid_rows=N_VALID, max_iterations=ES_MAX_ITERS,
+               iterations_run=run, best_iteration=best, valid_auc=history,
+               held_out_auc=test_auc, fit_s=fit_s, binning_s=st.binning_seconds,
+               boosting_s=st.boost_seconds, trees=st.trees, passes=st.passes,
+               per_iteration_mean={k: statistics.mean(it[k] for it in per_it)
+                                   for k in per_it[0]},
+               bag_draw_s_at_redraws=[it["bag_draw"] for i, it in enumerate(per_it)
+                                      if i % BAGGING["baggingFreq"] == 0],
+               peak_device_bytes=peak, launches=counts)
+    print("early stopping fit: " + json.dumps(rec), flush=True)
+    for i, it in enumerate(per_it):
+        print("early stopping iteration: " + json.dumps(dict(iteration=i, **it)), flush=True)
+
+    # The training metric: a fetch of every margin and a host AUC each
+    # iteration, at 1,000,000 rows.
+    bins, mapper = binning.bin_dataset(X[:N_TRAIN_METRIC], max_bin=NUM_BINS - 1)
+    opts = train.TrainOptions(objective="binary", num_iterations=5, num_leaves=31,
+                              max_bin=NUM_BINS - 1, leaf_batch=8, metric="auc",
+                              provide_training_metric=True)
+    _zero_counts(uh, hh)
+    res = train.train(bins, y[:N_TRAIN_METRIC], opts, mapper=mapper, device="cuda")
+    _need(_counts(uh, hh), ("hist_panel", "hist_combined"), "training metric fit")
+    scores = res.evals["training"]["auc"]
+    if len(scores) != 5 or not all(0.5 < s_ < 1.0 for s_ in scores):
+        raise AssertionError(f"training metric: {scores}")
+    tm = dict(rows=N_TRAIN_METRIC, training_auc=scores,
+              eval_s=[it["eval"] for it in res.stats.per_iteration],
+              boost_s=[it["boost"] for it in res.stats.per_iteration])
+    print("training metric: " + json.dumps(tm), flush=True)
+    rec["training_metric"] = tm
+    return rec, model, X[:N_ES - N_VALID], y[:N_ES - N_VALID]
+
+
+def phase_warm_start(torch, uh, hh, Table, LightGBMClassifier, Booster, model, X, y):
+    """Phase 13's model continued for WARM_ITERS iterations two ways: from
+    its text (modelString) and from the raw margins of the model that text
+    holds (initScoreCol). The delta boosters must write the same text."""
+    text = model.get_model_string()
+    prev = Booster.from_string(text)
+    init = prev.raw_margin(X, device="cuda")[:, 0]
+    common = dict(numIterations=WARM_ITERS, numLeaves=31, maxBin=NUM_BINS - 1, leafBatch=8,
+                  learningRate=0.1, device="cuda", **BAGGING)
+    rec = {}
+    texts = {}
+    for name, params, cols in (("modelString", dict(modelString=text), {}),
+                               ("initScoreCol", dict(initScoreCol="init"), {"init": init})):
+        _zero_counts(uh, hh)
+        t0 = time.perf_counter()
+        delta = LightGBMClassifier(**common, **params).fit(
+            Table({"features": X, "label": y, **cols}))
+        torch.cuda.synchronize()
+        counts = _counts(uh, hh)
+        _need(counts, ("hist_panel", "hist_combined"), f"warm start ({name})")
+        if delta.booster.init_score.tolist() != [0.0] or delta.booster.num_iterations != WARM_ITERS:
+            raise AssertionError(f"warm start ({name}): not a {WARM_ITERS}-tree delta model")
+        texts[name] = delta.booster.model_to_string()
+        rec[name] = dict(fit_s=time.perf_counter() - t0, launches=counts)
+    if texts["modelString"] != texts["initScoreCol"]:
+        raise AssertionError("warm start: modelString and initScoreCol model texts differ")
+    rec.update(rows=len(y), iterations=WARM_ITERS, model_text_identical=True)
+    print("warm start: " + json.dumps(rec), flush=True)
+    return rec
+
+
+#: (seed, iteration, column, n, bits at rows [0, 1, n // 2, n - 1] of the g
+#: and h uniforms, sum of all bits of each row): jax.random's float32
+#: uniforms under the reference's per-tree key, computed with jax 0.9.0 on
+#: the CPU (x64 off, partitionable threefry).
+NOISE_CASES = (
+    (0, 0, 0, 7, ((1059004724, 1059280412, 1047618024, 1058808574),
+                  (1062328078, 1053687004, 1053185072, 1050621356)),
+     (7379610108, 7380552128)),
+    (2**31 + 5, 3, 1, 1001, ((1011874944, 1062248066, 1022800192, 1016162816),
+                             (1060766148, 1061299734, 1058099522, 1050940292)),
+     (1053753625810, 1053533056960)),
+    (-1, 17, 2, 100_003, ((1062732274, 1058607604, 1046326104, 1055052572),
+                          (1060342138, 1059913086, 1054172132, 1063173908)),
+     (105281232672134, 105285687792610)),
+    (2**40 + 3, 5, 0, 11_000_000, ((1050493624, 1061488742, 1043046192, 1038500048),
+                                   (1054469836, 1064472154, 1049368180, 1058592722)),
+     (11580521422214578, 11580489359183812)),
+)
+
+
+def phase_quant_noise(torch, uh, hh, binning, train):
+    """The quantized noise against jax's known answers on the card, one
+    11M-row draw timed, and a bagged quantized U fit resident and chunked."""
+    dev = torch.device("cuda")
+    for seed, it, col, n, picks, sums in NOISE_CASES:
+        u = train.quant_noise(seed, it, col, n, dev)
+        if u.shape != (2, n) or u.dtype != torch.float32 or u.device.type != "cuda":
+            raise AssertionError(f"quant_noise: {u.shape} {u.dtype} on {u.device}")
+        bits = u.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        pos = torch.tensor([0, 1, n // 2, n - 1], device=dev)
+        got_picks = tuple(tuple(r) for r in bits[:, pos].cpu().tolist())
+        got_sums = tuple(bits.sum(dim=1).cpu().tolist())
+        if got_picks != picks or got_sums != sums:
+            raise AssertionError(f"quant_noise({seed}, {it}, {col}, {n}) differs from jax: "
+                                 f"{got_picks} {got_sums}")
+    # The quantized split search's prefix sums: torch.cumsum over the bin
+    # axis of a (k, F, B, 3) histogram must add in bin order in float32.
+    gen = torch.Generator(device=dev).manual_seed(7)
+    hist = torch.randn((8, N_FEATURES, NUM_BINS, 3), device=dev, generator=gen) * 100.0
+    in_order = np.cumsum(hist.cpu().numpy(), axis=2, dtype=np.float32)
+    if not np.array_equal(train._bin_prefix(hist, True).cpu().numpy(), in_order):
+        raise AssertionError("torch.cumsum over the bin axis does not add in bin order in "
+                             "float32 on the card")
+    rec = dict(known_answer_cases=len(NOISE_CASES), prefix_in_bin_order=True, draw_rows=N_FIT,
+               draw_ms=_time_ms(torch, lambda: train.quant_noise(0, 1, 0, N_FIT, dev), 5),
+               draw_ms_1m=_time_ms(torch, lambda: train.quant_noise(0, 1, 0, N_U, dev), 5))
+
+    X, y = _make_data(N_U, N_FEATURES, seed=5)
+    bins, mapper = binning.bin_dataset(X, max_bin=NUM_BINS - 1)
+    opts = train.TrainOptions(objective="binary", num_iterations=FIT_ITERS, num_leaves=31,
+                              learning_rate=0.1, max_bin=NUM_BINS - 1, leaf_batch=8,
+                              histogram_method="u", use_quantized_grad=True,
+                              bagging_fraction=0.8, bagging_freq=5, feature_fraction=0.8)
+    texts = {}
+    saved = os.environ.pop("MMLSPARK_TPU_U_BUDGET", None)
+    try:
+        for name, budget, kernel in (("resident", None, "u_panel_dot"),
+                                     ("chunked", U_BUDGET_4_CHUNKS, "bin_scatter")):
+            if budget is not None:
+                os.environ["MMLSPARK_TPU_U_BUDGET"] = str(budget)
+            _zero_counts(uh, hh)
+            res = train.train(bins, y, opts, mapper=mapper, device="cuda")
+            counts = _counts(uh, hh)
+            _need(counts, (kernel,), f"bagged quantized U fit ({name})")
+            st = res.stats
+            if not st.quantized or st.histogram_path != ("u" if budget is None else "u_chunked"):
+                raise AssertionError(f"bagged quantized U fit ({name}): {st}")
+            texts[name] = res.booster.model_to_string()
+            tree_ms = 1e3 * st.boost_seconds / st.trees
+            rec[name] = dict(boosting_s=st.boost_seconds, tree_ms=tree_ms, u_chunks=st.u_chunks,
+                             noise_share_of_tree=rec["draw_ms_1m"] / tree_ms, launches=counts,
+                             bag_draw_s=sum(it["bag_draw"] for it in st.per_iteration))
+    finally:
+        os.environ.pop("MMLSPARK_TPU_U_BUDGET", None)
+        if saved is not None:
+            os.environ["MMLSPARK_TPU_U_BUDGET"] = saved
+    if texts["resident"] != texts["chunked"]:
+        raise AssertionError("bagged quantized U fit: resident and chunked model texts differ")
+    rec["model_text_identical"] = True
+    print("quant noise: " + json.dumps(rec), flush=True)
+    return rec
+
+
 def main():
     import torch
 
@@ -1143,7 +1369,8 @@ def main():
     from mmlspark_tpu_torch.data.table import Table
     from mmlspark_tpu_torch.kernels import sass_atomics
     from mmlspark_tpu_torch.kernels.build import histogram_extension
-    from mmlspark_tpu_torch.lightgbm import LightGBMClassifier, binning, bundling, train
+    from mmlspark_tpu_torch.lightgbm import LightGBMClassifier, binning, bundling, callbacks, train
+    from mmlspark_tpu_torch.lightgbm.booster import Booster
     from mmlspark_tpu_torch.lightgbm.objectives import auc
     from mmlspark_tpu_torch.ops import histogram
     from mmlspark_tpu_torch.ops import hopper_histogram as hh
@@ -1190,6 +1417,12 @@ def main():
           LightGBMClassifier, auc)
     timed("bundling", phase_bundling, torch, uh, hh, binning, bundling, train, auc)
     timed("oom", phase_oom, torch, uh, hh, binning, train, u_text)
+    _, es_model, X_es, y_es = timed("early_stopping", phase_early_stopping, torch, uh, hh,
+                                    binning, train, callbacks, Table, LightGBMClassifier, auc)
+    timed("warm_start", phase_warm_start, torch, uh, hh, Table, LightGBMClassifier, Booster,
+          es_model, X_es, y_es)
+    del es_model, X_es, y_es
+    timed("quant_noise", phase_quant_noise, torch, uh, hh, binning, train)
 
     if entry_launches == 0:
         raise AssertionError("build_histograms_bin_scatter did not launch bin_scatter")

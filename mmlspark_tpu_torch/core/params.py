@@ -211,3 +211,17 @@ class HasPredictionCol(Params):
 
 class HasWeightCol(Params):
     weightCol = Param("The name of the instance-weight column", converter=to_str)
+
+
+class HasInitScoreCol(Params):
+    initScoreCol = Param(
+        "The name of the initial-score (margin) column for warm start",
+        converter=to_str,
+    )
+
+
+class HasValidationIndicatorCol(Params):
+    validationIndicatorCol = Param(
+        "Boolean column marking rows used for validation / early stopping",
+        converter=to_str,
+    )

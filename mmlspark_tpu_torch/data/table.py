@@ -58,6 +58,11 @@ class Table:
             )
         return Table({**self._columns, name: arr})
 
+    def filter(self, mask) -> "Table":
+        """The rows where ``mask`` is true, in order."""
+        mask = np.asarray(mask, dtype=bool)
+        return Table({k: v[mask] for k, v in self._columns.items()})
+
     def __repr__(self) -> str:
         parts = ", ".join(
             f"{k}: {v.dtype}{list(v.shape[1:]) if v.ndim > 1 else ''}"

@@ -14,8 +14,10 @@ import numpy as np
 
 from mmlspark_tpu_torch.core.params import (
     HasFeaturesCol,
+    HasInitScoreCol,
     HasLabelCol,
     HasPredictionCol,
+    HasValidationIndicatorCol,
     HasWeightCol,
     Param,
     Params,
@@ -37,7 +39,8 @@ from mmlspark_tpu_torch.lightgbm.booster import Booster
 from mmlspark_tpu_torch.lightgbm.train import TrainOptions, TrainResult, train
 
 
-class LightGBMParams(HasFeaturesCol, HasLabelCol, HasPredictionCol, HasWeightCol, Params):
+class LightGBMParams(HasFeaturesCol, HasLabelCol, HasPredictionCol, HasWeightCol,
+                     HasInitScoreCol, HasValidationIndicatorCol, Params):
     """The shared knob surface (LightGBMParams.scala)."""
 
     numIterations = Param("Number of boosting iterations", default=100, converter=to_int, validator=gt(0))
@@ -115,9 +118,9 @@ class LightGBMParams(HasFeaturesCol, HasLabelCol, HasPredictionCol, HasWeightCol
     #: Params of paths the port has not taken over, with the values it takes.
     _PORTED_VALUES = {
         "maxBinByFeature": ([],),
-        "numBatches": (0,), "modelString": ("",), "featuresShapCol": ("",),
+        "numBatches": (0,), "featuresShapCol": ("",),
         "leafPredictionCol": ("",), "numExecutors": (0,), "numProcesses": (0, 1),
-        "parallelism": ("data_parallel", "serial"), "metric": ("",),
+        "parallelism": ("data_parallel", "serial"),
     }
 
     def _objective_name(self) -> str:
@@ -149,6 +152,7 @@ class LightGBMParams(HasFeaturesCol, HasLabelCol, HasPredictionCol, HasWeightCol
             max_delta_step=self.getMaxDeltaStep(),
             num_class=num_class,
             boosting_type=self.getBoostingType(),
+            metric=self.getMetric() or None,
             early_stopping_round=self.getEarlyStoppingRound(),
             improvement_tolerance=self.getImprovementTolerance(),
             seed=self.getSeed(),
@@ -188,13 +192,37 @@ class LightGBMBase(LightGBMParams, Estimator):
     def _adjust_weights(self, y: np.ndarray, w):
         return w
 
-    def _fit(self, table: Table) -> "LightGBMModelBase":
-        self._check_ported()
+    def _prepare(self, table: Table):
+        """Features, labels, weights and init scores of ``table``."""
         X = extract_features(table, self.getFeaturesCol())
         y = np.asarray(table.column(self.getLabelCol()), dtype=np.float64)
-        w = None
+        w = init = None
         if self.isSet("weightCol"):
             w = np.asarray(table.column(self.getWeightCol()), dtype=np.float64)
+        if self.isSet("initScoreCol"):
+            init = np.asarray(table.column(self.getInitScoreCol()), dtype=np.float64)
+        return X, y, w, init
+
+    def set_delegate(self, *callbacks) -> "LightGBMBase":
+        """Attach training delegates (:class:`~.callbacks.TrainingCallback`):
+        live objects, not Params, so no param map holds them."""
+        self._callbacks = list(callbacks)
+        return self
+
+    @property
+    def callbacks(self):
+        return list(getattr(self, "_callbacks", []))
+
+    def _fit(self, table: Table) -> "LightGBMModelBase":
+        self._check_ported()
+        # Validation split by indicator column (LightGBMBase.scala:196-197).
+        valid_table = None
+        if self.isSet("validationIndicatorCol"):
+            ind = np.asarray(table.column(self.getValidationIndicatorCol()), dtype=bool)
+            valid_table, table = table.filter(ind), table.filter(~ind)
+        warm = self.getModelString()
+        prev = Booster.from_string(warm) if warm else None
+        X, y, w, init = self._prepare(table)
         w = self._adjust_weights(y, w)
         opts = self._make_options(self._num_classes(y))
         num_features = X.shape[1]
@@ -209,12 +237,28 @@ class LightGBMBase(LightGBMParams, Estimator):
             sample_cnt=self.getBinSampleCount(), feature_bundling=self.getFeatureBundling(),
             max_conflict_rate=self.getMaxConflictRate())
         binning_seconds = time.perf_counter() - t0
-        result = train(bins, y, opts, w=w, mapper=mapper, feature_names=feature_names,
+        valid_sets = []
+        if valid_table is not None and valid_table.num_rows > 0:
+            Xv, yv, wv, _ = self._prepare(valid_table)
+            bv, _ = bin_dataset(Xv, mapper=mapper)
+            valid_sets.append(("valid_0", bv, yv, wv))
+        init_margins = None
+        if init is not None:
+            init_margins = np.asarray(init, dtype=np.float32)
+            if init_margins.ndim == 1:
+                init_margins = init_margins[:, None]
+        if prev is not None:
+            init_margins = prev.raw_margin(X, device=self.getDevice())
+        result = train(bins, y, opts, w=w, init_margins=init_margins, valid_sets=valid_sets,
+                       mapper=mapper, feature_names=feature_names, callbacks=self.callbacks,
                        device=self.getDevice())
         result.stats.binning_seconds = binning_seconds
         model = self._make_model(result)
         model.parent = self
         model.fit_stats = result.stats
+        # per-iteration metric histories (valid sets, and 'training' under
+        # isProvideTrainingMetric)
+        model._train_evals = result.evals
         return model
 
     def _categorical_slots(self, feature_names) -> set:

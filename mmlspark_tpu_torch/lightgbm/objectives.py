@@ -92,3 +92,46 @@ def auc(y: np.ndarray, score: np.ndarray, w: np.ndarray) -> float:
 def binary_logloss(y, margin, w):
     p = np.clip(1.0 / (1.0 + np.exp(-margin)), 1e-15, 1 - 1e-15)
     return float(np.average(-(y * np.log(p) + (1 - y) * np.log(1 - p)), weights=w))
+
+
+def binary_error(y, margin, w):
+    return float(np.average((margin > 0) != (y > 0.5), weights=w))
+
+
+def l2_loss(y, pred, w):
+    return float(np.average((pred - y) ** 2, weights=w))
+
+
+def rmse(y, pred, w):
+    return float(np.sqrt(l2_loss(y, pred, w)))
+
+
+def l1_loss(y, pred, w):
+    return float(np.average(np.abs(pred - y), weights=w))
+
+
+def quantile_loss(y, pred, w, alpha=0.9):
+    d = y - pred
+    return float(np.average(np.maximum(alpha * d, (alpha - 1) * d), weights=w))
+
+
+#: metric name -> (fn(y, score_or_margin, w), higher_is_better): the
+#: reference's metrics that the binary and l2 objectives can use.
+METRICS = {
+    "auc": (auc, True),
+    "binary_logloss": (binary_logloss, False),
+    "binary_error": (binary_error, False),
+    "l2": (l2_loss, False),
+    "mse": (l2_loss, False),
+    "rmse": (rmse, False),
+    "l1": (l1_loss, False),
+    "mae": (l1_loss, False),
+    "quantile": (quantile_loss, False),
+}
+
+
+def metric_higher_is_better(name: str) -> bool:
+    if name in METRICS:
+        return METRICS[name][1]
+    # ndcg@k / map@k style names maximize (TrainUtils.scala:283-287)
+    return name.split("@")[0] in ("auc", "ndcg", "map")

@@ -10,6 +10,13 @@ iteration:
   gradients -> histogram pass(es) on the Hopper kernels -> split search over
   the (node, feature, bin) lattice -> row routing -> leaf values -> margins.
 
+Each iteration draws its bag and feature mask on the host from the
+reference's numpy stream (:func:`_mask_schedule`); bagged-out rows keep
+their routing but add exact zeros to every histogram (g, h and count 0).
+After the tree, validation sets are routed through it on the device
+(:func:`_route_binned`) and scored on the host (:func:`_evaluate`), which
+feeds early stopping and the callbacks.
+
 Histogram passes take one of two paths, by the reference's rule: the
 compare-built kernel (``ops/histogram.py``) by default, or the U pass
 (``ops/u_histogram.py``) when ``histogram_method="u"``. The reference picks
@@ -26,9 +33,8 @@ cache, lives in the packed space, and :func:`_expand` takes a pass back to
 the original (k, F, B, 3) after subtraction and dequantization, so the
 split search, the trees and the model text stay in original feature ids.
 
-Not ported yet: depthwise growth, multiclass, rf/dart/goss, bagging and
-feature fraction, validation sets, early stopping, callbacks, meshes and
-linear trees.
+Not ported yet: depthwise growth, multiclass, rf/dart/goss, meshes, process
+groups and linear trees.
 """
 
 from __future__ import annotations
@@ -39,16 +45,18 @@ import functools
 import logging
 import math
 import time
-from typing import List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from mmlspark_tpu_torch import random as threefry
 from mmlspark_tpu_torch.device import DeviceLike, resolve_device
 from mmlspark_tpu_torch.lightgbm.binning import BinMapper
 from mmlspark_tpu_torch.lightgbm.booster import Booster
 from mmlspark_tpu_torch.lightgbm.bundling import cat_row_maps_bundled, expand_maps, route_maps
-from mmlspark_tpu_torch.lightgbm.objectives import get_objective
+from mmlspark_tpu_torch.lightgbm.callbacks import CallbackEnv, _has_iteration_hooks, _lr_schedule
+from mmlspark_tpu_torch.lightgbm.objectives import METRICS, get_objective, metric_higher_is_better
 from mmlspark_tpu_torch.ops import histogram
 from mmlspark_tpu_torch.ops import u_histogram as uh
 
@@ -138,13 +146,6 @@ _UNPORTED = {
     "growth": "leafwise",
     "boosting_type": "gbdt",
     "tree_learner": "data_parallel",
-    "bagging_fraction": 1.0,
-    "pos_bagging_fraction": 1.0,
-    "neg_bagging_fraction": 1.0,
-    "bagging_freq": 0,
-    "feature_fraction": 1.0,
-    "early_stopping_round": 0,
-    "provide_training_metric": False,
 }
 
 
@@ -172,7 +173,13 @@ class FitStats:
     and of the host binning before it, where the caller binned; and which
     histogram path ran ("compare", "u" or "u_chunked", with its chunk count)
     and whether its stats were quantized; the out-of-memory retries the
-    ladder took and the U budget in force at the end (0: no U path)."""
+    ladder took and the U budget in force at the end (0: no U path).
+
+    ``per_iteration`` holds, for each iteration run, the host seconds of
+    its bag and feature-mask draw, their upload, the boosting step, the
+    validation sets' margin update and the evaluation (the training metric
+    included), each closed by a device sync. ``boost_seconds`` leaves out
+    all but the step's."""
 
     trees: int = 0
     passes: int = 0
@@ -185,12 +192,19 @@ class FitStats:
     quantized: bool = False
     oom_retries: int = 0
     u_budget: int = 0
+    per_iteration: List[Dict[str, float]] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
 class TrainResult:
+    """The booster, what the fit did, the metric history (set name ->
+    metric -> one score per iteration run) and the best iteration (1-based;
+    0 when no evaluation improved)."""
+
     booster: Booster
     stats: FitStats
+    evals: Dict[str, Dict[str, List[float]]] = dataclasses.field(default_factory=dict)
+    best_iteration: int = 0
 
 
 class TreeArrays(NamedTuple):
@@ -235,6 +249,23 @@ def _soft_threshold(g: torch.Tensor, l1: float) -> torch.Tensor:
     return torch.sign(g) * torch.clamp(g.abs() - l1, min=0.0)
 
 
+def _bin_prefix(hist: torch.Tensor, in_bin_order: bool) -> torch.Tensor:
+    """Left stats at "<= bin": inclusive prefix sums over the bin axis (dim
+    2 of (k, F, B, 3)). ``in_bin_order``: float32 sums added one bin at a
+    time, the order of the reference's HIGHEST-precision triangular matmul
+    on the CPU at 64 bins and more (at 32 bins XLA adds even and odd bins
+    apart). The quantized path asks for it: its histograms are the
+    reference's bit for bit, and so then are its gains. On the card
+    ``torch.cumsum`` over a dimension that is not the innermost runs one
+    sequential float32 loop per column (``chip_smoke.py`` checks it); on
+    the CPU it accumulates in float64, which the float histograms keep
+    (they differ from the reference's in rounding already) and the
+    quantized path replaces by numpy's float32 accumulate."""
+    if in_bin_order and hist.device.type == "cpu":
+        return torch.from_numpy(np.cumsum(hist.numpy(), axis=2, dtype=np.float32))
+    return torch.cumsum(hist, dim=2)
+
+
 @functools.lru_cache(maxsize=64)
 def _cat_static_maps(cat_slots: tuple, onehot_slots: tuple, num_features: int,
                      device: torch.device):
@@ -256,18 +287,19 @@ def _split_search(
     edges: torch.Tensor,  # (F, E)
     feature_mask: torch.Tensor,  # (F,)
     opts: TrainOptions,
+    lr: Optional[float] = None,  # this iteration's learning rate (callbacks)
+    in_bin_order: bool = False,  # prefix sums in bin order (quantized stats)
 ) -> SplitSearch:
     """Best split per node from its histogram: numeric thresholds, and on
     categorical features LightGBM's sorted-set search (both directions) or,
     up to ``max_cat_to_onehot`` seen categories, one-vs-rest."""
     k, f, b, _ = hist.shape
     dev = hist.device
-    l1, l2, lr = opts.lambda_l1, opts.lambda_l2, opts.learning_rate
+    l1, l2 = opts.lambda_l1, opts.lambda_l2
+    lr = opts.learning_rate if lr is None else lr
     g_tot, h_tot, c_tot = totals[:, 0], totals[:, 1], totals[:, 2]
 
-    # Left stats at "<= bin": a float32 prefix sum over the bin axis (the
-    # reference takes a HIGHEST-precision triangular matmul for the same sums).
-    cum = torch.cumsum(hist, dim=2)
+    cum = _bin_prefix(hist, in_bin_order)
     gl, hl, cl = cum[..., 0], cum[..., 1], cum[..., 2]
     gr = g_tot[:, None, None] - gl
     hr = h_tot[:, None, None] - hl
@@ -587,6 +619,7 @@ def _build_tree_leafwise(
     noise: Optional[torch.Tensor] = None,  # (2, N) uniforms: quantized stats
     bundle=None,
     cat_u: Optional[tuple] = None,  # categorical rows of U and their maps
+    lr: Optional[float] = None,
 ) -> TreeArrays:
     """Best-first growth, ``leaf_batch`` frontier leaves per histogram pass,
     with the reference's semantics: the top-k frontier leaves by cached gain
@@ -622,6 +655,7 @@ def _build_tree_leafwise(
     )
     k = max(1, min(opts.leaf_batch, num_leaves - 1, 42 if use_sub else 21))
     tree_stats = _tree_stats(grad, hess, count, noise) if u is not None else None
+    quant = noise is not None
     has_cat = bool(opts.categorical_slots)
 
     def packed(key, num_nodes):
@@ -635,14 +669,14 @@ def _build_tree_leafwise(
     def searchk(histk, totalsk, depthk):
         """Candidate searches for fresh children: depth-capped, NaN gains
         set to -inf so they can neither halt growth nor win."""
-        s = _split_search(histk, totalsk, edges, feature_mask, opts)
+        s = _split_search(histk, totalsk, edges, feature_mask, opts, lr, quant)
         capped = torch.where(depthk >= max_depth, torch.full_like(s.gain, -math.inf), s.gain)
         capped = torch.where(torch.isnan(capped), torch.full_like(capped, -math.inf), capped)
         return s._replace(gain=capped)
 
     root_p, root_tp = packed(torch.zeros(n, dtype=torch.int32, device=dev), 1)
     root_hist, root_tot = expand(root_p, root_tp)
-    root = _split_search(root_hist, root_tot, edges, feature_mask, opts)
+    root = _split_search(root_hist, root_tot, edges, feature_mask, opts, lr, quant)
 
     zi = torch.zeros(m, dtype=torch.int64, device=dev)
     zf = torch.zeros(m, dtype=torch.float32, device=dev)
@@ -821,38 +855,135 @@ def _build_tree_leafwise(
 
 def quant_noise(seed: int, iteration: int, column: int, n: int, device) -> torch.Tensor:
     """(2, n) float32 uniforms in [0, 1) for one tree's stochastic rounding
-    (``ops.u_histogram.stat_rows_quant``; row 0 for g, row 1 for h). One draw
-    per (iteration, margin column), from a ``torch.Generator`` seeded from
-    ``(seed ^ 0x51AB51AB, iteration, column)``, so a quantized fit repeats
-    run to run. The reference folds the same triple into ``jax.random`` keys;
-    the two generators give different numbers."""
-    words = np.random.SeedSequence(
-        [(seed ^ 0x51AB51AB) & 0xFFFFFFFFFFFFFFFF, iteration, column]
-    ).generate_state(2, np.uint32)
-    gen = torch.Generator(device=device)
-    gen.manual_seed((int(words[0]) << 32) | int(words[1]))
-    return torch.rand((2, n), generator=gen, device=device, dtype=torch.float32)
+    (``ops.u_histogram.stat_rows_quant``; row 0 for g, row 1 for h): the
+    reference's own draws. Its key for (iteration, margin column) is
+    ``split(fold_in(PRNGKey(seed ^ 0x51AB51AB), iteration), C)[column]``,
+    split again into the g and h keys; the fold-like split makes key
+    ``column`` independent of C. Integer arithmetic on ``device``, so the
+    bits are the same on the CPU and the card."""
+    key = threefry.split(threefry.fold_in(threefry.PRNGKey(seed ^ 0x51AB51AB), iteration),
+                         column + 1)[column]
+    kg, kh = threefry.split(key)
+    return torch.stack([threefry.uniform(kg, n, device), threefry.uniform(kh, n, device)])
 
 
 def _make_step(opts: TrainOptions, num_bins: int, stats: FitStats, u=None, u_spec=None,
                quant: bool = False, bundle=None, cat_u=None):
-    """One boosting iteration (gbdt): gradients, one tree, margin update."""
+    """One boosting iteration (gbdt): gradients (bagged-out rows zeroed),
+    one tree, margin update."""
     objective = get_objective(opts.objective)
 
-    def step(bins_t, y, w, margins, edges, feature_mask, it):
+    def step(bins_t, y, w, margins, edges, bag, feature_mask, it, lr):
         grad, hess = objective.grad_hess(margins, y, w)  # (N, 1)
-        count = torch.ones_like(y)
+        if bag is None:
+            count = torch.ones_like(y)
+        else:
+            grad, hess = grad * bag[:, None], hess * bag[:, None]
+            count = (bag > 0).to(grad.dtype)
         noise = quant_noise(opts.seed, it, 0, y.shape[0], y.device) if quant else None
         tree = _build_tree_leafwise(
             bins_t, grad[:, 0].contiguous(), hess[:, 0].contiguous(), count, edges,
             feature_mask, num_bins=num_bins, opts=opts, stats=stats, u=u, u_spec=u_spec,
-            noise=noise, bundle=bundle, cat_u=cat_u,
+            noise=noise, bundle=bundle, cat_u=cat_u, lr=lr,
         )
         stats.trees += 1
         contrib = tree.leaf_val[tree.row_leaf.long()]
         return tree, margins + contrib[:, None]
 
     return step
+
+
+def _bagging_active(opts: TrainOptions) -> bool:
+    return opts.bagging_freq > 0 and (
+        opts.bagging_fraction < 1.0
+        or opts.pos_bagging_fraction < 1.0
+        or opts.neg_bagging_fraction < 1.0
+    )
+
+
+def _mask_schedule(opts: TrainOptions, rng, n, num_bag, num_feat, f, y=None):
+    """Per-iteration (bag, bag_changed, feature_mask_or_None): the
+    reference's schedule, draw for draw on the same numpy generator, so the
+    port's bags and feature masks are the reference's. ``bag`` is None
+    without bagging (every row in), else a (N,) uint8 0/1 mask, redrawn
+    every ``bagging_freq`` iterations. Class-stratified bagging
+    (pos/neg_bagging_fraction) samples each binary class at its own rate."""
+    bag = None
+    stratified = (
+        opts.pos_bagging_fraction < 1.0 or opts.neg_bagging_fraction < 1.0
+    ) and y is not None
+    if stratified:
+        pos_idx = np.nonzero(np.asarray(y[:n]) > 0.5)[0]
+        neg_idx = np.nonzero(np.asarray(y[:n]) <= 0.5)[0]
+        n_pos = max(1, int(round(len(pos_idx) * opts.pos_bagging_fraction)))
+        n_neg = max(1, int(round(len(neg_idx) * opts.neg_bagging_fraction)))
+    for it in range(opts.num_iterations):
+        changed = False
+        if _bagging_active(opts) and it % opts.bagging_freq == 0:
+            bag = np.zeros(n, dtype=np.uint8)
+            if stratified:
+                if len(pos_idx):
+                    bag[rng.choice(pos_idx, size=n_pos, replace=False)] = 1
+                if len(neg_idx):
+                    bag[rng.choice(neg_idx, size=n_neg, replace=False)] = 1
+            else:
+                bag[rng.choice(n, size=num_bag, replace=False)] = 1
+            changed = True
+        if opts.feature_fraction < 1.0:
+            fm = np.zeros(f, dtype=np.float32)
+            fm[rng.choice(f, size=num_feat, replace=False)] = 1.0
+        else:
+            fm = None
+        yield bag, changed, fm
+
+
+def _route_binned(bins, feat, binthr, left, right, is_leaf, steps: int, cat_node=None,
+                  cat_mask=None, bundle_consts=None) -> torch.Tensor:
+    """Route binned rows ``bins`` (N, C) through one pointer tree; returns
+    each row's final leaf slot (N,). At categorical nodes (``cat_node``) a
+    row goes left iff its bin is in the node's set ``cat_mask`` (M, B) ((M,
+    1): no categoricals). With ``bundle_consts`` the bins are EFB-packed:
+    each node's packed column is gathered and decoded to the original bin
+    before the compare."""
+    n = bins.shape[0]
+    node = torch.zeros(n, dtype=torch.int64, device=bins.device)
+    for _ in range(steps):
+        fcur = feat[node]
+        fcol = bundle_consts[0][fcur] if bundle_consts is not None else fcur
+        x_bin = bins.gather(1, fcol[:, None])[:, 0].long()
+        if bundle_consts is not None:
+            x_bin = _orig_bins(x_bin, fcur, bundle_consts)
+        go_left = x_bin <= binthr[node]
+        if cat_mask is not None and cat_mask.shape[-1] > 1:
+            cm = cat_mask.reshape(-1)[node * cat_mask.shape[-1] + x_bin]
+            go_left = torch.where(cat_node[node], cm, go_left)
+        nxt = torch.where(go_left, left[node], right[node])
+        node = torch.where(is_leaf[node], node, nxt)
+    return node
+
+
+def _tree_contrib(bins_v, tree: TreeArrays, steps: int, bundle=None) -> torch.Tensor:
+    """(N, 1) margin contribution of one tree on a binned matrix."""
+    consts = _bundle_route_consts(bundle, bins_v.device) if bundle is not None else None
+    leaf = _route_binned(bins_v, tree.feat, tree.bin, tree.left, tree.right, tree.is_leaf,
+                         steps, cat_node=tree.cat_node, cat_mask=tree.cat_mask,
+                         bundle_consts=consts)
+    return tree.leaf_val[leaf][:, None]
+
+
+def _margin_to_score(margins: np.ndarray, metric: str, objective: str) -> np.ndarray:
+    """What the metric consumes: margin column 0 (the binary and l2
+    objectives have one margin column; auc is rank-invariant)."""
+    return margins[:, 0]
+
+
+def _evaluate(metric: str, objective: str, y: np.ndarray, margins: np.ndarray,
+              w: np.ndarray, alpha: float) -> float:
+    fn, _ = METRICS[metric]
+    score = _margin_to_score(margins, metric, objective)
+    if metric == "quantile":
+        return fn(y, score, w, alpha=alpha)
+    return fn(y, score, w)
 
 
 def _histogram_path(opts: TrainOptions, n: int, f: int, num_bins: int,
@@ -912,16 +1043,38 @@ def _cat_u_rows(u, u_spec, bundle, cat_slots):
             torch.as_tensor(locals_, dtype=torch.int64, device=dev))
 
 
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+ValidSet = Tuple[str, np.ndarray, np.ndarray, Optional[np.ndarray]]
+
+
 def train(
     bins: np.ndarray,  # (N, F) uint8, or (N, C) packed columns under bundling
     y: np.ndarray,
     opts: TrainOptions,
     w: Optional[np.ndarray] = None,
+    init_margins: Optional[np.ndarray] = None,  # (N, C) warm-start margins
+    valid_sets: Optional[Sequence[ValidSet]] = None,
     mapper: Optional[BinMapper] = None,
     feature_names: Optional[List[str]] = None,
+    callbacks: Optional[Sequence] = None,
     device: DeviceLike = None,
 ) -> TrainResult:
     """Run boosting on ``device`` (CUDA unless ``device='cpu'``).
+
+    ``valid_sets`` entries are (name, bins_v, y_v, w_v), binned by the
+    fit's mapper (packed under bundling). Each iteration routes them
+    through the new tree and scores them with ``opts.metric`` (the
+    objective's default metric when None); ``early_stopping_round`` stops
+    after that many iterations without an improvement above
+    ``improvement_tolerance`` on any set, and the booster keeps the best
+    iteration. ``init_margins`` warm-starts the fit: the init score is then
+    0 and the booster a delta model. ``callbacks`` are
+    :class:`~.callbacks.TrainingCallback` delegates: LR schedules and
+    per-iteration hooks.
 
     A mapper with categorical features makes their slots categorical (the
     mapper is the one source of truth, as in the reference); one with a
@@ -929,10 +1082,16 @@ def train(
 
     On the U path a device out-of-memory error in an iteration walks the
     reference's ladder: halve the U budget (down to 1 MiB), re-plan the
-    chunked passes, rebuild their bins layout and retry the same iteration,
-    at most :data:`OOM_RETRY_CAP` times. Chunked and resident passes sum the
-    same integers, so the fit's model text does not change."""
+    chunked passes, rebuild their bins layout and retry the same iteration
+    with the same bag, feature mask and learning rate, at most
+    :data:`OOM_RETRY_CAP` times. Chunked and resident passes sum the same
+    integers, so the fit's model text does not change."""
     check_supported(opts)
+    if (opts.pos_bagging_fraction < 1.0 or opts.neg_bagging_fraction < 1.0) \
+            and opts.objective != "binary":
+        # native LightGBM likewise restricts pos/neg bagging to binary
+        raise ValueError("posBaggingFraction/negBaggingFraction require the binary "
+                         f"objective (got {opts.objective!r})")
     dev = resolve_device(device)
     t0 = time.perf_counter()
     objective = get_objective(opts.objective)
@@ -957,7 +1116,11 @@ def train(
 
     w_np = np.ones(n, dtype=np.float32) if w is None else np.asarray(w, dtype=np.float32)
     y_np = np.asarray(y, dtype=np.float32)
-    if opts.boost_from_average:
+    if init_margins is not None:
+        # Warm start: a delta model (LightGBM disables boost_from_average
+        # when an init score is given).
+        init_score = np.zeros(num_classes, dtype=np.float32)
+    elif opts.boost_from_average:
         init_score = objective.init_score(y_np, num_classes, w_np)
     else:
         init_score = np.zeros(num_classes, dtype=np.float32)
@@ -974,8 +1137,12 @@ def train(
     bins_t = torch.as_tensor(np.asarray(bins, dtype=np.uint8), device=dev).t().contiguous()
     y_dev = torch.as_tensor(y_np, device=dev)
     w_dev = torch.as_tensor(w_np, device=dev)
-    margins = torch.as_tensor(init_score, device=dev)[None, :].expand(n, num_classes).clone()
-    feature_mask = torch.ones(f_feat, dtype=torch.float32, device=dev)
+    if init_margins is None:
+        margins = torch.as_tensor(init_score, device=dev)[None, :].expand(n, num_classes).clone()
+    else:
+        margins = torch.as_tensor(
+            np.asarray(init_margins, dtype=np.float32).reshape(n, num_classes), device=dev)
+    fm_ones = torch.ones(f_feat, dtype=torch.float32, device=dev)
 
     stats = FitStats()
     u_spec, quant = _histogram_path(opts, n, f, num_bins, mapper)
@@ -992,8 +1159,7 @@ def train(
             t_u = time.perf_counter()
             u = uh.prepare_chunked_bins(bins_t, u_spec) if u_spec.chunk_rows else uh.build_u(
                 bins_t, u_spec)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            _sync(dev)
             stats.u_build_seconds += time.perf_counter() - t_u
             stats.histogram_path = "u_chunked" if u_spec.chunk_rows else "u"
             stats.u_chunks = uh.num_u_chunks(n, u_spec)
@@ -1018,17 +1184,76 @@ def train(
             new_budget, u_spec.chunk_rows, retries)
         return True
 
+    valid_state = []
+    for name, bv, yv, wv in valid_sets or []:
+        bv = np.asarray(bv, dtype=np.uint8)
+        if bv.ndim != 2 or bv.shape[1] != f:
+            raise ValueError(f"valid set {name!r} has bins of shape {bv.shape}; the fit's "
+                             f"bins have {f} columns - bin it with the fit's mapper")
+        nv = len(yv)
+        valid_state.append(dict(
+            name=name, bins=torch.as_tensor(bv, device=dev),
+            y=np.asarray(yv, dtype=np.float32),
+            w=np.ones(nv, dtype=np.float32) if wv is None else np.asarray(wv, np.float32),
+            margins=torch.as_tensor(init_score, device=dev)[None, :].expand(
+                nv, num_classes).clone(),
+        ))
+
+    metric = opts.metric or objective.default_metric
+    if (valid_state or opts.provide_training_metric) and metric not in METRICS:
+        raise NotImplementedError(f"metric {metric!r} is not ported (ported: {sorted(METRICS)})")
+    higher_better = metric_higher_is_better(metric)
+    evals: Dict[str, Dict[str, List[float]]] = {vs["name"]: {metric: []} for vs in valid_state}
+    if opts.provide_training_metric:
+        evals["training"] = {metric: []}
+
+    rng = np.random.default_rng(opts.seed)
+    num_bag = max(1, int(round(n * opts.bagging_fraction)))
+    num_feat = max(1, int(round(f_feat * opts.feature_fraction)))
+    schedule = _mask_schedule(opts, rng, n, num_bag, num_feat, f_feat, y=y_np)
+
+    callbacks = list(callbacks or [])
+    lr_all = _lr_schedule(callbacks, opts.learning_rate, opts.num_iterations)
+    hooks = _has_iteration_hooks(callbacks)
+
+    def cb_env(it: int) -> CallbackEnv:
+        lr_it = float(lr_all[it]) if (lr_all is not None and it < len(lr_all)) \
+            else opts.learning_rate
+        return CallbackEnv(iteration=it, num_iterations=opts.num_iterations,
+                           learning_rate=lr_it, evals=evals)
+
+    for cb in callbacks:
+        cb.before_training(cb_env(0))
+
+    best_score = -np.inf if higher_better else np.inf
+    best_iter = 0
+    stale = 0
+    bag_dev = None
     step = build_u_path()
     trees = []
+    side_seconds = 0.0  # bag draws, uploads, valid updates and evals
     for it in range(opts.num_iterations):
+        t_it = time.perf_counter()
+        bag_np, bag_changed, fm_np = next(schedule)
+        t_drawn = time.perf_counter()
+        if bag_changed:
+            # uint8 on the wire, widened on the device
+            bag_dev = torch.as_tensor(bag_np, device=dev).to(torch.float32)
+        fm_dev = fm_ones if fm_np is None else torch.as_tensor(fm_np, device=dev)
+        _sync(dev)
+        t_up = time.perf_counter()
+        if hooks:
+            for cb in callbacks:
+                cb.before_iteration(cb_env(it))
+        lr_it = float(lr_all[it]) if lr_all is not None else opts.learning_rate
         retries = 0
         while True:
             if _FAULT is not None:
                 _FAULT.arm(it, retries)
             failed = None
             try:
-                tree, new_margins = step(bins_t, y_dev, w_dev, margins, edges_dev,
-                                         feature_mask, it)
+                tree, new_margins = step(bins_t, y_dev, w_dev, margins, edges_dev, bag_dev,
+                                         fm_dev, it, lr_it)
             except torch.cuda.OutOfMemoryError as err:
                 failed = err
             if failed is None:
@@ -1037,6 +1262,7 @@ def train(
                 raise failed
             # Outside the handler, so that the failed step's frames are gone:
             # free U, return the cached blocks, then lay out the new plan.
+            # The retry reuses this iteration's bag, feature mask and rate.
             retries += 1
             stats.oom_retries += 1
             failed = step = None
@@ -1045,11 +1271,54 @@ def train(
                 torch.cuda.empty_cache()
             step = build_u_path()
         margins = new_margins
+        _sync(dev)
+        t_step = time.perf_counter()
+        for vs in valid_state:
+            vs["margins"] = vs["margins"] + _tree_contrib(vs["bins"], tree, opts.routing_steps,
+                                                          bundle)
+        _sync(dev)
+        t_valid = time.perf_counter()
         trees.append(tree._replace(row_leaf=None))
-    booster = _pack_booster(trees, opts, num_classes, init_score, mapper, feature_names)
+
+        if opts.provide_training_metric:
+            evals["training"][metric].append(_evaluate(
+                metric, opts.objective, y_np, margins.cpu().numpy(), w_np, opts.alpha))
+        improved_any = False
+        for vs in valid_state:
+            score = _evaluate(metric, opts.objective, vs["y"], vs["margins"].cpu().numpy(),
+                              vs["w"], opts.alpha)
+            evals[vs["name"]][metric].append(score)
+            # best-so-far from the true score; the first finite eval improves
+            # on the +-inf sentinel, and a NaN never counts as an improvement
+            delta = (score - best_score) if higher_better else (best_score - score)
+            if delta > opts.improvement_tolerance:
+                best_score, best_iter, improved_any = score, it + 1, True
+        t_eval = time.perf_counter()
+        stats.per_iteration.append(dict(
+            bag_draw=t_drawn - t_it, mask_upload=t_up - t_drawn, boost=t_step - t_up,
+            valid_update=t_valid - t_step, eval=t_eval - t_valid))
+        side_seconds += (t_up - t_it) + (t_eval - t_step)
+
+        stop_requested = False
+        if hooks:
+            for cb in callbacks:
+                if cb.after_iteration(cb_env(it)):
+                    stop_requested = True
+        if stop_requested:
+            break
+        if valid_state and opts.early_stopping_round > 0:
+            stale = 0 if improved_any else stale + 1
+            if stale >= opts.early_stopping_round:
+                break
+    for cb in callbacks:
+        cb.after_training(cb_env(max(0, len(trees) - 1)))
+
+    booster = _pack_booster(
+        trees, opts, num_classes, init_score, mapper, feature_names,
+        best_iteration=best_iter if (valid_state and opts.early_stopping_round > 0) else -1)
     stats.syncs += 1  # the packing fetch
-    stats.boost_seconds = time.perf_counter() - t0 - stats.u_build_seconds
-    return TrainResult(booster=booster, stats=stats)
+    stats.boost_seconds = time.perf_counter() - t0 - stats.u_build_seconds - side_seconds
+    return TrainResult(booster=booster, stats=stats, evals=evals, best_iteration=best_iter)
 
 
 def _pack_booster(
@@ -1059,6 +1328,7 @@ def _pack_booster(
     init_score: np.ndarray,
     mapper: Optional[BinMapper],
     feature_names: Optional[List[str]] = None,
+    best_iteration: int = -1,
 ) -> Booster:
     """Per-tree device arrays -> one host :class:`Booster` (one fetch, and
     one more for the categorical split sets)."""
@@ -1095,7 +1365,7 @@ def _pack_booster(
         num_classes=num_classes,
         objective=opts.objective,
         max_depth=_realized_depth(left, right, is_leaf, opts.routing_steps),
-        best_iteration=-1,
+        best_iteration=best_iteration,
         feature_names=feature_names,
         bin_edges=None if mapper is None else mapper.edges,
         cat_nodes=cat_nodes,

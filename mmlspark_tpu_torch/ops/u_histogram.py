@@ -243,13 +243,19 @@ def stat_rows(grad, hess, count) -> torch.Tensor:
     return torch.stack([grad, hess, count], dim=0).to(torch.bfloat16)
 
 
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
 def stat_rows_quant(grad, hess, count, noise) -> Tuple[torch.Tensor, torch.Tensor]:
     """8-bit stochastically rounded stat rows + dequant scales (LightGBM's
     ``use_quantized_grad``): ``x_q = floor(x * 127/max|x| + u)`` clipped to
     [-127, 127], with ``u`` the (2, N) float32 uniforms in ``noise`` (row 0
     for g, row 1 for h; the reference draws them with ``jax.random``).
     Counts are 0/1 and stay exact. Returns ((3, N) int8 [g_q; h_q; c],
-    (3,) float32 scales [gs/127, hs/127, 1])."""
+    (3,) float32 scales [gs/127, hs/127, 1]). The scales multiply by the
+    float32 reciprocal of 127, as XLA compiles the reference's division by
+    the constant in its fits, so that they are the reference's bit for
+    bit."""
     g = grad.to(torch.float32)
     h = hess.to(torch.float32)
     tiny = torch.tensor(1e-30, dtype=torch.float32, device=g.device)
@@ -257,10 +263,17 @@ def stat_rows_quant(grad, hess, count, noise) -> Tuple[torch.Tensor, torch.Tenso
     hs = torch.maximum(h.abs().amax(), tiny)
 
     def q(x, s, u):
-        return torch.clamp(torch.floor(x * (127.0 / s) + u), -127, 127).to(torch.int8)
+        # 127 / s in one rounding (a float over a tensor is reciprocal-then-
+        # multiply in torch, two roundings), and x * step + u in one, as
+        # XLA fuses it into a multiply-add: the float64 product of two
+        # float32 values is exact.
+        step = torch.full_like(s, 127.0) / s
+        v = (x.double() * step.double() + u.double()).to(torch.float32)
+        return torch.clamp(torch.floor(v), -127, 127).to(torch.int8)
 
     stats = torch.stack([q(g, gs, noise[0]), q(h, hs, noise[1]), count.to(torch.int8)])
-    scales = torch.stack([gs / 127.0, hs / 127.0, torch.ones_like(gs)])
+    inv = torch.tensor(_INV_127, dtype=torch.float32, device=g.device)
+    scales = torch.stack([gs * inv, hs * inv, torch.ones_like(gs)])
     return stats, scales
 
 

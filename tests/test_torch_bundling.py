@@ -218,21 +218,11 @@ PATHS = [
 ]
 
 
-def _reference_noise(seed, iteration, column, n, device):
-    key = jax.random.split(
-        jax.random.fold_in(jax.random.PRNGKey(seed ^ 0x51AB51AB), iteration), column + 1
-    )[column]
-    kg, kh = jax.random.split(key)
-    return torch.from_numpy(np.stack([np.asarray(jax.random.uniform(kk, (n,), dtype=jnp.float32))
-                                      for kk in (kg, kh)])).to(device)
-
-
 def _fit_both(monkeypatch, X, y, budget, bundling=True, cats=(), **kw):
     if budget is None:
         monkeypatch.delenv("MMLSPARK_TPU_U_BUDGET", raising=False)
     else:
         monkeypatch.setenv("MMLSPARK_TPU_U_BUDGET", budget)
-    monkeypatch.setattr(ttrain, "quant_noise", _reference_noise)
     bkw = dict(max_bin=FIT["max_bin"], feature_bundling=bundling,
                categorical_features=list(cats) or None)
     bt, mt = tbinning.bin_dataset(X, **bkw)

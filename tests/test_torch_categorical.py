@@ -276,21 +276,11 @@ PATHS = [
 PATH_IDS = ["compare", "u_bf16", "u_quant", "chunked_bf16", "chunked_quant"]
 
 
-def _reference_noise(seed, iteration, column, n, device):
-    key = jax.random.split(
-        jax.random.fold_in(jax.random.PRNGKey(seed ^ 0x51AB51AB), iteration), column + 1
-    )[column]
-    kg, kh = jax.random.split(key)
-    return torch.from_numpy(np.stack([np.asarray(jax.random.uniform(kk, (n,), dtype=jnp.float32))
-                                      for kk in (kg, kh)])).to(device)
-
-
 def _fit_both(monkeypatch, X, y, cats, budget=None, bundling=False, **kw):
     if budget is None:
         monkeypatch.delenv("MMLSPARK_TPU_U_BUDGET", raising=False)
     else:
         monkeypatch.setenv("MMLSPARK_TPU_U_BUDGET", budget)
-    monkeypatch.setattr(ttrain, "quant_noise", _reference_noise)
     bkw = dict(max_bin=kw.get("max_bin", FIT["max_bin"]), categorical_features=cats,
                feature_bundling=bundling)
     bt, mt = tbinning.bin_dataset(X, **bkw)

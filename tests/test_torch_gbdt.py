@@ -268,7 +268,7 @@ def test_entry_points_refuse_the_cpu_unless_asked():
 
 
 @pytest.mark.parametrize(
-    "option", [dict(growth="depthwise"), dict(bagging_freq=1, bagging_fraction=0.5),
+    "option", [dict(growth="depthwise"), dict(tree_learner="voting_parallel"),
                dict(objective="multiclass"), dict(boosting_type="dart")],
 )
 def test_unported_options_raise(option):

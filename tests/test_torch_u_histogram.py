@@ -91,8 +91,11 @@ def _jax_uniforms(key, n):
 
 
 def _quant_stats(g, h, c, seed):
+    """The reference's quantized stats as its fits compute them: compiled,
+    where XLA fuses ``x * (127 / s) + u`` into a multiply-add and divides
+    by the constant 127 as a multiply by its reciprocal."""
     key = jax.random.PRNGKey(seed)
-    ref = ju.stat_rows_quant(jnp.asarray(g), jnp.asarray(h), jnp.asarray(c), key)
+    ref = jax.jit(ju.stat_rows_quant)(jnp.asarray(g), jnp.asarray(h), jnp.asarray(c), key)
     port = tu.stat_rows_quant(torch.from_numpy(g), torch.from_numpy(h), torch.from_numpy(c),
                               torch.from_numpy(_jax_uniforms(key, len(g))))
     return ref, port
@@ -668,15 +671,6 @@ def test_chunked_pass_matches_jax_at_every_chunk_size(quant, chunk_budget):
 STRUCTURE = ("split_feature", "split_bin", "left_child", "right_child", "is_leaf")
 
 
-def _reference_noise(seed, iteration, column, n, device):
-    """The reference's draws for (iteration, margin column): the uniforms of
-    ``stat_rows_quant`` under ``train.py``'s per-tree key."""
-    key = jax.random.split(
-        jax.random.fold_in(jax.random.PRNGKey(seed ^ 0x51AB51AB), iteration), column + 1
-    )[column]
-    return torch.from_numpy(_jax_uniforms(key, n)).to(device)
-
-
 def _fit_case(seed=11, n=1400, f=8):
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(n, f))
@@ -699,8 +693,7 @@ def _fit_reference(X, y, **kw):
 
 @pytest.mark.parametrize("subtraction", [True, False], ids=["sub", "nosub"])
 @pytest.mark.parametrize("leaf_batch", [1, 8])
-def test_quantized_fit_matches_jax(monkeypatch, subtraction, leaf_batch):
-    monkeypatch.setattr(ttrain, "quant_noise", _reference_noise)
+def test_quantized_fit_matches_jax(subtraction, leaf_batch):
     X, y = _fit_case(seed=11 + leaf_batch)
     kw = dict(histogram_method="u", use_quantized_grad=True, leaf_batch=leaf_batch,
               histogram_subtraction=subtraction)
@@ -785,6 +778,9 @@ def test_quantized_fits_repeat_and_follow_the_seed():
     assert noise.shape == (2, 1000) and noise.dtype == torch.float32
     assert 0.0 <= float(noise.min()) and float(noise.max()) < 1.0
     assert not torch.equal(noise, ttrain.quant_noise(0, 4, 0, 1000, torch.device("cpu")))
+    # the reference's draws: the g and h keys of the per-tree key
+    key = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(0 ^ 0x51AB51AB), 3), 1)[0]
+    np.testing.assert_array_equal(noise.numpy(), _jax_uniforms(key, 1000))
 
 
 def test_quantized_fit_falls_back_with_a_warning_when_u_is_inactive(caplog):
