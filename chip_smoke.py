@@ -21,7 +21,11 @@ non-zero and prints no result):
    skewed bins (3 distinct values on a third of the features) and
    11,000,003 rows, each bit-equal to the plain version and across two
    launches, and timed; and the kernel's time under each launch plan of
-   HIST_PLANS at 1, 8 and 42 nodes and on the skewed bins.
+   HIST_PLANS at 1, 8 and 42 nodes and on the skewed bins. Then the
+   depthwise levels of 64 and 128 nodes, wider than one launch: the
+   node-panel entry runs them as 2 and 4 node-group launches, bit-equal to
+   the plain version over all nodes and across two runs, and timed against
+   the same byte bound.
 4. Fit parity: 1,000,000 rows, 3 iterations, kernel against the plain
    version forced in: identical trees, margins within 1e-4.
 5. The default path: LightGBMClassifier.fit on 11,000,000 x 28 rows (maxBin
@@ -97,8 +101,28 @@ non-zero and prints no result):
    1,000,000-row draw timed; then a bagged quantized U
    fit (baggingFraction 0.8, baggingFreq 5, featureFraction 0.8) on
    1,000,000 rows, resident and forced chunked: equal model text.
-16. One JSON line with every kernel, then the card line, then the result
-   line. Each phase prints its wall time; TF32 matmuls must be off.
+16. Multiclass at the width of UCI Covertype (XGBoost's
+   demo/gpu_acceleration/cover_type.py): 581,012 rows of 54 features (10
+   continuous, 4 one-hot wilderness areas, 40 one-hot soil types) and 7
+   classes at the data set's priors, generated from a seed. maxBin 255, 31
+   leaves, 10 iterations: the default path through LightGBMClassifier; the
+   same with 100,000 validation rows (multi_logloss, early stopping); with
+   featureBundling (the trees and the model text but its split gains equal
+   the unbundled fit's); and the quantized U path (resident or chunked,
+   whichever the U budget picks), unbundled and bundled (the same model
+   text). Per fit: boosting seconds, trees, passes, launches, held-out
+   multi_error (below the majority class's 0.512) and multi_logloss on
+   100,000 rows, peak bytes.
+17. Boosting types and depthwise growth on phase 5's 11,000,000 bins (no
+   second binning), 10 iterations each: goss (top_rate 0.2, other_rate
+   0.1), dart (drop_rate 0.1), rf (baggingFraction 0.8, baggingFreq 1),
+   depthwise at max_depth 6 and 8 (levels of 64 and 128 nodes in 2 and 4
+   node-group launches, checked per level), and goss on the 1,000,000-row
+   quantized resident U path: boosting seconds, launches, held-out AUC on
+   phase 5's 500,000 test rows (above 0.75), peak bytes.
+18. One JSON line with every kernel (the grouped wide-level launches
+   among them), then the card line, then the result line. Each phase
+   prints its wall time; TF32 matmuls must be off.
 """
 
 import json
@@ -123,6 +147,7 @@ FIT_ITERS = 10
 N_U = 1_000_000  # U pass rows: a 7.2 GB U at 28 x 256
 U_BUDGET_4_CHUNKS = 2 * 7168 * 262_144  # 1M rows in 4 chunks of 262,144
 PLAN_REPS = 5  # timed launches of each case in the launch-plan sweeps
+WIDE_LEVELS = (64, 128)  # depthwise levels 6 and 7: node-grouped histogram.cu launches
 
 # Card memory rate (bytes/s) and float32 peak outside the tensor cores
 # (ops/s), by name: NVIDIA's data sheets at the full power limit.
@@ -250,6 +275,8 @@ def phase_kernel(torch, hh, rates):
                                         nodes[8], 8, b)
     records["plans"] = _kernel_plans(torch, hh, bins_t, skewed, grad, hess, count, nodes, b)
     del skewed
+    for k in WIDE_LEVELS:
+        records[k] = _wide_level_case(torch, hh, rates, bins_t, grad, hess, count, k, b, gen)
     n_odd = N_KERNEL_ODD
     records["k8_odd_n"] = _kernel_case(
         torch, hh, "k8_odd_n",
@@ -260,6 +287,52 @@ def phase_kernel(torch, hh, rates):
     del bins_t, grad, hess, count, nodes
     torch.cuda.empty_cache()
     return records
+
+
+def _wide_level_case(torch, hh, rates, bins_t, grad, hess, count, k, b, gen):
+    """A depthwise level wider than one launch (k = 64 and 128 at 256 bins):
+    the node-panel entry runs it as len(node_groups) launches of
+    histogram.cu, each over all rows with shifted keys. The result must
+    equal the plain version over all k nodes bit for bit and repeat bit for
+    bit; its time beside the byte bound of the one function (the groups
+    reread every row, the bound counts each input once)."""
+    dev = bins_t.device
+    f, n = bins_t.shape
+    node = torch.randint(0, k + 1, (n,), device=dev, generator=gen, dtype=torch.int32)
+    args = (bins_t, grad, hess, count, node)
+    groups = hh.node_groups(k, b)
+    before = hh.build_histograms_cuda.launches
+    out = hh.build_histograms_cuda(*args, k, b)
+    launched = hh.build_histograms_cuda.launches - before
+    again = hh.build_histograms_cuda(*args, k, b)
+    torch.cuda.synchronize()
+    if launched != len(groups):
+        raise AssertionError(f"k={k}: {launched} launches for {len(groups)} node groups")
+    plain = hh.build_histograms_plain(*args, k, b)
+    max_err = float((out - plain).abs().max())
+    if not torch.equal(out, plain):
+        raise AssertionError(f"k={k}: grouped launches differ from the plain version "
+                             f"(max abs err {max_err})")
+    if not torch.equal(out, again):
+        raise AssertionError(f"k={k}: two grouped runs on the same input differ")
+    del out, again, plain
+    ms = _time_ms(torch, lambda: hh.build_histograms_cuda(*args, k, b), 10)
+    plain_ms = _time_ms(torch, lambda: hh.build_histograms_plain(*args, k, b), 3)
+    rows = (node < k).nonzero().squeeze(1)
+    ids = ((node[rows].long()[None, :] * f + torch.arange(f, device=dev)[:, None]) * b
+           + bins_t[:, rows].long()).reshape(-1)
+    data = torch.stack([grad[rows], hess[rows], count[rows]], 1).repeat(f, 1)
+    acc = torch.zeros(k * f * b, 3, device=dev)
+    library_ms = _time_ms(torch, lambda: acc.index_add_(0, ids, data), 3)
+    n_in = int(rows.numel())
+    del ids, data, acc, rows
+    bound_ms, bound_by = _bound(hh.bytes_needed(n, f, n_in, k, b), hh.adds_needed(f, n_in),
+                                rates)
+    rec = dict(k=k, groups=[list(g) for g in groups], launches_per_pass=launched,
+               rows_in_range=n_in, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    print(f"kernel wide level k={k}: " + json.dumps(rec), flush=True)
+    return rec
 
 
 def _kernel_case(torch, hh, label, bins_t, grad, hess, count, node, k, b):
@@ -357,12 +430,23 @@ def phase_parity(torch, hh, histogram, binning, train):
           f"max margin delta {dm}", flush=True)
 
 
-def phase_fit(torch, hh, histogram, Table, LightGBMClassifier, auc, rows):
+def phase_fit(torch, hh, histogram, base, Table, LightGBMClassifier, auc, rows):
     """The main path: fit and predict through the estimator on cuda, with
-    CUDA events around every histogram launch."""
+    CUDA events around every histogram launch. Returns the record and the
+    fit's bins, mapper and labels with the held-out rows (phase 17 fits on
+    them without binning again)."""
     X, y = _make_data(rows + N_TEST, N_FEATURES, seed=0)
     train_t = Table({"features": X[:rows], "label": y[:rows]})
     test_t = Table({"features": X[rows:], "label": y[rows:]})
+    binned = []
+    bin_dataset = base.bin_dataset
+
+    def keep_bins(*a, **kw):
+        out = bin_dataset(*a, **kw)
+        binned.append(out)
+        return out
+
+    base.bin_dataset = keep_bins
     events = []
     wrapped = {}
     for name in ("build_histograms_cuda", "build_histograms_combined_cuda"):
@@ -396,6 +480,7 @@ def phase_fit(torch, hh, histogram, Table, LightGBMClassifier, auc, rows):
         out = model.transform(test_t)
         predict_s = time.perf_counter() - t1
     finally:
+        base.bin_dataset = bin_dataset
         for name, fn in wrapped.items():
             setattr(histogram, name, fn)
     peak = torch.cuda.max_memory_allocated()
@@ -418,7 +503,9 @@ def phase_fit(torch, hh, histogram, Table, LightGBMClassifier, auc, rows):
         held_out_auc=test_auc, launches=launches,
     )
     print("fit: " + json.dumps(rec), flush=True)
-    return rec
+    bins, mapper = binned[0]
+    return rec, dict(bins=bins, mapper=mapper, y=y[:rows].copy(), X_test=X[rows:].copy(),
+                     y_test=y[rows:].copy())
 
 
 def _bound(bytes_, ops, rates):
@@ -1356,6 +1443,253 @@ def phase_quant_noise(torch, uh, hh, binning, train):
     return rec
 
 
+# Phase 16: the UCI Covertype shape (XGBoost's demo/gpu_acceleration/cover_type.py):
+# 581,012 rows of 54 features (10 continuous, 4 one-hot wilderness areas, 40
+# one-hot soil types), 7 cover types at the data set's class priors.
+N_COVER = 581_012
+N_COVER_VALID = 100_000
+N_COVER_TEST = 100_000
+COVER_PRIORS = (0.365, 0.488, 0.062, 0.005, 0.016, 0.030, 0.035)
+COVER_MAJORITY_ERROR = 1.0 - max(COVER_PRIORS)  # 0.512
+
+
+def _covertype_data(n, seed):
+    """Covertype-shaped rows from a seed (nothing is downloaded): integer
+    continuous columns in the data set's ranges (elevation, aspect, slope,
+    hydrology, road and fire distances, three hillshades), one wilderness
+    area and one soil type per row (the soil follows the area and the
+    elevation), and a label drawn from a nonlinear per-class score (an
+    elevation band per cover type, soil and area effects, aspect, slope
+    and distances) with Gumbel noise, its class biases set so that the
+    label frequencies are COVER_PRIORS."""
+    rng = np.random.default_rng(seed)
+    c = len(COVER_PRIORS)
+    elev = np.round(rng.normal(2959, 280, n)).clip(1859, 3858)
+    aspect = rng.integers(0, 361, n).astype(np.float64)
+    slope = np.round(rng.gamma(4.0, 3.5, n)).clip(0, 66)
+    hhyd = np.round(rng.exponential(270, n)).clip(0, 1397)
+    vhyd = np.round(rng.normal(46, 58, n)).clip(-173, 601)
+    hroad = np.round(rng.exponential(2350, n)).clip(0, 7117)
+    face = np.cos(np.radians(aspect - 135))
+    hs9 = np.round(212 + 27 * face - slope + rng.normal(0, 8, n)).clip(0, 254)
+    hsn = np.round(223 - 0.6 * slope + rng.normal(0, 12, n)).clip(0, 254)
+    hs3 = np.round(142 - 35 * face + rng.normal(0, 20, n)).clip(0, 254)
+    hfire = np.round(rng.exponential(1980, n)).clip(0, 7173)
+    wild = np.clip((elev - 1859) / 500 + rng.normal(0, 0.9, n), 0, 3.999).astype(int)
+    soil = np.clip(wild * 10 + rng.integers(0, 10, n) + (elev > 3200) * rng.integers(0, 3, n),
+                   0, 39)
+    X = np.zeros((n, 54))
+    X[:, :10] = np.stack([elev, aspect, slope, hhyd, vhyd, hroad, hs9, hsn, hs3, hfire], 1)
+    X[np.arange(n), 10 + wild] = 1.0
+    X[np.arange(n), 14 + soil] = 1.0
+    band = np.array([3130, 2920, 2390, 2220, 2790, 2430, 3360], np.float64)
+    score = -((elev[:, None] - band[None]) / 160.0) ** 2
+    score += rng.normal(0, 0.8, (40, c))[soil] + rng.normal(0, 0.6, (4, c))[wild]
+    score += 0.4 * np.sin(np.radians(aspect))[:, None] * np.linspace(-1, 1, c)[None]
+    score += hhyd[:, None] / 500.0 * np.array([0.3, 0.1, -0.4, -0.8, 0.2, -0.3, 0.5])
+    score += hroad[:, None] / 3000.0 * np.array([0.2, -0.2, -0.3, -0.5, 0.1, -0.1, 0.4])
+    score += slope[:, None] / 20.0 * np.array([-0.1, 0.0, 0.4, 0.2, 0.1, 0.5, 0.3])
+    score += rng.gumbel(size=(n, c))
+    bias = np.log(np.asarray(COVER_PRIORS))
+    for _ in range(8):
+        freq = np.bincount((score + bias).argmax(1), minlength=c) / n
+        bias += np.log(np.asarray(COVER_PRIORS) / np.maximum(freq, 1e-9))
+    return X, (score + bias).argmax(1).astype(np.float64)
+
+
+def _multiclass_record(torch, objectives, label, st, counts, peak, y_test, margins, **extra):
+    c = len(COVER_PRIORS)
+    if margins.shape != (len(y_test), c) or not np.isfinite(margins).all():
+        raise AssertionError(f"{label}: bad margins {margins.shape}")
+    w = np.ones(len(y_test))
+    err = objectives.multi_error(y_test, margins, w)
+    rec = dict(fit=label, boosting_s=st.boost_seconds, binning_s=st.binning_seconds,
+               u_build_s=st.u_build_seconds, trees=st.trees, passes=st.passes,
+               histogram_path=st.histogram_path, u_chunks=st.u_chunks, quantized=st.quantized,
+               launches=counts, launches_per_tree={k: v / st.trees for k, v in counts.items()},
+               held_out_multi_error=err,
+               held_out_multi_logloss=objectives.multi_logloss(y_test, margins, w),
+               peak_device_bytes=peak, **extra)
+    print("multiclass fit: " + json.dumps(rec), flush=True)
+    if not err < COVER_MAJORITY_ERROR:
+        raise AssertionError(f"{label}: held-out multi_error {err} is not below the majority "
+                             f"class's {COVER_MAJORITY_ERROR}")
+    return rec
+
+
+def phase_multiclass(torch, uh, hh, binning, train, objectives, Table, LightGBMClassifier):
+    """Multiclass at Covertype width: the default path through the
+    estimator, the same with a validation set (multi_logloss, early
+    stopping), the quantized U path, and EFB on the one-hot columns (default
+    path against the unbundled fit; quantized U bundled against unbundled)."""
+    n_all = N_COVER + N_COVER_VALID + N_COVER_TEST
+    X, y = _covertype_data(n_all, seed=16)
+    Xtr, ytr = X[:N_COVER], y[:N_COVER]
+    Xte, yte = X[N_COVER + N_COVER_VALID:], y[N_COVER + N_COVER_VALID:]
+    freq = np.bincount(ytr.astype(int), minlength=len(COVER_PRIORS)) / N_COVER
+    print("covertype: " + json.dumps(dict(rows=N_COVER, features=X.shape[1],
+                                         class_freq=freq.tolist())), flush=True)
+    common = dict(numIterations=FIT_ITERS, numLeaves=31, maxBin=NUM_BINS - 1, leafBatch=8,
+                  learningRate=0.1, device="cuda")
+    recs = {}
+
+    def estimator_fit(label, table, **params):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(uh, hh)
+        model = LightGBMClassifier(**common, **params).fit(table)
+        torch.cuda.synchronize()
+        counts = _counts(uh, hh)
+        _need(counts, ("hist_panel", "hist_combined"), label)
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        out = model.transform(Table({"features": Xte}))
+        predict_s = time.perf_counter() - t0
+        prob = out["probability"]
+        if prob.shape != (N_COVER_TEST, 7) or not np.allclose(prob.sum(axis=1), 1.0, atol=1e-5):
+            raise AssertionError(f"{label}: bad probability column {prob.shape}")
+        return model, _multiclass_record(torch, objectives, label, model.fit_stats, counts, peak,
+                                         yte, out["rawPrediction"], predict_s=predict_s)
+
+    default, recs["default"] = estimator_fit("default", Table({"features": Xtr, "label": ytr}))
+    if default.booster.num_classes != 7 or default.fit_stats.trees != 7 * FIT_ITERS:
+        raise AssertionError(f"default fit: {default.booster.num_classes} classes, "
+                             f"{default.fit_stats.trees} trees")
+
+    flag = np.zeros(N_COVER + N_COVER_VALID, bool)
+    flag[N_COVER:] = True
+    valid, rec = estimator_fit(
+        "validation", Table({"features": X[:N_COVER + N_COVER_VALID],
+                             "label": y[:N_COVER + N_COVER_VALID], "valid": flag}),
+        validationIndicatorCol="valid", metric="multi_logloss", earlyStoppingRound=2)
+    history = valid._train_evals["valid_0"]["multi_logloss"]
+    if len(history) != valid.booster.num_iterations or not all(np.isfinite(history)):
+        raise AssertionError(f"validation fit: history {history}")
+    rec.update(iterations_run=valid.booster.num_iterations,
+               best_iteration=valid.booster.best_iteration, valid_multi_logloss=history)
+    print("multiclass validation: " + json.dumps(dict(
+        iterations_run=rec["iterations_run"], best_iteration=rec["best_iteration"],
+        valid_multi_logloss=history)), flush=True)
+    recs["validation"] = rec
+
+    bundled, recs["bundled"] = estimator_fit("bundled", Table({"features": Xtr, "label": ytr}),
+                                             featureBundling=True)
+    ub, bb = default.booster, bundled.booster
+    for field in ("split_feature", "split_bin", "left_child", "right_child", "is_leaf"):
+        if not np.array_equal(getattr(ub, field), getattr(bb, field)):
+            raise AssertionError(f"bundled default fit: {field} differs from the unbundled fit")
+    text_u, text_b = ub.model_to_string(), bb.model_to_string()
+    # On float histograms a bundled member's default bin is the node total less
+    # its other bins, so split gains may differ from the unbundled fit's in
+    # float32 rounding of their terms (each at most the largest gain's
+    # order: within 1e-5 of it); every other line of the text must be
+    # identical.
+    other = [(a, b) for a, b in zip(text_u.splitlines(), text_b.splitlines())
+             if a != b and not a.startswith(("split_gain=", "tree_sizes="))]
+    gains_u, gains_b = (np.array([float(v) for line in text.splitlines()
+                                  if line.startswith("split_gain=") for v in line[11:].split()])
+                        for text in (text_u, text_b))
+    if other or gains_u.shape != gains_b.shape:
+        raise AssertionError(f"bundled default fit: model text differs ({other[:2]})")
+    delta, top = float(np.abs(gains_u - gains_b).max()), float(np.abs(gains_u).max())
+    recs["bundled"].update(text_identical=text_u == text_b, max_split_gain_delta=delta,
+                           max_split_gain=top)
+    print(f"multiclass bundled: trees and text equal the unbundled fit's but split gains, "
+          f"within {delta} of {top}", flush=True)
+    if not delta <= 1e-5 * top:
+        raise AssertionError(f"bundled default fit: split gains differ by {delta} (largest "
+                             f"gain {top})")
+
+    for name, bundling in (("u_quant", False), ("u_quant_bundled", True)):
+        t0 = time.perf_counter()
+        bins, mapper = binning.bin_dataset(Xtr, max_bin=NUM_BINS - 1,
+                                           feature_bundling=bundling)
+        binning_s = time.perf_counter() - t0
+        opts = train.TrainOptions(objective="multiclass", num_class=7, num_iterations=FIT_ITERS,
+                                  num_leaves=31, learning_rate=0.1, max_bin=NUM_BINS - 1,
+                                  leaf_batch=8, histogram_method="u", use_quantized_grad=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(uh, hh)
+        res = train.train(bins, ytr, opts, mapper=mapper, device="cuda")
+        torch.cuda.synchronize()
+        counts = _counts(uh, hh)
+        kernel = "bin_scatter" if res.stats.histogram_path == "u_chunked" else "u_panel_dot"
+        _need(counts, (kernel,), name)
+        if not res.stats.quantized:
+            raise AssertionError(f"{name}: {res.stats}")
+        res.stats.binning_seconds = binning_s
+        margins = res.booster.raw_margin(Xte, device="cuda")
+        recs[name] = _multiclass_record(torch, objectives, name, res.stats, counts,
+                                        torch.cuda.max_memory_allocated(), yte, margins,
+                                        columns=bins.shape[1])
+        recs[name]["text"] = res.booster.model_to_string()
+    if recs["u_quant"].pop("text") != recs["u_quant_bundled"].pop("text"):
+        raise AssertionError("quantized U fit: the bundled model text differs from the "
+                             "unbundled one")
+    print(f"multiclass: quantized U path {recs['u_quant']['histogram_path']} "
+          f"({recs['u_quant']['u_chunks']} chunks); bundled model text identical", flush=True)
+    return recs
+
+
+# Phase 17: boosting types and depthwise growth at HIGGS width, on phase 5's bins.
+HIGGS_MODES = (
+    ("goss", dict(boosting_type="goss", top_rate=0.2, other_rate=0.1)),
+    ("dart", dict(boosting_type="dart", drop_rate=0.1)),
+    ("rf", dict(boosting_type="rf", bagging_fraction=0.8, bagging_freq=1)),
+    ("depthwise_6", dict(growth="depthwise", max_depth=6)),
+    ("depthwise_8", dict(growth="depthwise", max_depth=8)),
+)
+
+
+def phase_boosting_types(torch, uh, hh, train, auc, higgs):
+    """goss, dart, rf and depthwise growth (max_depth 6 and 8: levels of 64
+    and 128 nodes in node-grouped histogram.cu launches) on the 11,000,000
+    rows of phase 5, and one goss fit on the 1,000,000-row quantized
+    resident U path; held-out AUC on phase 5's 500,000 test rows."""
+    bins, mapper, y = higgs["bins"], higgs["mapper"], higgs["y"]
+    Xte, yte = higgs["X_test"], higgs["y_test"]
+    recs = {}
+    fits = [(name, bins, y, kw) for name, kw in HIGGS_MODES]
+    fits.append(("goss_u_quant_1m", bins[:N_U], y[:N_U],
+                 dict(boosting_type="goss", histogram_method="u", use_quantized_grad=True)))
+    for name, b, yy, kw in fits:
+        opts = train.TrainOptions(objective="binary", num_iterations=FIT_ITERS, num_leaves=31,
+                                  learning_rate=0.1, max_bin=NUM_BINS - 1, leaf_batch=8, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(uh, hh)
+        res = train.train(b, yy, opts, mapper=mapper, device="cuda")
+        torch.cuda.synchronize()
+        counts = _counts(uh, hh)
+        st = res.stats
+        _need(counts, ("u_panel_dot",) if "u_quant" in name else ("hist_panel", "hist_combined"),
+              name)
+        margin = res.booster.raw_margin(Xte, device="cuda")[:, 0]
+        test_auc = auc(yte, margin, np.ones(len(yte)))
+        rec = dict(fit=name, rows=len(yy), boosting_s=st.boost_seconds, trees=st.trees,
+                   passes=st.passes, histogram_path=st.histogram_path, quantized=st.quantized,
+                   launches=counts, held_out_auc=test_auc,
+                   peak_device_bytes=torch.cuda.max_memory_allocated())
+        if st.level_launches:
+            rec["level_launches"] = st.level_launches
+            rec["launches_per_tree_by_level"] = [v / st.trees for v in st.level_launches]
+        if st.dart_drops:
+            rec["dropped_trees"] = sum(len(d) for d in st.dart_drops)
+        print("boosting type fit: " + json.dumps(rec), flush=True)
+        if not test_auc > 0.75:
+            raise AssertionError(f"{name}: held-out AUC {test_auc} is too low for this data")
+        if name == "depthwise_8":
+            want = [len(hh.node_groups(1 << d, NUM_BINS)) for d in range(8)]
+            if rec["launches_per_tree_by_level"] != want:
+                raise AssertionError(f"depthwise_8: launches by level "
+                                     f"{rec['launches_per_tree_by_level']}, want {want}")
+        if name == "dart" and not rec["dropped_trees"]:
+            raise AssertionError("dart: no tree was dropped")
+        recs[name] = rec
+    return recs
+
+
 def main():
     import torch
 
@@ -1369,7 +1703,15 @@ def main():
     from mmlspark_tpu_torch.data.table import Table
     from mmlspark_tpu_torch.kernels import sass_atomics
     from mmlspark_tpu_torch.kernels.build import histogram_extension
-    from mmlspark_tpu_torch.lightgbm import LightGBMClassifier, binning, bundling, callbacks, train
+    from mmlspark_tpu_torch.lightgbm import (
+        LightGBMClassifier,
+        base,
+        binning,
+        bundling,
+        callbacks,
+        objectives,
+        train,
+    )
     from mmlspark_tpu_torch.lightgbm.booster import Booster
     from mmlspark_tpu_torch.lightgbm.objectives import auc
     from mmlspark_tpu_torch.ops import histogram
@@ -1406,7 +1748,8 @@ def main():
 
     kernel = timed("kernel", phase_kernel, torch, hh, rates)
     timed("parity", phase_parity, torch, hh, histogram, binning, train)
-    fit = timed("fit", phase_fit, torch, hh, histogram, Table, LightGBMClassifier, auc, N_FIT)
+    fit, higgs = timed("fit", phase_fit, torch, hh, histogram, base, Table, LightGBMClassifier,
+                       auc, N_FIT)
     packed, entry_launches = timed("packed_kernels", phase_packed_kernels, torch, uh, hh, rates)
     timed("u_parity", phase_u_parity, torch, uh, hh, binning, train)
     u_fit, u_text = timed("u_fit_1m", phase_u_fit, torch, uh, hh, binning, train, auc, N_U)
@@ -1423,6 +1766,10 @@ def main():
           es_model, X_es, y_es)
     del es_model, X_es, y_es
     timed("quant_noise", phase_quant_noise, torch, uh, hh, binning, train)
+    timed("multiclass", phase_multiclass, torch, uh, hh, binning, train, objectives, Table,
+          LightGBMClassifier)
+    types = timed("boosting_types", phase_boosting_types, torch, uh, hh, train, auc, higgs)
+    del higgs
 
     if entry_launches == 0:
         raise AssertionError("build_histograms_bin_scatter did not launch bin_scatter")
@@ -1437,6 +1784,11 @@ def main():
          u_fit["u_pass_launches"], packed[("u_panel_dot", 8, "quant")]),
         ("bin_scatter", "bin_scatter.cu", "mmlspark_tpu/ops/pallas_histogram.py:260",
          u_fit_chunked["bin_scatter_launches"], packed[("bin_scatter_stack", 8, "quant")]),
+        # depthwise levels 6 and 7 of the max_depth 8 fit, in node groups
+        ("hist_panel_k64_grouped", "histogram.cu", "mmlspark_tpu/ops/pallas_histogram.py:86",
+         types["depthwise_8"]["level_launches"][6], kernel[64]),
+        ("hist_panel_k128_grouped", "histogram.cu", "mmlspark_tpu/ops/pallas_histogram.py:86",
+         types["depthwise_8"]["level_launches"][7], kernel[128]),
     ):
         if launches == 0:
             raise AssertionError(f"{name} was not launched on its path")

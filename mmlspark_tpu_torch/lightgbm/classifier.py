@@ -1,8 +1,8 @@
-"""LightGBMClassifier — binary GBDT classification.
+"""LightGBMClassifier — binary and multiclass GBDT classification.
 
 The port's counterpart of ``mmlspark_tpu/lightgbm/classifier.py``: the same
-params and output columns (rawPrediction, probability, prediction).
-Multiclass fits are not ported yet.
+params and output columns (rawPrediction, probability, prediction); labels above
+1 infer the multiclass objective with one class per label value.
 """
 
 from __future__ import annotations

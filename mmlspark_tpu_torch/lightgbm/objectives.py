@@ -1,8 +1,8 @@
 """Training objectives and evaluation metrics.
 
-The port's copy of ``mmlspark_tpu/lightgbm/objectives.py`` for the binary
-and l2 regression objectives: gradients and hessians in torch on the fit's
-device, init scores and metrics in host numpy.
+The port's copy of ``mmlspark_tpu/lightgbm/objectives.py`` for the binary,
+multiclass softmax and l2 regression objectives: gradients and hessians in
+torch on the fit's device, init scores and metrics in host numpy.
 """
 
 from __future__ import annotations
@@ -39,6 +39,73 @@ def _binary_init(y, num_classes, w):
     return np.array([np.log(pos / neg)], dtype=np.float32)
 
 
+# float32 constants of the Cephes exp polynomial
+_LOG2E = float(np.float32(1.44269504088896341))
+_LN2_HI = float(np.float32(0.693359375))
+_LN2_LO = float(np.float32(-2.12194440e-4))
+_EXP_POLY = tuple(float(np.float32(c)) for c in (
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2, 1.6666665459e-1,
+    5.0000001201e-1))
+_FLT_MIN = float(np.finfo(np.float32).tiny)
+
+
+def _fma(a, b, c):
+    """float32 ``a * b + c`` in one rounding, as a fused multiply-add: the
+    float64 product of two float32 values is exact."""
+    return (a.double() * b + c).to(torch.float32)
+
+
+def exp_nonpositive(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``exp(x)`` for ``x <= 0`` with the reference's bits: XLA's CPU
+    exp is the Cephes polynomial with fused multiply-adds, and flushes
+    results below the smallest normal float32 to zero. The softmax takes it
+    (its inputs are ``x - max x``), so that multiclass gradients are the
+    reference's bit for bit on the CPU and the card alike."""
+    x = torch.clamp(x.to(torch.float32), min=-88.0)
+    fx = torch.floor(_fma(x, _LOG2E, 0.5))
+    r = _fma(fx, -_LN2_HI, x.double())
+    r = _fma(fx, -_LN2_LO, r.double())
+    z = r * r
+    y = torch.full_like(r, _EXP_POLY[0])
+    for c in _EXP_POLY[1:]:
+        y = _fma(y, r.double(), c)
+    y = _fma(y, z.double(), r.double()) + 1.0
+    return _flush(y * torch.pow(2.0, fx))
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal float32 values to zero, as the reference's compiled CPU code
+    runs with flush-to-zero."""
+    return torch.where(x.abs() < _FLT_MIN, torch.zeros_like(x), x)
+
+
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """(N, C) -> (N,): the columns added left to right in float32, the
+    reference's reduction order."""
+    acc = x[:, 0]
+    for c in range(1, x.shape[1]):
+        acc = acc + x[:, c]
+    return acc
+
+
+def _multiclass_grad_hess(margins, y, w):
+    """Softmax cross-entropy: ``g = p - onehot(y)``, ``h = 2 p (1 - p)``
+    (LightGBM's factor 2), each times the weight."""
+    e = exp_nonpositive(margins - margins.amax(dim=1, keepdim=True))
+    p = _flush(e / row_sum(e)[:, None])
+    onehot = torch.nn.functional.one_hot(y.long(), margins.shape[1]).to(p.dtype)
+    g = _flush((p - onehot) * w[:, None])
+    h = torch.clamp(2.0 * p * (1.0 - p), min=1e-16) * w[:, None]
+    return g, h
+
+
+def _multiclass_init(y, num_classes, w):
+    counts = np.array([np.sum(w[np.asarray(y) == c]) for c in range(num_classes)],
+                      dtype=np.float64)
+    probs = np.maximum(counts / max(counts.sum(), 1e-12), 1e-12)
+    return np.log(probs).astype(np.float32)
+
+
 def _l2_grad_hess(margins, y, w):
     g = (margins[:, 0] - y) * w
     return g[:, None], (w * torch.ones_like(g))[:, None]
@@ -50,6 +117,8 @@ def _l2_init(y, num_classes, w):
 
 OBJECTIVES: Dict[str, Objective] = {
     "binary": Objective("binary", lambda c: 1, _binary_grad_hess, _binary_init, "auc"),
+    "multiclass": Objective("multiclass", lambda c: c, _multiclass_grad_hess, _multiclass_init,
+                            "multi_logloss"),
     "regression": Objective("regression", lambda c: 1, _l2_grad_hess, _l2_init, "l2"),
 }
 
@@ -94,6 +163,18 @@ def binary_logloss(y, margin, w):
     return float(np.average(-(y * np.log(p) + (1 - y) * np.log(1 - p)), weights=w))
 
 
+def multi_logloss(y, margins, w):
+    m = margins - margins.max(axis=1, keepdims=True)
+    logp = m - np.log(np.exp(m).sum(axis=1, keepdims=True))
+    ll = logp[np.arange(len(y)), np.asarray(y, dtype=int)]
+    return float(np.average(-ll, weights=w))
+
+
+def multi_error(y, margins, w):
+    pred = margins.argmax(axis=1)
+    return float(np.average(pred != np.asarray(y, dtype=int), weights=w))
+
+
 def binary_error(y, margin, w):
     return float(np.average((margin > 0) != (y > 0.5), weights=w))
 
@@ -116,11 +197,13 @@ def quantile_loss(y, pred, w, alpha=0.9):
 
 
 #: metric name -> (fn(y, score_or_margin, w), higher_is_better): the
-#: reference's metrics that the binary and l2 objectives can use.
+#: reference's metrics that the binary, multiclass and l2 objectives can use.
 METRICS = {
     "auc": (auc, True),
     "binary_logloss": (binary_logloss, False),
     "binary_error": (binary_error, False),
+    "multi_logloss": (multi_logloss, False),
+    "multi_error": (multi_error, False),
     "l2": (l2_loss, False),
     "mse": (l2_loss, False),
     "rmse": (rmse, False),

@@ -1,14 +1,22 @@
-"""GBDT training loop: leafwise (LightGBM best-first) growth on the device.
+"""GBDT training loop on the device: leafwise (LightGBM best-first) and
+depthwise growth.
 
-The port's counterpart of ``mmlspark_tpu/lightgbm/train.py`` for the
-flagship path: gbdt boosting, leafwise growth with ``leaf_batch`` frontier
-leaves per histogram pass, sibling histogram subtraction, numeric and
-categorical features, Exclusive Feature Bundling, and the precomputed-U
-histogram path with quantized gradients and its out-of-memory ladder. Each
-iteration:
+The port's counterpart of ``mmlspark_tpu/lightgbm/train.py``: the gbdt,
+``goss``, ``dart`` and ``rf`` boosting types, one tree per margin column
+(multiclass), leafwise growth with ``leaf_batch`` frontier leaves per
+histogram pass and sibling histogram subtraction, depthwise growth with one
+pass per level, numeric and categorical features, Exclusive Feature
+Bundling, and the precomputed-U histogram path with quantized gradients and
+its out-of-memory ladder. Each iteration:
 
-  gradients -> histogram pass(es) on the Hopper kernels -> split search over
-  the (node, feature, bin) lattice -> row routing -> leaf values -> margins.
+  gradients (N, C) -> per column: histogram pass(es) on the Hopper kernels
+  -> split search over the (node, feature, bin) lattice -> row routing ->
+  leaf values -> margins.
+
+GOSS keeps the rows of largest |g| and a draw of the rest (the reference's
+``lax.top_k`` and ``jax.random`` draw, bit for bit); DART drops earlier
+trees from the margins a new tree fits and rescales both (the reference's
+numpy stream); rf fits every tree to the init score and averages them.
 
 Each iteration draws its bag and feature mask on the host from the
 reference's numpy stream (:func:`_mask_schedule`); bagged-out rows keep
@@ -33,8 +41,13 @@ cache, lives in the packed space, and :func:`_expand` takes a pass back to
 the original (k, F, B, 3) after subtraction and dequantization, so the
 split search, the trees and the model text stay in original feature ids.
 
-Not ported yet: depthwise growth, multiclass, rf/dart/goss, meshes, process
-groups and linear trees.
+A depthwise level wider than one histogram launch holds (past 42 nodes)
+runs in node groups of ``histogram.cu`` (``ops/hopper_histogram.py``); on
+the U path such a level takes the compare-built pass on exact stats, as
+the reference's does.
+
+Not ported yet: meshes, process groups, the other tree learners and linear
+trees.
 """
 
 from __future__ import annotations
@@ -56,8 +69,14 @@ from mmlspark_tpu_torch.lightgbm.binning import BinMapper
 from mmlspark_tpu_torch.lightgbm.booster import Booster
 from mmlspark_tpu_torch.lightgbm.bundling import cat_row_maps_bundled, expand_maps, route_maps
 from mmlspark_tpu_torch.lightgbm.callbacks import CallbackEnv, _has_iteration_hooks, _lr_schedule
-from mmlspark_tpu_torch.lightgbm.objectives import METRICS, get_objective, metric_higher_is_better
+from mmlspark_tpu_torch.lightgbm.objectives import (
+    METRICS,
+    get_objective,
+    metric_higher_is_better,
+    row_sum,
+)
 from mmlspark_tpu_torch.ops import histogram
+from mmlspark_tpu_torch.ops import hopper_histogram as hh
 from mmlspark_tpu_torch.ops import u_histogram as uh
 
 _log = logging.getLogger("mmlspark_tpu_torch.lightgbm")
@@ -129,13 +148,24 @@ class TrainOptions:
     verbosity: int = -1
 
     @property
+    def depth(self) -> int:
+        """Static depth of a depthwise tree."""
+        if self.max_depth and self.max_depth > 0:
+            return self.max_depth
+        return max(1, math.ceil(math.log2(max(2, self.num_leaves))))
+
+    @property
     def num_nodes(self) -> int:
-        """Node-slot count M of one leafwise tree in pointer layout."""
+        """Node-slot count M of one tree in pointer layout."""
+        if self.growth == "depthwise":
+            return 2 ** (self.depth + 1) - 1
         return 2 * self.num_leaves - 1
 
     @property
     def routing_steps(self) -> int:
         """Static bound on tree depth for routing loops."""
+        if self.growth == "depthwise":
+            return self.depth
         if self.max_depth and self.max_depth > 0:
             return min(self.max_depth, self.num_leaves - 1)
         return self.num_leaves - 1
@@ -143,14 +173,19 @@ class TrainOptions:
 
 #: Options whose non-default values select paths the port has not taken over.
 _UNPORTED = {
-    "growth": "leafwise",
-    "boosting_type": "gbdt",
     "tree_learner": "data_parallel",
 }
+GROWTHS = ("leafwise", "depthwise")
+BOOSTING_TYPES = ("gbdt", "rf", "dart", "goss")
 
 
 def check_supported(opts: TrainOptions) -> None:
-    """Raise ``NotImplementedError`` for options the port cannot honour."""
+    """Raise ``NotImplementedError`` for options the port cannot honour, and
+    ``ValueError`` for a growth or boosting type no package knows."""
+    if opts.growth not in GROWTHS:
+        raise ValueError(f"growth={opts.growth!r} is not one of {GROWTHS}")
+    if opts.boosting_type not in BOOSTING_TYPES:
+        raise ValueError(f"boosting_type={opts.boosting_type!r} is not one of {BOOSTING_TYPES}")
     for name, default in _UNPORTED.items():
         if getattr(opts, name) != default:
             raise NotImplementedError(
@@ -174,6 +209,11 @@ class FitStats:
     histogram path ran ("compare", "u" or "u_chunked", with its chunk count)
     and whether its stats were quantized; the out-of-memory retries the
     ladder took and the U budget in force at the end (0: no U path).
+    ``level_launches[d]``: under depthwise growth, the histogram kernel
+    launches of level d over the fit (every tree, every class): more than
+    one a pass where the level runs in node groups; 0 on the CPU, where no
+    kernel launches. ``dart_drops[i]``: under dart, the earlier iterations
+    dropped at iteration i.
 
     ``per_iteration`` holds, for each iteration run, the host seconds of
     its bag and feature-mask draw, their upload, the boosting step, the
@@ -193,6 +233,8 @@ class FitStats:
     oom_retries: int = 0
     u_budget: int = 0
     per_iteration: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+    level_launches: List[int] = dataclasses.field(default_factory=list)
+    dart_drops: List[List[int]] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -208,7 +250,8 @@ class TrainResult:
 
 
 class TreeArrays(NamedTuple):
-    """One tree in pointer layout (each (M,) on the device)."""
+    """One tree in pointer layout (each (M,) on the device); an iteration's
+    trees stacked per margin column ((C, M), row_leaf (C, N))."""
 
     feat: torch.Tensor
     bin: torch.Tensor
@@ -249,20 +292,60 @@ def _soft_threshold(g: torch.Tensor, l1: float) -> torch.Tensor:
     return torch.sign(g) * torch.clamp(g.abs() - l1, min=0.0)
 
 
+def _prefix_lanes(num_bins: int) -> int:
+    """Lanes of the reference's triangular-matmul prefix on XLA's CPU
+    backend at ``num_bins`` bins (measured at every width from 2 to 256,
+    and at every (k, F) tried): 1 is bin order; 2 and 4 are that many
+    interleaved float32 chains (see :func:`_lane_prefix`). The widths
+    repeat with period 64 past 32; 17-32 takes 2 lanes but for 19, 20, 23
+    and 24."""
+    r = (num_bins - 1) % 64 + 1
+    if r <= 16 or r > 32 and r <= 48 or num_bins in (19, 20, 23, 24):
+        return 4
+    return 2 if r <= 32 else 1
+
+
+def _lane_prefix(h: np.ndarray, lanes: int) -> np.ndarray:
+    """Inclusive prefix over axis 2 of float32 ``h`` in XLA's CPU dot
+    order: over the first ``q = B - B % lanes`` bins, lane ``r`` adds bins
+    ``r, r + lanes, ...`` in order; the lanes are added pairwise ((0+1),
+    then ((0+1)+(2+3))); the last ``B % lanes`` bins are added in order
+    among themselves and their sum to that."""
+    k, f, b, s = h.shape
+    if lanes == 1:
+        return np.cumsum(h, axis=2, dtype=np.float32)
+    q = b - b % lanes
+    last = np.minimum(np.arange(b), q - 1)
+    parts = []
+    for r in range(lanes):
+        chain = np.cumsum(h[:, :, r:q:lanes], axis=2, dtype=np.float32)
+        chain = np.concatenate([np.zeros((k, f, 1, s), np.float32), chain], axis=2)
+        taken = np.where(last >= r, (last - r) // lanes + 1, 0)
+        parts.append(chain[:, :, taken])
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    out = parts[0]
+    if q < b:
+        out[:, :, q:] += np.cumsum(h[:, :, q:], axis=2, dtype=np.float32)
+    return out
+
+
 def _bin_prefix(hist: torch.Tensor, in_bin_order: bool) -> torch.Tensor:
     """Left stats at "<= bin": inclusive prefix sums over the bin axis (dim
-    2 of (k, F, B, 3)). ``in_bin_order``: float32 sums added one bin at a
-    time, the order of the reference's HIGHEST-precision triangular matmul
-    on the CPU at 64 bins and more (at 32 bins XLA adds even and odd bins
-    apart). The quantized path asks for it: its histograms are the
-    reference's bit for bit, and so then are its gains. On the card
-    ``torch.cumsum`` over a dimension that is not the innermost runs one
-    sequential float32 loop per column (``chip_smoke.py`` checks it); on
-    the CPU it accumulates in float64, which the float histograms keep
-    (they differ from the reference's in rounding already) and the
-    quantized path replaces by numpy's float32 accumulate."""
+    2 of (k, F, B, 3)). ``in_bin_order``: float32 sums in the order of the
+    reference's HIGHEST-precision triangular matmul on the CPU: bin order
+    at 49-64 bins and 113-128, 241-256, interleaved lanes at other widths
+    (:func:`_prefix_lanes`). The quantized path asks for it: its
+    histograms are the reference's bit for bit, and so then are its gains.
+    On the card ``torch.cumsum`` over a dimension that is not the innermost
+    runs one sequential float32 loop per column (``chip_smoke.py`` checks
+    it); on the CPU it accumulates in float64, which the float histograms
+    keep (they differ from the reference's in rounding already) and the
+    quantized path replaces by numpy's float32 sums in the reference's
+    order."""
     if in_bin_order and hist.device.type == "cpu":
-        return torch.from_numpy(np.cumsum(hist.numpy(), axis=2, dtype=np.float32))
+        lanes = _prefix_lanes(hist.shape[2])
+        return torch.from_numpy(_lane_prefix(hist.numpy(), lanes))
     return torch.cumsum(hist, dim=2)
 
 
@@ -289,10 +372,18 @@ def _split_search(
     opts: TrainOptions,
     lr: Optional[float] = None,  # this iteration's learning rate (callbacks)
     in_bin_order: bool = False,  # prefix sums in bin order (quantized stats)
+    quant_totals: Optional[tuple] = None,  # (integer totals (k, 3), scales (3,))
 ) -> SplitSearch:
     """Best split per node from its histogram: numeric thresholds, and on
     categorical features LightGBM's sorted-set search (both directions) or,
-    up to ``max_cat_to_onehot`` seen categories, one-vs-rest."""
+    up to ``max_cat_to_onehot`` seen categories, one-vs-rest.
+
+    ``quant_totals``: the quantized pass's integer totals and scales behind
+    ``totals``. The right child's value then takes ``total * scale - left``
+    in one rounding: XLA contracts the reference's dequantizing multiply
+    into that subtraction (a fused multiply-subtract) where the two meet in
+    one fusion, which they do for the child values the depthwise grower
+    reads."""
     k, f, b, _ = hist.shape
     dev = hist.device
     l1, l2 = opts.lambda_l1, opts.lambda_l2
@@ -419,6 +510,13 @@ def _split_search(
     hlb = hl[iota, best_f, best_b]
     clb = cl[iota, best_f, best_b]
 
+    def right_of(g_left, h_left):
+        if quant_totals is None:
+            return g_tot - g_left, h_tot - h_left
+        tq, scales = quant_totals
+        fused = tq[:, :2].double() * scales[:2].double() - torch.stack([g_left, h_left], 1).double()
+        return fused[:, 0].float(), fused[:, 1].float()
+
     # Raw threshold: split bin t means "x <= edges[f, t-1]"; t=0 => NaN-only left.
     thr_raw = edges[best_f, torch.clamp(best_b - 1, min=0)]
     thr_raw = torch.where(best_b == 0, torch.full_like(thr_raw, -math.inf), thr_raw)
@@ -449,14 +547,15 @@ def _split_search(
         if has_oh:
             cat_mask = torch.where(is_oh_best[:, None], ar[None, :] == best_b[:, None], cat_mask)
         lval = torch.where(is_cat_best, leaf_value_cat(glb, hlb), leaf_value(glb, hlb))
-        rval = torch.where(is_cat_best, leaf_value_cat(g_tot - glb, h_tot - hlb),
-                           leaf_value(g_tot - glb, h_tot - hlb))
+        g_right, h_right = right_of(glb, hlb)
+        rval = torch.where(is_cat_best, leaf_value_cat(g_right, h_right),
+                           leaf_value(g_right, h_right))
         value_cat = leaf_value_cat(g_tot, h_tot)
     else:
         is_cat_best = torch.zeros(k, dtype=torch.bool, device=dev)
         cat_mask = torch.zeros((k, b), dtype=torch.bool, device=dev)
         lval = leaf_value(glb, hlb)
-        rval = leaf_value(g_tot - glb, h_tot - hlb)
+        rval = leaf_value(*right_of(glb, hlb))
         value_cat = leaf_value(g_tot, h_tot)
 
     return SplitSearch(
@@ -566,10 +665,13 @@ def _packed_pass(bins_t, u, u_spec, grad, hess, count, key, num_nodes, num_bins,
     representation the sibling cache keeps. ``num_bins`` is the packed
     width under bundling. float32 on the compare-built and bf16 U paths; on
     the quantized U path the narrow integer accumulator, so that parent -
-    child is exact."""
+    child is exact. The U path takes a pass whose stat panel fits one lane
+    group (3 * num_nodes <= 128); a wider one (a deep depthwise level)
+    takes the compare-built pass on the exact stats, as the reference's
+    ``_hist_fn`` does."""
     if _FAULT is not None:
         _FAULT.on_histogram()
-    if u is None:
+    if u is None or 3 * num_nodes > 128:
         h = histogram.build_histograms(bins_t, grad, hess, count, key, num_nodes, num_bins)
     elif u_spec.chunk_rows:
         h = uh.build_histograms_u_chunked(u, grad, hess, count, key, num_nodes, u_spec,
@@ -853,6 +955,136 @@ def _build_tree_leafwise(
     )
 
 
+def _kernel_launches() -> int:
+    """Launches of the three histogram kernels so far, in this process."""
+    return (hh.build_histograms_cuda.launches + hh.build_histograms_combined_cuda.launches
+            + hh.bin_scatter.launches + uh.fused_panel_dot.launches)
+
+
+def _build_tree_depthwise(
+    bins_t: torch.Tensor,  # (C, N) uint8: F original or C packed columns
+    grad: torch.Tensor,  # (N,)
+    hess: torch.Tensor,
+    count: torch.Tensor,
+    edges: torch.Tensor,  # (F, E)
+    feature_mask: torch.Tensor,  # (F,)
+    *,
+    num_bins: int,
+    opts: TrainOptions,
+    stats: FitStats,
+    u: Optional[torch.Tensor] = None,  # U (resident) or the chunked bins layout
+    u_spec: Optional[uh.USpec] = None,
+    noise: Optional[torch.Tensor] = None,  # (2, N) uniforms: quantized stats
+    bundle=None,
+    lr: Optional[float] = None,
+) -> TreeArrays:
+    """Level-wise growth to ``opts.depth``, one histogram pass per level,
+    with the reference's semantics: level d keys every row by its heap
+    position less ``2**d - 1``, so all ``2**d`` nodes of the level share one
+    pass (no sibling subtraction); a node splits where its best gain is
+    finite and above ``min_gain_to_split`` and its parent split; a dead or
+    unsplit node records bin ``B`` and threshold +inf, so every row goes
+    left, and its children inherit its value. Rows route by the split
+    feature's bin (decoded from the packed column under bundling; a
+    categorical node sends a row left iff its bin is in the node's set).
+    The heap becomes the pointer layout: internal slots ``0 .. 2**D - 2``,
+    leaves ``2**D - 1 .. 2**(D+1) - 2``, and a row's final heap position
+    is its leaf slot.
+
+    Levels wider than one launch (past 42 nodes) run in node groups on the
+    card; on the U path they take the compare-built pass on exact stats
+    (:func:`_packed_pass`), and only the U levels' prefix sums take the
+    quantized path's bin order."""
+    c_cols, n = bins_t.shape
+    dev = bins_t.device
+    rconsts = _bundle_route_consts(bundle, dev) if bundle is not None else None
+    b = num_bins
+    b_pack = bundle.num_bins if bundle is not None else b
+    depth = opts.depth
+    tree_stats = _tree_stats(grad, hess, count, noise) if u is not None else None
+    has_cat = bool(opts.categorical_slots)
+    rows = torch.arange(n, device=dev)
+    if len(stats.level_launches) < depth:
+        stats.level_launches += [0] * (depth - len(stats.level_launches))
+
+    node = torch.zeros(n, dtype=torch.int64, device=dev)  # heap position
+    alive = torch.ones(1, dtype=torch.bool, device=dev)
+    inherited = torch.zeros(1, dtype=torch.float32, device=dev)
+    cover_cur = torch.zeros(1, dtype=torch.float32, device=dev)
+    lv = {name: [] for name in ("feat", "bin", "thr", "cover", "gain", "iscat", "catmask")}
+    for d in range(depth):
+        k = 1 << d
+        local = node - (k - 1)
+        launched = _kernel_launches()
+        h, tot = _packed_pass(bins_t, u, u_spec, grad, hess, count, local.to(torch.int32), k,
+                              b_pack, tree_stats)
+        stats.passes += 1
+        stats.level_launches[d] += _kernel_launches() - launched
+        hist, totals = _expand(h, tot, tree_stats, bundle, b)
+        quant = not h.is_floating_point()
+        s = _split_search(hist, totals, edges, feature_mask, opts, lr, in_bin_order=quant,
+                          quant_totals=(tot, tree_stats[1]) if quant else None)
+
+        can_split = alive & torch.isfinite(s.gain) & (s.gain > opts.min_gain_to_split)
+        # A node's value if it ends here is what its parent's split gave it
+        # (l2 + cat_l2 under a categorical parent); the root takes its own.
+        value_cur = s.value if d == 0 else inherited
+        cover_here = torch.where(alive, s.cover, cover_cur)
+        feat = torch.where(can_split, s.feat, torch.zeros_like(s.feat))
+        binthr = torch.where(can_split, s.bin, torch.full_like(s.bin, b))
+        lv["feat"].append(feat)
+        lv["bin"].append(binthr)
+        lv["thr"].append(torch.where(can_split, s.thr, torch.full_like(s.thr, math.inf)))
+        lv["cover"].append(cover_here)
+        lv["gain"].append(torch.where(can_split, s.gain, torch.zeros_like(s.gain)))
+
+        row_f = feat[local]
+        if rconsts is not None:
+            x_bin = _orig_bins(bins_t[rconsts[0][row_f], rows], row_f, rconsts)
+        else:
+            x_bin = bins_t[row_f, rows].long()
+        go_right = x_bin > binthr[local]
+        if has_cat:
+            iscat = can_split & s.is_cat
+            catmask = s.cat_mask & can_split[:, None]
+            lv["iscat"].append(iscat)
+            lv["catmask"].append(catmask)
+            go_right = torch.where(iscat[local], ~catmask[local, x_bin], go_right)
+        node = 2 * node + 1 + go_right.long()
+
+        inherited = torch.stack([torch.where(can_split, s.lval, value_cur),
+                                 torch.where(can_split, s.rval, value_cur)], dim=1).reshape(2 * k)
+        cover_cur = torch.stack([torch.where(can_split, s.lcov, cover_here),
+                                 torch.where(can_split, s.rcov, torch.zeros_like(s.rcov))],
+                                dim=1).reshape(2 * k)
+        alive = can_split.repeat_interleave(2)
+
+    internal = 2 ** depth - 1
+    leaves = 2 ** depth
+    iota = torch.arange(internal, dtype=torch.int64, device=dev)
+    zeros_l = torch.zeros(leaves, dtype=torch.int64, device=dev)
+    fzeros_l = torch.zeros(leaves, dtype=torch.float32, device=dev)
+    return TreeArrays(
+        feat=torch.cat(lv["feat"] + [zeros_l]),
+        bin=torch.cat(lv["bin"] + [torch.full_like(zeros_l, b)]),
+        thr=torch.cat(lv["thr"] + [torch.full_like(fzeros_l, math.inf)]),
+        left=torch.cat([2 * iota + 1, zeros_l]),
+        right=torch.cat([2 * iota + 2, zeros_l]),
+        is_leaf=torch.cat([torch.zeros(internal, dtype=torch.bool, device=dev),
+                           torch.ones(leaves, dtype=torch.bool, device=dev)]),
+        leaf_val=torch.cat([torch.zeros(internal, dtype=torch.float32, device=dev), inherited]),
+        cover=torch.cat(lv["cover"] + [cover_cur]),
+        gain=torch.cat(lv["gain"] + [fzeros_l]),
+        row_leaf=node.to(torch.int32),
+        cat_node=(torch.cat(lv["iscat"] + [torch.zeros(leaves, dtype=torch.bool, device=dev)])
+                  if has_cat else torch.zeros(internal + leaves, dtype=torch.bool, device=dev)),
+        cat_mask=(torch.cat(lv["catmask"]
+                            + [torch.zeros((leaves, b), dtype=torch.bool, device=dev)])
+                  if has_cat else torch.zeros((internal + leaves, 1), dtype=torch.bool,
+                                              device=dev)),
+    )
+
+
 def quant_noise(seed: int, iteration: int, column: int, n: int, device) -> torch.Tensor:
     """(2, n) float32 uniforms in [0, 1) for one tree's stochastic rounding
     (``ops.u_histogram.stat_rows_quant``; row 0 for g, row 1 for h): the
@@ -867,28 +1099,70 @@ def quant_noise(seed: int, iteration: int, column: int, n: int, device) -> torch
     return torch.stack([threefry.uniform(kg, n, device), threefry.uniform(kh, n, device)])
 
 
+def _goss_weights(grad: torch.Tensor, bag: Optional[torch.Tensor], opts: TrainOptions,
+                  it: int) -> torch.Tensor:
+    """Gradient-based One-Side Sampling (the reference's, row for row): keep
+    the ``max(1, round(N * top_rate))`` rows of largest ``sum_c |g|`` (ties
+    to the lower row, as ``lax.top_k``: a stable descending sort), draw
+    each other row with probability ``other_rate / (1 - top_rate)`` from
+    ``uniform(fold_in(PRNGKey(seed), it))`` and weigh it by ``(1 -
+    top_rate) / other_rate``, so that histogram sums stay unbiased. Returns
+    the (N,) row weights, times the bag where there is one."""
+    n = grad.shape[0]
+    gabs = row_sum(grad.abs())
+    if bag is not None:
+        gabs = gabs * bag
+    n_top = max(1, int(round(n * opts.top_rate)))
+    top_idx = torch.sort(gabs, descending=True, stable=True).indices[:n_top]
+    top = torch.zeros(n, dtype=torch.bool, device=grad.device)
+    top[top_idx] = True
+    key = threefry.fold_in(threefry.PRNGKey(opts.seed), it)
+    p = float(np.float32(opts.other_rate / max(1e-12, 1.0 - opts.top_rate)))
+    sampled = ~top & (threefry.uniform(key, n, grad.device) < p)
+    amp = float(np.float32((1.0 - opts.top_rate) / max(1e-12, opts.other_rate)))
+    w = top.to(grad.dtype) + sampled.to(grad.dtype) * amp
+    return w if bag is None else bag * w
+
+
+def _stack_trees(trees: List[TreeArrays]) -> TreeArrays:
+    """An iteration's per-column trees as one (C, M) TreeArrays."""
+    return TreeArrays(*(torch.stack(field) for field in zip(*trees)))
+
+
 def _make_step(opts: TrainOptions, num_bins: int, stats: FitStats, u=None, u_spec=None,
                quant: bool = False, bundle=None, cat_u=None):
-    """One boosting iteration (gbdt): gradients (bagged-out rows zeroed),
-    one tree, margin update."""
+    """One boosting iteration: gradients (N, C) (bagged-out rows zeroed,
+    GOSS weights applied), one tree per margin column in column order, the
+    margin update (none under rf, whose trees all fit the init score)."""
     objective = get_objective(opts.objective)
+    # depthwise routing gathers a categorical split's set, as the reference's
+    build = (functools.partial(_build_tree_leafwise, cat_u=cat_u) if opts.growth == "leafwise"
+             else _build_tree_depthwise)
 
     def step(bins_t, y, w, margins, edges, bag, feature_mask, it, lr):
-        grad, hess = objective.grad_hess(margins, y, w)  # (N, 1)
+        grad, hess = objective.grad_hess(margins, y, w)  # (N, C)
+        n = y.shape[0]
+        if opts.boosting_type == "goss":
+            bag = _goss_weights(grad, bag, opts, it)
         if bag is None:
             count = torch.ones_like(y)
         else:
             grad, hess = grad * bag[:, None], hess * bag[:, None]
             count = (bag > 0).to(grad.dtype)
-        noise = quant_noise(opts.seed, it, 0, y.shape[0], y.device) if quant else None
-        tree = _build_tree_leafwise(
-            bins_t, grad[:, 0].contiguous(), hess[:, 0].contiguous(), count, edges,
-            feature_mask, num_bins=num_bins, opts=opts, stats=stats, u=u, u_spec=u_spec,
-            noise=noise, bundle=bundle, cat_u=cat_u, lr=lr,
-        )
-        stats.trees += 1
-        contrib = tree.leaf_val[tree.row_leaf.long()]
-        return tree, margins + contrib[:, None]
+        trees = []
+        for c in range(grad.shape[1]):
+            # one stochastic-rounding draw per (iteration, margin column)
+            noise = quant_noise(opts.seed, it, c, n, y.device) if quant else None
+            trees.append(build(
+                bins_t, grad[:, c].contiguous(), hess[:, c].contiguous(), count, edges,
+                feature_mask, num_bins=num_bins, opts=opts, stats=stats, u=u, u_spec=u_spec,
+                noise=noise, bundle=bundle, lr=lr,
+            ))
+            stats.trees += 1
+        tree = _stack_trees(trees)
+        if opts.boosting_type == "rf":
+            return tree, margins
+        return tree, margins + tree.leaf_val.gather(1, tree.row_leaf.long()).t()
 
     return step
 
@@ -963,17 +1237,34 @@ def _route_binned(bins, feat, binthr, left, right, is_leaf, steps: int, cat_node
 
 
 def _tree_contrib(bins_v, tree: TreeArrays, steps: int, bundle=None) -> torch.Tensor:
-    """(N, 1) margin contribution of one tree on a binned matrix."""
+    """(N, C) margin contribution of one iteration's (C, M) trees on a
+    binned (N, columns) matrix."""
     consts = _bundle_route_consts(bundle, bins_v.device) if bundle is not None else None
-    leaf = _route_binned(bins_v, tree.feat, tree.bin, tree.left, tree.right, tree.is_leaf,
-                         steps, cat_node=tree.cat_node, cat_mask=tree.cat_mask,
-                         bundle_consts=consts)
-    return tree.leaf_val[leaf][:, None]
+    cols = []
+    for c in range(tree.feat.shape[0]):
+        leaf = _route_binned(bins_v, tree.feat[c], tree.bin[c], tree.left[c], tree.right[c],
+                             tree.is_leaf[c], steps, cat_node=tree.cat_node[c],
+                             cat_mask=tree.cat_mask[c], bundle_consts=consts)
+        cols.append(tree.leaf_val[c][leaf])
+    return torch.stack(cols, dim=1)
+
+
+def _dropped_contrib(trees: List[TreeArrays], dropped: List[int], bins_v, steps: int,
+                     bundle=None) -> torch.Tensor:
+    """(N, C) sum of the dropped iterations' contributions, added in drop
+    order."""
+    total = _tree_contrib(bins_v, trees[dropped[0]], steps, bundle)
+    for di in dropped[1:]:
+        total = total + _tree_contrib(bins_v, trees[di], steps, bundle)
+    return total
 
 
 def _margin_to_score(margins: np.ndarray, metric: str, objective: str) -> np.ndarray:
-    """What the metric consumes: margin column 0 (the binary and l2
-    objectives have one margin column; auc is rank-invariant)."""
+    """What the metric consumes: every margin column for the multiclass
+    metrics, else column 0 (binary and l2 have one; auc is
+    rank-invariant)."""
+    if metric in ("multi_logloss", "multi_error"):
+        return margins
     return margins[:, 0]
 
 
@@ -1085,8 +1376,30 @@ def train(
     chunked passes, rebuild their bins layout and retry the same iteration
     with the same bag, feature mask and learning rate, at most
     :data:`OOM_RETRY_CAP` times. Chunked and resident passes sum the same
-    integers, so the fit's model text does not change."""
+    integers, so the fit's model text does not change.
+
+    Boosting types keep the reference's contracts: rf needs bagging,
+    refuses validation sets and fits its trees at learning rate 1 (the
+    booster averages them); goss refuses bagging and needs ``top_rate +
+    other_rate <= 1``; dart refuses early stopping, and draws its dropped
+    trees once per iteration, so that an out-of-memory retry reuses them."""
     check_supported(opts)
+    if opts.boosting_type == "rf":
+        if not (opts.bagging_fraction < 1.0 and opts.bagging_freq > 0):
+            raise ValueError("boosting_type='rf' requires bagging "
+                             "(bagging_fraction < 1 and bagging_freq > 0)")
+        if valid_sets:
+            raise ValueError("boosting_type='rf' does not support validation sets "
+                             "(averaged-ensemble eval is not incremental)")
+        opts = dataclasses.replace(opts, learning_rate=1.0)
+    elif opts.boosting_type == "goss":
+        if opts.bagging_fraction < 1.0:
+            raise ValueError("boosting_type='goss' cannot be combined with bagging")
+        if opts.top_rate + opts.other_rate > 1.0:
+            raise ValueError("goss requires top_rate + other_rate <= 1 "
+                             f"(got {opts.top_rate} + {opts.other_rate})")
+    elif opts.boosting_type == "dart" and opts.early_stopping_round > 0:
+        raise ValueError("early stopping is not available in dart mode")
     if (opts.pos_bagging_fraction < 1.0 or opts.neg_bagging_fraction < 1.0) \
             and opts.objective != "binary":
         # native LightGBM likewise restricts pos/neg bagging to binary
@@ -1148,6 +1461,12 @@ def train(
     u_spec, quant = _histogram_path(opts, n, f, num_bins, mapper)
     stats.u_budget = uh.u_budget() if u_spec is not None else 0
     stats.quantized = quant
+    if quant and opts.growth == "depthwise" and opts.depth >= 7:
+        _log.warning(
+            "use_quantized_grad with depthwise growth and depth %d: levels deeper than 5 "
+            "have > 42 frontier nodes and exceed the 128-slot U panel budget (3 stats x "
+            "nodes), so those levels fall back to exact (non-quantized) histograms per level",
+            opts.depth)
     u = None
 
     def build_u_path():
@@ -1231,6 +1550,8 @@ def train(
     bag_dev = None
     step = build_u_path()
     trees = []
+    dart_rng = np.random.default_rng(opts.seed + 7919) if opts.boosting_type == "dart" else None
+    bins_rows = bins_t.t()  # (N, columns) view for routing the training rows
     side_seconds = 0.0  # bag draws, uploads, valid updates and evals
     for it in range(opts.num_iterations):
         t_it = time.perf_counter()
@@ -1246,13 +1567,25 @@ def train(
             for cb in callbacks:
                 cb.before_iteration(cb_env(it))
         lr_it = float(lr_all[it]) if lr_all is not None else opts.learning_rate
+        # dart: drop each earlier iteration's trees with probability
+        # drop_rate from the margins the new trees fit (one draw per
+        # iteration, before the retry loop)
+        dropped = []
+        if dart_rng is not None and trees:
+            dropped = np.nonzero(dart_rng.random(len(trees)) < opts.drop_rate)[0].tolist()
+        if dart_rng is not None:
+            stats.dart_drops.append(dropped)
+        margins_in = margins
+        if dropped:
+            c_d = _dropped_contrib(trees, dropped, bins_rows, opts.routing_steps, bundle)
+            margins_in = margins - c_d
         retries = 0
         while True:
             if _FAULT is not None:
                 _FAULT.arm(it, retries)
             failed = None
             try:
-                tree, new_margins = step(bins_t, y_dev, w_dev, margins, edges_dev, bag_dev,
+                tree, new_margins = step(bins_t, y_dev, w_dev, margins_in, edges_dev, bag_dev,
                                          fm_dev, it, lr_it)
             except torch.cuda.OutOfMemoryError as err:
                 failed = err
@@ -1270,10 +1603,28 @@ def train(
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
             step = build_u_path()
-        margins = new_margins
+        valid_done = False
+        if dropped:
+            # DART's rescale: the new trees x 1/(k+1), the dropped ones
+            # x k/(k+1), in the reference's order of operations; the valid
+            # sets take the same delta from the dropped trees before rescaling.
+            scale_new = float(np.float32(1.0 / (len(dropped) + 1)))
+            scale_drop = float(np.float32(len(dropped) / (len(dropped) + 1)))
+            c_new = tree.leaf_val.gather(1, tree.row_leaf.long()).t()
+            for vs in valid_state:
+                c_dv = _dropped_contrib(trees, dropped, vs["bins"], opts.routing_steps, bundle)
+                c_newv = _tree_contrib(vs["bins"], tree, opts.routing_steps, bundle)
+                vs["margins"] = vs["margins"] - c_dv * scale_new + c_newv * scale_new
+            valid_done = True
+            tree = tree._replace(leaf_val=tree.leaf_val * scale_new)
+            for di in dropped:
+                trees[di] = trees[di]._replace(leaf_val=trees[di].leaf_val * scale_drop)
+            margins = margins - c_d * scale_new + c_new * scale_new
+        else:
+            margins = new_margins
         _sync(dev)
         t_step = time.perf_counter()
-        for vs in valid_state:
+        for vs in valid_state if not valid_done else ():
             vs["margins"] = vs["margins"] + _tree_contrib(vs["bins"], tree, opts.routing_steps,
                                                           bundle)
         _sync(dev)
@@ -1330,12 +1681,14 @@ def _pack_booster(
     feature_names: Optional[List[str]] = None,
     best_iteration: int = -1,
 ) -> Booster:
-    """Per-tree device arrays -> one host :class:`Booster` (one fetch, and
-    one more for the categorical split sets)."""
+    """Per-iteration (C, M) device arrays -> one host :class:`Booster` of
+    T * C trees, tree ``i*C + c`` = iteration i, column c (one fetch, and
+    one more for the categorical split sets). rf's leaf values are divided
+    by the iterations, so the booster predicts the trees' average."""
     fields = ("feat", "bin", "thr", "left", "right", "is_leaf", "leaf_val", "cover", "gain")
     if trees:
         packed = torch.stack([
-            torch.stack([getattr(tr, fld).to(torch.float32) for tr in trees])
+            torch.cat([getattr(tr, fld).to(torch.float32) for tr in trees])
             for fld in fields
         ]).cpu().numpy()
     else:
@@ -1346,11 +1699,14 @@ def _pack_booster(
 
     cat_nodes = cat_masks = None
     if opts.categorical_slots and trees:
-        cat_nodes = torch.stack([tr.cat_node for tr in trees]).cpu().numpy().astype(bool)
-        cat_masks = torch.stack([tr.cat_mask for tr in trees]).cpu().numpy().astype(bool)
+        cat_nodes = torch.cat([tr.cat_node for tr in trees]).cpu().numpy().astype(bool)
+        cat_masks = torch.cat([tr.cat_mask for tr in trees]).cpu().numpy().astype(bool)
     left = stack("left", np.int32)
     right = stack("right", np.int32)
     is_leaf = stack("is_leaf", bool)
+    leaf_values = stack("leaf_val", np.float32)
+    if opts.boosting_type == "rf":
+        leaf_values = leaf_values / max(1, len(trees))
     return Booster(
         split_feature=stack("feat", np.int32),
         split_bin=stack("bin", np.int32),
@@ -1358,7 +1714,7 @@ def _pack_booster(
         left_child=left,
         right_child=right,
         is_leaf=is_leaf,
-        leaf_values=stack("leaf_val", np.float32),
+        leaf_values=leaf_values,
         cover=stack("cover", np.float32),
         split_gain=stack("gain", np.float32),
         init_score=np.asarray(init_score, dtype=np.float32),

@@ -23,7 +23,9 @@ def build_histograms(bins_t, grad, hess, count, node, num_nodes: int,
 
     ``bins_t`` is the feature-major ``(F, N)`` uint8 bin matrix; ``node`` the
     (N,) int32 node key. Rows keyed outside ``[0, num_nodes)`` add nothing,
-    so the key doubles as the in-leaf mask."""
+    so the key doubles as the in-leaf mask. Any ``num_nodes``: on the card a
+    pass wider than one launch holds runs in node groups
+    (``hopper_histogram.node_groups``)."""
     if num_nodes == 1:
         return build_histograms_combined_cuda(
             bins_t, grad, hess, count, node, num_nodes, num_bins

@@ -10,7 +10,11 @@ contract; so does the port: ``kernels/csrc/histogram.cu`` behind
   contract of ``build_histograms_pallas`` (the root pass, k = 1).
 
 Both return ``(num_nodes, F, num_bins, 3)`` float32 ``[sum_g, sum_h, count]``
-and drop rows whose node key lies outside ``[0, num_nodes)``. Bins come
+and drop rows whose node key lies outside ``[0, num_nodes)``. The node-panel
+entry takes any node count: a level wider than one launch holds (a deep
+depthwise level) runs as :func:`node_groups`, one launch per group with the
+keys shifted by the group's first node, and the groups' histograms are
+concatenated. Bins come
 feature-major, ``(F, N)`` uint8, laid out once per fit (the JAX kernel's
 ``ids.T``), so each block's row reads are coalesced.
 
@@ -43,7 +47,7 @@ import functools
 import numpy as np
 import torch
 
-#: Node budget of one pass: the leafwise grower's subtraction cap
+#: Node budget of one launch: the leafwise grower's subtraction cap
 #: (``mmlspark_tpu/lightgbm/train.py`` keys at most 42 nodes per pass).
 MAX_NODES = 42
 #: The bins are uint8.
@@ -180,8 +184,8 @@ def _check(bins_t, grad, hess, count, node, num_nodes, num_bins):
             raise ValueError(f"{name} must be contiguous")
     if not bins_t.is_contiguous():
         raise ValueError("bins_t must be contiguous (F, N)")
-    if not 1 <= num_nodes <= MAX_NODES:
-        raise ValueError(f"num_nodes={num_nodes} outside [1, {MAX_NODES}]")
+    if num_nodes < 1:
+        raise ValueError(f"num_nodes={num_nodes} must be at least 1")
     if not 1 <= num_bins <= MAX_BINS:
         raise ValueError(f"num_bins={num_bins} outside [1, {MAX_BINS}]")
 
@@ -195,6 +199,8 @@ def _aligned(t, nbytes):
 def _launch(bins_t, grad, hess, count, node, num_nodes, num_bins):
     from mmlspark_tpu_torch.kernels.build import histogram_extension
 
+    if num_nodes > MAX_NODES:
+        raise ValueError(f"num_nodes={num_nodes} exceeds one launch's {MAX_NODES}")
     f, n = bins_t.shape
     out = torch.zeros((num_nodes, f, num_bins, 3), dtype=torch.float32,
                       device=bins_t.device)
@@ -217,17 +223,51 @@ def _launch(bins_t, grad, hess, count, node, num_nodes, num_bins):
     return out
 
 
-def build_histograms_cuda(bins_t, grad, hess, count, node, num_nodes: int,
-                          num_bins: int) -> torch.Tensor:
-    """Node-panel contract (``build_histograms_panel_pallas``): the frontier
-    pass of the leafwise grower, ``num_nodes`` keyed nodes at once. ``count``
-    holds non-negative integers whose sum in a cell stays below 2**24."""
-    _check(bins_t, grad, hess, count, node, num_nodes, num_bins)
-    if not bins_t.is_cuda:
-        return build_histograms_plain(bins_t, grad, hess, count, node, num_nodes, num_bins)
+def node_groups(num_nodes: int, num_bins: int) -> list:
+    """(first node, node count) of each launch of a ``num_nodes`` pass: as
+    few groups as hold at most ``min(MAX_NODES, SMEM_MAX // (num_bins *
+    CELL_BYTES))`` nodes each (one feature's cells must fit a block), the
+    nodes spread evenly over them. At 256 bins a 64-node level takes two
+    launches of 32, a 128-node level four of 32."""
+    cap = max(1, min(MAX_NODES, SMEM_MAX // (num_bins * CELL_BYTES)))
+    groups = -(-num_nodes // cap)
+    size = -(-num_nodes // groups)
+    return [(lo, min(size, num_nodes - lo)) for lo in range(0, num_nodes, size)]
+
+
+def grouped(launch, bins_t, grad, hess, count, node, num_nodes: int,
+            num_bins: int) -> torch.Tensor:
+    """``launch`` (a per-launch histogram function of this module's
+    contract) over :func:`node_groups`: one call per group with the keys
+    shifted by the group's first node, so that the group's rows key
+    ``[0, size)`` and every other row falls out of range and adds nothing;
+    the results concatenated along the node axis. Every group sums with the
+    fixed-point scales of all N rows, so the result is the one-call result
+    bit for bit."""
+    groups = node_groups(num_nodes, num_bins)
+    if len(groups) == 1:
+        return launch(bins_t, grad, hess, count, node, num_nodes, num_bins)
+    return torch.cat([launch(bins_t, grad, hess, count, node - lo, size, num_bins)
+                      for lo, size in groups])
+
+
+def _launch_counted(bins_t, grad, hess, count, node, num_nodes, num_bins):
     out = _launch(bins_t, grad, hess, count, node, num_nodes, num_bins)
     build_histograms_cuda.launches += 1
     return out
+
+
+def build_histograms_cuda(bins_t, grad, hess, count, node, num_nodes: int,
+                          num_bins: int) -> torch.Tensor:
+    """Node-panel contract (``build_histograms_panel_pallas``): a frontier
+    pass of the leafwise grower or a level of the depthwise grower,
+    ``num_nodes`` keyed nodes at once, in one launch per :func:`node_groups`
+    group. ``count`` holds non-negative integers whose sum in a cell stays
+    below 2**24."""
+    _check(bins_t, grad, hess, count, node, num_nodes, num_bins)
+    if not bins_t.is_cuda:
+        return build_histograms_plain(bins_t, grad, hess, count, node, num_nodes, num_bins)
+    return grouped(_launch_counted, bins_t, grad, hess, count, node, num_nodes, num_bins)
 
 
 def build_histograms_combined_cuda(bins_t, grad, hess, count, node, num_nodes: int,
@@ -238,6 +278,8 @@ def build_histograms_combined_cuda(bins_t, grad, hess, count, node, num_nodes: i
     ``count`` holds non-negative integers whose sum in a cell stays below
     2**24."""
     _check(bins_t, grad, hess, count, node, num_nodes, num_bins)
+    if num_nodes > MAX_NODES:
+        raise ValueError(f"num_nodes={num_nodes} exceeds one launch's {MAX_NODES}")
     if not bins_t.is_cuda:
         return build_histograms_plain(bins_t, grad, hess, count, node, num_nodes, num_bins)
     out = _launch(bins_t, grad, hess, count, node, num_nodes, num_bins)

@@ -268,8 +268,8 @@ def test_entry_points_refuse_the_cpu_unless_asked():
 
 
 @pytest.mark.parametrize(
-    "option", [dict(growth="depthwise"), dict(tree_learner="voting_parallel"),
-               dict(objective="multiclass"), dict(boosting_type="dart")],
+    "option", [dict(objective="regression_l1"), dict(tree_learner="voting_parallel"),
+               dict(objective="huber"), dict(tree_learner="feature_parallel")],
 )
 def test_unported_options_raise(option):
     with pytest.raises((NotImplementedError, ValueError)):

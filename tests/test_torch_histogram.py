@@ -193,7 +193,7 @@ def test_fixed_point_scales_keep_every_sum_in_int64(n, top):
 @pytest.mark.parametrize(
     "bad",
     [
-        dict(num_nodes=43),
+        dict(hess=torch.zeros(11)),
         dict(num_nodes=0),
         dict(num_bins=257),
         dict(grad=torch.zeros(10, dtype=torch.float64)),

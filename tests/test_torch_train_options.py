@@ -510,16 +510,17 @@ def test_mirrored_categorical_split_is_a_float_tie(ref):
 # -- byte-identical quantized model text ----------------------------------------
 
 
-@pytest.mark.parametrize("max_bin", [63, 255])
+@pytest.mark.parametrize("max_bin", [15, 31, 63, 255])
 @pytest.mark.parametrize("seed,n,extra", [
     (0, 1400, {}), (1, 1400, dict(bagging_fraction=0.7, bagging_freq=2, feature_fraction=0.8)),
     (3, 6000, {}), (5, 6000, dict(bagging_fraction=0.7, bagging_freq=2, feature_fraction=0.8)),
 ])
 def test_quantized_model_text_is_the_references(ref, seed, n, extra, max_bin):
-    """At 64 bins and more the quantized U path writes the reference's model
-    text byte for byte: the same noise, integer histograms, the reference's
-    compiled arithmetic in the quantization (a fused multiply-add, the
-    reciprocal of 127) and its bin-order prefix sums."""
+    """The quantized U path writes the reference's model text byte for
+    byte: the same noise, integer histograms, the reference's compiled
+    arithmetic in the quantization (a fused multiply-add, the reciprocal of
+    127) and its prefix sums in XLA's CPU order (bin order at 64 and 256
+    bins, two interleaved chains at 32, four at 16)."""
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(n, 8))
     y = ((X[:, 0] + X[:, 1] * X[:, 2] + 0.5 * rng.normal(size=n)) > 0).astype(np.float64)
@@ -543,7 +544,8 @@ def test_new_options_are_accepted():
         provide_training_metric=True))
 
 
-@pytest.mark.parametrize("name,value", [("growth", "depthwise"), ("boosting_type", "goss"),
+@pytest.mark.parametrize("name,value", [("tree_learner", "feature_parallel"),
+                                        ("histogram_method", "onehot"),
                                         ("tree_learner", "voting_parallel")])
 def test_unported_options_still_raise(name, value):
     with pytest.raises(NotImplementedError, match=name):
@@ -562,6 +564,6 @@ def test_pos_neg_bagging_needs_the_binary_objective():
 def test_unported_metric_is_refused_with_a_valid_set():
     X, y = _case(seed=9, n=300)
     bins, mapper = tbinning.bin_dataset(X, max_bin=31)
-    with pytest.raises(NotImplementedError, match="multi_logloss"):
-        ttrain.train(bins, y, ttrain.TrainOptions(num_iterations=1, metric="multi_logloss"),
+    with pytest.raises(NotImplementedError, match="ndcg"):
+        ttrain.train(bins, y, ttrain.TrainOptions(num_iterations=1, metric="ndcg"),
                      mapper=mapper, valid_sets=[("v", bins, y, None)], device="cpu")
