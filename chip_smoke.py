@@ -120,7 +120,40 @@ non-zero and prints no result):
    node-group launches, checked per level), and goss on the 1,000,000-row
    quantized resident U path: boosting seconds, launches, held-out AUC on
    phase 5's 500,000 test rows (above 0.75), peak bytes.
-18. One JSON line with every kernel (the grouped wide-level launches
+18. Regression at the shape of YearPredictionMSD (UCI, the standard split):
+   463,715 training and 51,630 test rows of 90 audio features, an integer
+   year in 1922-2011 skewed toward the 2000s, generated. LightGBMRegressor
+   with regression, regression_l1, huber and quantile (alpha 0.9) on the
+   default path; quantile on the quantized resident U path (U of 10.7 GB,
+   the U budget raised for it); regression with maxBinByFeature capping
+   the first 12 columns at 63 bins. Per fit: binning and boosting seconds,
+   renewal ms per iteration, peak bytes, launches, the held-out metric
+   (below the init-only model's), and for quantile the held-out share of
+   targets below the prediction. histogram.cu on each objective's
+   iteration-0 stats (and the U pass on the quantized ones) bit for bit its
+   plain version; renewal on the card against the CPU port on tree 0's
+   partition (unit weights: equal, and equal to the fit's leaves;
+   fractional weights: each leaf the CPU port's row or its neighbour).
+19. Poisson and tweedie at the shape of freMTPL2freq (OpenML 41214): 678,013
+   policies, 10% held out; Area, VehBrand, Region and VehGas categorical,
+   VehPower, VehAge, DrivAge, BonusMalus and Density numeric, Exposure the
+   weight, about 5% of policies with a claim. poisson on ClaimNb/Exposure,
+   tweedie (variance power 1.9) on the pure premium: held-out l2 on the
+   response scale below the init-only model's, every prediction positive;
+   histogram.cu on each objective's iteration-0 stats.
+20. Lambdarank at the shape of MSLR-WEB10K Fold1: 6,000 training and 2,000
+   test queries (sizes lognormal, mean about 120, the longest near 1,000),
+   136 features, relevance 0-4 at the set's frequencies. The chunked
+   lambdarank step at iteration 0 (ms, peak bytes), histogram.cu on its
+   stats, then LightGBMRanker with groupCol and LightGBM's
+   examples/lambdarank settings: held-out NDCG@1/3/5 (NDCG@5 above the
+   all-equal model's).
+21. Explain: leafPredictionCol and featuresShapCol on 10,000 held-out rows
+   of phase 5's and phase 16's boosters (SHAP adds up to the margin within
+   1e-5 and equals the CPU port's within 1e-9 on 1,000 rows; leaves equal
+   the CPU port's), and a linear-tree booster (random leaf models on the
+   HIGGS trees, 5% NaN inputs) equal to the CPU port; rows/s of each.
+22. One JSON line with every kernel (the grouped wide-level launches
    among them), then the card line, then the result line. Each phase
    prints its wall time; TF32 matmuls must be off.
 """
@@ -505,7 +538,7 @@ def phase_fit(torch, hh, histogram, base, Table, LightGBMClassifier, auc, rows):
     print("fit: " + json.dumps(rec), flush=True)
     bins, mapper = binned[0]
     return rec, dict(bins=bins, mapper=mapper, y=y[:rows].copy(), X_test=X[rows:].copy(),
-                     y_test=y[rows:].copy())
+                     y_test=y[rows:].copy(), booster=model.booster)
 
 
 def _bound(bytes_, ops, rates):
@@ -1629,7 +1662,7 @@ def phase_multiclass(torch, uh, hh, binning, train, objectives, Table, LightGBMC
                              "unbundled one")
     print(f"multiclass: quantized U path {recs['u_quant']['histogram_path']} "
           f"({recs['u_quant']['u_chunks']} chunks); bundled model text identical", flush=True)
-    return recs
+    return recs, dict(booster=default.booster, X_test=Xte)
 
 
 # Phase 17: boosting types and depthwise growth at HIGGS width, on phase 5's bins.
@@ -1690,6 +1723,507 @@ def phase_boosting_types(torch, uh, hh, train, auc, higgs):
     return recs
 
 
+# -- phases 18-21: regression, poisson and tweedie, lambdarank, explain ----------
+
+N_YEAR = 463_715  # YearPredictionMSD's standard training split
+N_YEAR_TEST = 51_630
+YEAR_FEATURES = 90  # 12 timbre averages and 78 timbre covariances
+YEAR_FITS = (("regression", "l2"), ("regression_l1", "l1"), ("huber", "l2"),
+             ("quantile", "quantile"))
+QUANTILE_ALPHA = 0.9
+CAPPED_COLUMNS, CAP_BINS = 12, 63  # maxBinByFeature: the timbre averages at 63 bins
+U_RESIDENT_BUDGET = 16 << 30  # above phase 18's 10.7 GB U: the resident pass
+KERNEL_CHECK_NODES = 8
+
+
+def _year_data(n, seed):
+    """YearPredictionMSD's shape: 12 timbre averages and 78 covariances
+    (correlated with them, other scales) and an integer year in 1922-2011,
+    skewed toward the 2000s, driven by a nonlinear score."""
+    rng = np.random.default_rng(seed)
+    means = rng.normal(size=(n, 12))
+    cov = means @ (rng.normal(size=(12, 78)) / np.sqrt(12)) + 0.5 * rng.normal(size=(n, 78))
+    X = np.concatenate([means * 10.0, cov * 30.0], axis=1)
+    s = means[:, 0] + 0.6 * means[:, 1] * means[:, 2] + 0.4 * np.tanh(cov[:, 0]) \
+        - 0.3 * means[:, 3] ** 2
+    s = (s - s.mean()) / s.std()
+    y = np.clip(np.round(2011.0 - 9.0 * np.exp(-0.6 * s + 0.5 * rng.normal(size=n))), 1922, 2011)
+    return X, y
+
+
+def _stats_check(torch, uh, hh, label, bins_t, g, h, k=KERNEL_CHECK_NODES, u=None):
+    """The kernels on one fit's iteration-0 stats: histogram.cu at k nodes
+    bit for bit its plain version, and with ``u`` the U pass on the
+    quantized stats; returns the record."""
+    dev = bins_t.device
+    n = g.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(k)
+    node = torch.randint(0, k + 1, (n,), device=dev, generator=gen, dtype=torch.int32)
+    count = torch.ones(n, device=dev)
+    args = (bins_t, g.contiguous(), h.contiguous(), count, node, k, NUM_BINS)
+    out = hh.build_histograms_cuda(*args)
+    if not torch.equal(out, hh.build_histograms_plain(*args)):
+        raise AssertionError(f"{label}: histogram.cu differs from its plain version on the "
+                             f"iteration-0 stats")
+    rec = dict(case=label, rows=n, k=k, g_min=float(g.min()), g_max=float(g.max()),
+               h_min=float(h.min()), h_max=float(h.max()), zero_g_rows=int((g == 0).sum()),
+               hist_ms=_time_ms(torch, lambda: hh.build_histograms_cuda(*args), 5))
+    if u is not None:
+        noise = torch.rand((2, n), device=dev, generator=gen)
+        stats, _ = uh.stat_rows_quant(g, h, count, noise)
+        got = uh.fused_panel_dot(u, stats, node, k)
+        if not torch.equal(got, uh.fused_panel_dot_plain(u, stats, node, k)):
+            raise AssertionError(f"{label}: u_histogram.cu differs from its plain version on "
+                                 f"the quantized iteration-0 stats")
+        rec["u_pass_ms"] = _time_ms(torch, lambda: uh.fused_panel_dot(u, stats, node, k), 5)
+    print("kernels on new stats: " + json.dumps(rec), flush=True)
+    return rec
+
+
+def _iteration0(torch, objective, y, w, dev, **kw):
+    """(g, h) of ``objective`` at its init score, on ``dev``."""
+    yd = torch.as_tensor(np.asarray(y, np.float32), device=dev)
+    wd = torch.as_tensor(np.asarray(w, np.float32), device=dev) if w is not None \
+        else torch.ones_like(yd)
+    init = objective.init_score(yd.cpu().numpy(), 1, wd.cpu().numpy())
+    margins = torch.as_tensor(init, device=dev)[None, :].expand(len(y), 1).contiguous()
+    g, h = objective.grad_hess(margins, yd, wd, **kw)
+    return g[:, 0], h[:, 0]
+
+
+def _renewal_hold(torch, train, label, leaf, resid, w, pct, lr):
+    """The leaf renewal on the card against the CPU port on the same inputs.
+    With integer weights every sum is exact: the leaves must be equal. With
+    fractional ones the leaf totals come from the card's float32 atomics
+    (order unspecified) while the prefix sum is the reference's order on
+    both, so a leaf whose cumulative weight lands within rounding of its
+    threshold may take the next row of its residual order: the card's value
+    must be the CPU port's row or a neighbour of it in that order."""
+    dev = torch.device("cuda")
+    lv = torch.zeros(int(leaf.max()) + 1)
+    args = [torch.as_tensor(a) for a in (leaf, resid, w)]
+    cpu = train.renew_leaves(lv, *args, pct, lr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = train.renew_leaves(lv.to(dev), *(a.to(dev) for a in args), pct, lr)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    card = card.cpu()
+    equal = int((card == cpu).sum())
+    integer = bool(np.all(np.asarray(w) == np.round(np.asarray(w))))
+    if integer and equal != len(cpu):
+        raise AssertionError(f"{label}: renewal on the card differs from the CPU port with "
+                             f"integer weights ({len(cpu) - equal} leaves)")
+    for j in np.flatnonzero((card != cpu).numpy()):
+        r = np.sort(np.asarray(resid)[np.asarray(leaf) == j]).astype(np.float32) * np.float32(lr)
+        i = int(np.searchsorted(r, cpu[j].item()))
+        if card[j].item() not in r[max(0, i - 1): i + 2]:
+            raise AssertionError(f"{label}: renewed leaf {j} is {card[j].item()} on the card, "
+                                 f"{cpu[j].item()} on the CPU: not neighbours")
+    rec = dict(case=label, rows=len(resid), leaves=len(cpu), equal_leaves=equal,
+               integer_weights=integer, card_ms=ms)
+    print("renewal on the card: " + json.dumps(rec), flush=True)
+    return card.numpy()
+
+
+def phase_regression(torch, uh, hh, binning, train, objectives, Table, LightGBMRegressor):
+    """YearPredictionMSD's shape: the four regression objectives through
+    LightGBMRegressor on the default path, quantile on the quantized
+    resident U path, l2 with maxBinByFeature; each against its init-only
+    model on the held-out rows; the kernels on each objective's iteration-0
+    stats; renewal on the card against the CPU port."""
+    dev = torch.device("cuda")
+    X, y = _year_data(N_YEAR + N_YEAR_TEST, seed=18)
+    Xtr, ytr, Xte, yte = X[:N_YEAR], y[:N_YEAR], X[N_YEAR:], y[N_YEAR:]
+    print("year: " + json.dumps(dict(rows=N_YEAR, test_rows=N_YEAR_TEST, features=X.shape[1],
+                                     year_min=float(y.min()), year_median=float(np.median(y)),
+                                     year_max=float(y.max()))), flush=True)
+    common = dict(numIterations=FIT_ITERS, numLeaves=31, maxBin=NUM_BINS - 1, leafBatch=8,
+                  learningRate=0.1, device="cuda")
+    w_te = np.ones(N_YEAR_TEST)
+    t0 = time.perf_counter()
+    bins, mapper = binning.bin_dataset(Xtr, max_bin=NUM_BINS - 1)
+    binning_s = time.perf_counter() - t0
+    bins_t = torch.as_tensor(bins, device=dev).t().contiguous()
+    recs, checks = {}, []
+
+    def held_out(label, objective, metric, booster, st, counts, peak, **extra):
+        margin = booster.raw_margin(Xte, device="cuda")[:, 0]
+        if margin.shape != (N_YEAR_TEST,) or not np.isfinite(margin).all():
+            raise AssertionError(f"{label}: bad predictions")
+        fn = objectives.METRICS[metric][0]
+        kw = dict(alpha=QUANTILE_ALPHA) if metric == "quantile" else {}
+        loss = fn(yte, margin, w_te, **kw)
+        init_loss = fn(yte, np.full(N_YEAR_TEST, float(booster.init_score[0])), w_te, **kw)
+        rec = dict(fit=label, objective=objective, binning_s=st.binning_seconds,
+                   boosting_s=st.boost_seconds, renewal_ms_per_iteration=(
+                       st.renewal_seconds / FIT_ITERS * 1e3),
+                   histogram_path=st.histogram_path, quantized=st.quantized, trees=st.trees,
+                   passes=st.passes, launches=counts, peak_device_bytes=peak,
+                   held_out_metric=metric, held_out=loss, init_only_held_out=init_loss, **extra)
+        if objective == "quantile":
+            rec["held_out_share_below"] = float(np.mean(yte <= margin))
+        print("regression fit: " + json.dumps(rec), flush=True)
+        if not loss < init_loss:
+            raise AssertionError(f"{label}: held-out {metric} {loss} does not beat the init-only "
+                                 f"model's {init_loss}")
+        recs[label] = rec
+
+    models = {}
+    for objective, metric in YEAR_FITS:
+        obj = objectives.get_objective(objective)
+        g, h = _iteration0(torch, obj, ytr, None, dev, alpha=QUANTILE_ALPHA)
+        checks.append(_stats_check(torch, uh, hh, f"year_{objective}", bins_t, g, h))
+        del g, h
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(uh, hh)
+        model = LightGBMRegressor(objective=objective, alpha=QUANTILE_ALPHA, **common).fit(
+            Table({"features": Xtr, "label": ytr}))
+        torch.cuda.synchronize()
+        counts = _counts(uh, hh)
+        _need(counts, ("hist_panel", "hist_combined"), objective)
+        st = model.fit_stats
+        if (st.renewal_seconds > 0) != (objective in train.RENEWED_OBJECTIVES):
+            raise AssertionError(f"{objective}: renewal ran {st.renewal_seconds} s")
+        pred = model.transform(Table({"features": Xte}))["prediction"]
+        held_out(objective, objective, metric, model.booster, st, counts,
+                 torch.cuda.max_memory_allocated())
+        if not np.allclose(pred, model.booster.raw_margin(Xte, device="cuda")[:, 0]):
+            raise AssertionError(f"{objective}: transform differs from the booster's margins")
+        models[objective] = model
+
+    # renewal on the card against the CPU port: tree 0's partition of the
+    # training rows, residuals from the init score
+    for objective in ("quantile", "regression_l1"):
+        b = models[objective].booster
+        leaf = b.predict_leaf(Xtr, num_iteration=1, device="cuda")[:, 0].astype(np.int64)
+        resid = (ytr.astype(np.float32) - np.float32(b.init_score[0])).astype(np.float32)
+        pct = QUANTILE_ALPHA if objective == "quantile" else 0.5
+        ones = np.ones(N_YEAR, np.float32)
+        card = _renewal_hold(torch, train, f"{objective}_unit_weights", leaf, resid, ones, pct,
+                             0.1)
+        live = b.is_leaf[0] & (b.cover[0] > 0)
+        if not np.array_equal(card[np.flatnonzero(live)], b.leaf_values[0][live]):
+            raise AssertionError(f"{objective}: renewing tree 0's partition does not give the "
+                                 f"fit's leaves")
+        frac = np.random.default_rng(19).uniform(0.05, 1.0, N_YEAR).astype(np.float32)
+        _renewal_hold(torch, train, f"{objective}_fractional_weights", leaf, resid, frac, pct,
+                      0.1)
+    del models
+
+    # quantile on the quantized resident U path
+    opts = train.TrainOptions(objective="quantile", alpha=QUANTILE_ALPHA,
+                              num_iterations=FIT_ITERS, num_leaves=31, learning_rate=0.1,
+                              max_bin=NUM_BINS - 1, leaf_batch=8, histogram_method="u",
+                              use_quantized_grad=True)
+    saved = os.environ.get("MMLSPARK_TPU_U_BUDGET")
+    os.environ["MMLSPARK_TPU_U_BUDGET"] = str(U_RESIDENT_BUDGET)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(uh, hh)
+        res = train.train(bins, ytr, opts, mapper=mapper, device="cuda")
+        torch.cuda.synchronize()
+        counts = _counts(uh, hh)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        if saved is None:
+            os.environ.pop("MMLSPARK_TPU_U_BUDGET", None)
+        else:
+            os.environ["MMLSPARK_TPU_U_BUDGET"] = saved
+    st = res.stats
+    if st.histogram_path != "u" or not st.quantized:
+        raise AssertionError(f"quantile U fit took {st.histogram_path}, quantized {st.quantized}")
+    _need(counts, ("u_panel_dot",), "quantile_u_quant")
+    st.binning_seconds = binning_s
+    spec = uh.make_u_spec(NUM_BINS, bins.shape[1], [int(x) for x in mapper.num_bins])
+    held_out("quantile_u_quant", "quantile", "quantile", res.booster, st, counts, peak,
+             u_bytes=uh.u_bytes(N_YEAR, spec), u_build_s=st.u_build_seconds)
+    del res
+    torch.cuda.empty_cache()
+    u = uh.build_u(bins_t, spec)
+    g, h = _iteration0(torch, objectives.get_objective("quantile"), ytr, None, dev,
+                       alpha=QUANTILE_ALPHA)
+    checks.append(_stats_check(torch, uh, hh, "year_quantile_u", bins_t, g, h, u=u))
+    del u, g, h, bins_t
+    torch.cuda.empty_cache()
+
+    # l2 with the timbre averages capped at 63 bins
+    caps = [CAP_BINS] * CAPPED_COLUMNS + [NUM_BINS - 1] * (YEAR_FEATURES - CAPPED_COLUMNS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(uh, hh)
+    model = LightGBMRegressor(objective="regression", maxBinByFeature=caps, **common).fit(
+        Table({"features": Xtr, "label": ytr}))
+    torch.cuda.synchronize()
+    counts = _counts(uh, hh)
+    _need(counts, ("hist_panel", "hist_combined"), "max_bin_by_feature")
+    edges = model.booster.bin_edges
+    used = np.isfinite(edges).sum(axis=1)
+    if used[:CAPPED_COLUMNS].max() > CAP_BINS - 1 or used[CAPPED_COLUMNS:].max() <= CAP_BINS - 1:
+        raise AssertionError(f"maxBinByFeature: edges per column {used.tolist()}")
+    held_out("regression_max_bin_by_feature", "regression", "l2", model.booster,
+             model.fit_stats, counts, torch.cuda.max_memory_allocated(),
+             edges_capped_columns=int(used[:CAPPED_COLUMNS].max()),
+             edges_other_columns=int(used[CAPPED_COLUMNS:].max()))
+    return recs, checks
+
+
+# Phase 19: freMTPL2freq's shape (OpenML 41214).
+N_MTPL = 678_013
+MTPL_CATEGORICAL = (("Area", 6), ("VehBrand", 11), ("Region", 22), ("VehGas", 2))
+TWEEDIE_POWER = 1.9
+
+
+def _mtpl_data(n, seed):
+    """freMTPL2freq's columns: Area, VehBrand, Region and VehGas as category
+    codes; VehPower, VehAge, DrivAge, BonusMalus and Density; Exposure in
+    (0, 1]; ClaimNb from a Poisson frequency (about 5% of policies claim)
+    and a gamma-sized amount per claim (freMTPL2sev's scale)."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    effects = np.zeros(n)
+    for _, card in MTPL_CATEGORICAL:
+        p = rng.dirichlet(np.ones(card) * 2.0)
+        code = rng.choice(card, n, p=p)
+        effects += rng.normal(0, 0.25, card)[code]
+        cols.append(code.astype(np.float64))
+    veh_power = rng.integers(4, 16, n).astype(np.float64)
+    veh_age = np.minimum(np.round(rng.exponential(7.0, n)), 100.0)
+    driv_age = np.clip(np.round(18 + rng.gamma(4.0, 7.0, n)), 18, 100)
+    bonus = np.clip(50 + np.round(rng.exponential(8.0, n)) * (rng.random(n) < 0.35), 50, 230)
+    density = np.round(np.exp(rng.uniform(0.0, 10.2, n)))
+    exposure = np.where(rng.random(n) < 0.3, 1.0, rng.uniform(0.003, 1.0, n))
+    log_freq = (np.log(0.036) + effects + 0.02 * (bonus - 50) + 0.6 * (driv_age < 25)
+                + 0.08 * np.log(density) - 0.03 * np.minimum(veh_age, 15) + 0.03 * veh_power)
+    claims = np.minimum(rng.poisson(exposure * np.exp(log_freq)), 4).astype(np.float64)
+    amount = np.where(claims > 0, rng.gamma(0.8 * np.maximum(claims, 1), 2300.0 / 0.8), 0.0)
+    X = np.stack(cols + [veh_power, veh_age, driv_age, bonus, density], axis=1)
+    return X, claims, amount, exposure
+
+
+def phase_insurance(torch, uh, hh, binning, objectives, Table, LightGBMRegressor):
+    """Claim frequency (poisson) and pure premium (tweedie at variance power
+    1.9) with the categorical columns and Exposure as the weight, through
+    LightGBMRegressor; held-out l2 on the response scale against the
+    init-only model; the kernels on each objective's iteration-0 stats."""
+    dev = torch.device("cuda")
+    X, claims, amount, exposure = _mtpl_data(N_MTPL, seed=19)
+    n_test = N_MTPL // 10
+    n_tr = N_MTPL - n_test
+    cats = list(range(len(MTPL_CATEGORICAL)))
+    print("mtpl: " + json.dumps(dict(policies=N_MTPL, test=n_test, features=X.shape[1],
+                                     share_with_claims=float(np.mean(claims > 0)),
+                                     mean_exposure=float(exposure.mean()))), flush=True)
+    bins, _ = binning.bin_dataset(X[:n_tr], max_bin=NUM_BINS - 1, categorical_features=cats)
+    bins_t = torch.as_tensor(bins, device=dev).t().contiguous()
+    recs, checks = {}, []
+    for objective, target in (("poisson", claims / exposure), ("tweedie", amount / exposure)):
+        y_tr, y_te, w_tr, w_te = target[:n_tr], target[n_tr:], exposure[:n_tr], exposure[n_tr:]
+        obj = objectives.get_objective(objective)
+        g, h = _iteration0(torch, obj, y_tr, w_tr, dev, tweedie_variance_power=TWEEDIE_POWER)
+        checks.append(_stats_check(torch, uh, hh, f"mtpl_{objective}", bins_t, g, h))
+        del g, h
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(uh, hh)
+        model = LightGBMRegressor(objective=objective, tweedieVariancePower=TWEEDIE_POWER,
+                                  categoricalSlotIndexes=cats, weightCol="exposure",
+                                  numIterations=FIT_ITERS, numLeaves=31, maxBin=NUM_BINS - 1,
+                                  learningRate=0.1, device="cuda").fit(
+            Table({"features": X[:n_tr], "label": y_tr, "exposure": w_tr}))
+        torch.cuda.synchronize()
+        counts = _counts(uh, hh)
+        _need(counts, ("hist_panel", "hist_combined"), objective)
+        peak = torch.cuda.max_memory_allocated()
+        pred = model.transform(Table({"features": X[n_tr:]}))["prediction"]
+        if not (np.isfinite(pred).all() and (pred > 0).all()):
+            raise AssertionError(f"{objective}: predictions must be finite and positive")
+        st = model.fit_stats
+        l2 = objectives.l2_loss(y_te, pred, w_te)
+        init_l2 = objectives.l2_loss(y_te, np.full(n_test, np.exp(model.booster.init_score[0])),
+                                     w_te)
+        rec = dict(fit=objective, binning_s=st.binning_seconds, boosting_s=st.boost_seconds,
+                   trees=st.trees, passes=st.passes, launches=counts, peak_device_bytes=peak,
+                   held_out_l2_response=l2, init_only_held_out_l2_response=init_l2,
+                   pred_min=float(pred.min()), pred_mean=float(np.average(pred, weights=w_te)),
+                   target_mean=float(np.average(y_te, weights=w_te)))
+        print("insurance fit: " + json.dumps(rec), flush=True)
+        if not l2 < init_l2:
+            raise AssertionError(f"{objective}: held-out l2 {l2} does not beat the init-only "
+                                 f"model's {init_l2}")
+        recs[objective] = rec
+    del bins_t
+    torch.cuda.empty_cache()
+    return recs, checks
+
+
+# Phase 20: MSLR-WEB10K Fold1's shape.
+N_QUERIES, N_QUERIES_TEST = 6_000, 2_000
+MSLR_FEATURES = 136
+MSLR_RELEVANCE = (0.52, 0.32, 0.13, 0.02, 0.01)  # relevance 0-4
+NDCG_AT = (1, 3, 5)
+# LightGBM's examples/lambdarank/train.conf, 10 of its 100 trees
+LAMBDARANK_PARAMS = dict(learningRate=0.1, numLeaves=31, maxBin=NUM_BINS - 1, minDataInLeaf=50,
+                         minSumHessianInLeaf=5.0, evalAt=5)
+
+
+def _mslr_data(nq, seed):
+    """Query sizes lognormal (mean about 120, the longest near 1,000), 136
+    features, relevance 0-4 at MSLR-WEB10K's frequencies from a score with a
+    per-query offset, strong enough that some queries hold one label only
+    (their rows get g = 0 and h = 1e-16, as in the real set)."""
+    rng = np.random.default_rng(seed)
+    sizes = np.clip(np.round(rng.lognormal(np.log(90.0), 0.75, nq)), 1, 1000).astype(np.int64)
+    group = np.repeat(np.arange(nq), sizes)
+    n = len(group)
+    X = rng.normal(size=(n, MSLR_FEATURES))
+    s = (X[:, 0] + 0.7 * X[:, 1] + 0.5 * X[:, 2] * X[:, 3] + 0.4 * np.tanh(X[:, 4])
+         + 2.0 * rng.normal(size=nq)[group] + 0.8 * rng.normal(size=n))
+    cuts = np.quantile(s, np.cumsum(MSLR_RELEVANCE)[:-1])
+    return X, np.searchsorted(cuts, s).astype(np.float64), group, sizes
+
+
+def phase_lambdarank(torch, uh, hh, binning, ranker, Table, LightGBMRanker):
+    """LightGBMRanker with groupCol at MSLR-WEB10K's shape: the chunked
+    lambdarank step's time and peak bytes at iteration 0, the kernels on its
+    stats, the fit, and held-out NDCG@1/3/5 against the all-equal model."""
+    dev = torch.device("cuda")
+    X, y, group, sizes = _mslr_data(N_QUERIES, seed=20)
+    Xt, yt, gt, _ = _mslr_data(N_QUERIES_TEST, seed=21)
+    idx, g_max = ranker.group_structure(group)
+    chunks = ranker.lambdarank_chunks(idx, len(y))
+    print("mslr: " + json.dumps(dict(
+        queries=N_QUERIES, rows=len(y), mean_size=float(sizes.mean()), max_size=g_max,
+        relevance_freq=(np.bincount(y.astype(int), minlength=5) / len(y)).tolist(),
+        test_rows=len(yt), chunks=len(chunks),
+        largest_chunk_cells=max(c.shape[0] * c.shape[1] ** 2 for c in chunks),
+        padded_one_shot_cells=N_QUERIES * g_max ** 2)), flush=True)
+    obj = ranker.make_lambdarank_objective(idx)
+    yd = torch.as_tensor(y.astype(np.float32), device=dev)
+    wd = torch.ones_like(yd)
+    m0 = torch.zeros((len(y), 1), device=dev)
+    obj.grad_hess(m0, yd, wd)  # the chunk index tensors go to the card once
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        g, h = obj.grad_hess(m0, yd, wd)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_peak = torch.cuda.max_memory_allocated() - base
+    bins, _ = binning.bin_dataset(X, max_bin=NUM_BINS - 1)
+    bins_t = torch.as_tensor(bins, device=dev).t().contiguous()
+    check = _stats_check(torch, uh, hh, "mslr_lambdarank", bins_t, g[:, 0], h[:, 0])
+    if check["zero_g_rows"] == 0:
+        raise AssertionError("the lambdarank stats hold no row at g = 0 (one-label queries)")
+    del bins_t, bins, g, h, m0
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(uh, hh)
+    t0 = time.perf_counter()
+    model = LightGBMRanker(groupCol="query", numIterations=FIT_ITERS, device="cuda",
+                           **LAMBDARANK_PARAMS).fit(Table({"features": X, "label": y,
+                                                           "query": group}))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = _counts(uh, hh)
+    _need(counts, ("hist_panel", "hist_combined"), "lambdarank")
+    peak = torch.cuda.max_memory_allocated()
+    pred = model.transform(Table({"features": Xt}))["prediction"]
+    ndcg = {k: ranker.ndcg_at_k(yt, pred, gt, k) for k in NDCG_AT}
+    flat = {k: ranker.ndcg_at_k(yt, np.zeros(len(yt)), gt, k) for k in NDCG_AT}
+    st = model.fit_stats
+    rec = dict(fit_s=fit_s, binning_s=st.binning_seconds, boosting_s=st.boost_seconds,
+               trees=st.trees, passes=st.passes, launches=counts, peak_device_bytes=peak,
+               lambdarank_ms=times, lambdarank_step_peak_bytes=step_peak,
+               held_out_ndcg=ndcg, all_equal_ndcg=flat)
+    print("lambdarank fit: " + json.dumps(rec), flush=True)
+    if not ndcg[5] > flat[5]:
+        raise AssertionError(f"held-out NDCG@5 {ndcg[5]} is not above the all-equal model's "
+                             f"{flat[5]}")
+    return rec, [check]
+
+
+N_EXPLAIN = 10_000
+N_EXPLAIN_CPU = 1_000  # rows whose SHAP the CPU port recomputes
+
+
+def phase_explain(torch, Table, LightGBMClassificationModel, Booster, boosters):
+    """predict_leaf and featuresShapCol on 10,000 held-out rows of phase 5's
+    HIGGS booster and phase 16's 7-class booster: SHAP adds up to the
+    card's margin (1e-5) and equals the CPU port's (1e-9) on the first
+    1,000 rows, leaves equal the CPU port's; a linear-tree booster (random
+    leaf models on the HIGGS trees, NaNs in the input) predicts on the card
+    as on the CPU; rows/s of each."""
+    recs = {}
+    for name, booster, X in boosters:
+        X = X[:N_EXPLAIN]
+        model = LightGBMClassificationModel(
+            boosterData=booster.to_dict(), numClasses=max(2, booster.num_classes),
+            leafPredictionCol="leaves", featuresShapCol="shap", device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.transform(Table({"features": X}))
+        transform_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        leaves = booster.predict_leaf(X, device="cuda")
+        leaf_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        shap = booster.features_shap(X, device="cuda")
+        shap_s = time.perf_counter() - t0
+        c, f = booster.num_classes, X.shape[1]
+        if out["shap"].shape != (N_EXPLAIN, c * (f + 1)) or \
+                not np.array_equal(out["shap"].reshape(N_EXPLAIN, c, f + 1), shap):
+            raise AssertionError(f"{name}: featuresShapCol layout or values")
+        if not np.array_equal(out["leaves"], leaves.astype(np.float64)):
+            raise AssertionError(f"{name}: leafPredictionCol differs from predict_leaf")
+        margin = booster.raw_margin(X, device="cuda")
+        add_err = float(np.abs(shap.sum(-1) - margin).max())
+        if not add_err <= 1e-5:
+            raise AssertionError(f"{name}: SHAP adds up to the margin within {add_err}")
+        if not np.array_equal(leaves, booster.predict_leaf(X, device="cpu")):
+            raise AssertionError(f"{name}: leaf slots differ from the CPU port's")
+        cpu = booster.features_shap(X[:N_EXPLAIN_CPU], device="cpu")
+        cpu_err = float(np.abs(shap[:N_EXPLAIN_CPU] - cpu).max())
+        if not cpu_err <= 1e-9:
+            raise AssertionError(f"{name}: SHAP on the card differs from the CPU port's by "
+                                 f"{cpu_err}")
+        rec = dict(booster=name, rows=N_EXPLAIN, trees=booster.num_trees, classes=c,
+                   max_depth=booster.max_depth, transform_s=transform_s,
+                   predict_leaf_rows_per_s=N_EXPLAIN / leaf_s,
+                   shap_rows_per_s=N_EXPLAIN / shap_s, shap_additivity_err=add_err,
+                   shap_vs_cpu_err=cpu_err)
+        print("explain: " + json.dumps(rec), flush=True)
+        recs[name] = rec
+
+    name, booster, X = boosters[0]
+    rng = np.random.default_rng(21)
+    t, m = booster.split_feature.shape
+    d = booster.to_dict()
+    d.update(leaf_const=rng.normal(size=(t, m)), leaf_coeff=rng.normal(size=(t, m, 3)) * 0.1,
+             leaf_feat=rng.integers(-1, X.shape[1], (t, m, 3)).astype(np.int32))
+    linear = Booster.from_dict(d)
+    Xn = X[:N_EXPLAIN].copy()
+    Xn[rng.random(Xn.shape) < 0.05] = np.nan
+    t0 = time.perf_counter()
+    card = linear.raw_margin(Xn, device="cuda")
+    linear_s = time.perf_counter() - t0
+    cpu = linear.raw_margin(Xn, device="cpu")
+    if not np.array_equal(card, cpu) or not np.isfinite(card).all():
+        raise AssertionError("linear-tree margins on the card differ from the CPU port's")
+    plain = booster.raw_margin(Xn, device="cuda")
+    recs["linear"] = dict(booster=f"{name}_linear", rows=N_EXPLAIN,
+                          rows_per_s=N_EXPLAIN / linear_s,
+                          max_shift_from_plain=float(np.abs(card - plain).max()))
+    print("explain: " + json.dumps(recs["linear"]), flush=True)
+    return recs
+
+
 def main():
     import torch
 
@@ -1704,12 +2238,16 @@ def main():
     from mmlspark_tpu_torch.kernels import sass_atomics
     from mmlspark_tpu_torch.kernels.build import histogram_extension
     from mmlspark_tpu_torch.lightgbm import (
+        LightGBMClassificationModel,
         LightGBMClassifier,
+        LightGBMRanker,
+        LightGBMRegressor,
         base,
         binning,
         bundling,
         callbacks,
         objectives,
+        ranker,
         train,
     )
     from mmlspark_tpu_torch.lightgbm.booster import Booster
@@ -1766,10 +2304,20 @@ def main():
           es_model, X_es, y_es)
     del es_model, X_es, y_es
     timed("quant_noise", phase_quant_noise, torch, uh, hh, binning, train)
-    timed("multiclass", phase_multiclass, torch, uh, hh, binning, train, objectives, Table,
-          LightGBMClassifier)
+    _, cover = timed("multiclass", phase_multiclass, torch, uh, hh, binning, train, objectives,
+                     Table, LightGBMClassifier)
     types = timed("boosting_types", phase_boosting_types, torch, uh, hh, train, auc, higgs)
-    del higgs
+    explain_boosters = [("higgs", higgs["booster"], higgs["X_test"]),
+                        ("covertype", cover["booster"], cover["X_test"])]
+    del higgs, cover
+    timed("regression", phase_regression, torch, uh, hh, binning, train, objectives, Table,
+          LightGBMRegressor)
+    timed("insurance", phase_insurance, torch, uh, hh, binning, objectives, Table,
+          LightGBMRegressor)
+    timed("lambdarank", phase_lambdarank, torch, uh, hh, binning, ranker, Table, LightGBMRanker)
+    timed("explain", phase_explain, torch, Table, LightGBMClassificationModel, Booster,
+          explain_boosters)
+    del explain_boosters
 
     if entry_launches == 0:
         raise AssertionError("build_histograms_bin_scatter did not launch bin_scatter")

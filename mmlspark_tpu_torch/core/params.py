@@ -220,6 +220,10 @@ class HasInitScoreCol(Params):
     )
 
 
+class HasGroupCol(Params):
+    groupCol = Param("The name of the query-group column (ranking)", converter=to_str)
+
+
 class HasValidationIndicatorCol(Params):
     validationIndicatorCol = Param(
         "Boolean column marking rows used for validation / early stopping",

@@ -63,6 +63,18 @@ class Table:
         mask = np.asarray(mask, dtype=bool)
         return Table({k: v[mask] for k, v in self._columns.items()})
 
+    def sort_by(self, name: str, ascending: bool = True) -> "Table":
+        """Stable sort by one column (ties keep row order, both directions)."""
+        col = self.column(name)
+        if ascending:
+            order = np.argsort(col, kind="stable")
+        else:
+            # stable ascending argsort of the reversed column, mapped back
+            # to the original rows, then reversed
+            n = len(col)
+            order = (n - 1 - np.argsort(col[::-1], kind="stable"))[::-1]
+        return Table({k: v[order] for k, v in self._columns.items()})
+
     def __repr__(self) -> str:
         parts = ", ".join(
             f"{k}: {v.dtype}{list(v.shape[1:]) if v.ndim > 1 else ''}"

@@ -117,14 +117,17 @@ class LightGBMParams(HasFeaturesCol, HasLabelCol, HasPredictionCol, HasWeightCol
 
     #: Params of paths the port has not taken over, with the values it takes.
     _PORTED_VALUES = {
-        "maxBinByFeature": ([],),
-        "numBatches": (0,), "featuresShapCol": ("",),
-        "leafPredictionCol": ("",), "numExecutors": (0,), "numProcesses": (0, 1),
+        "numBatches": (0,), "numExecutors": (0,), "numProcesses": (0, 1),
         "parallelism": ("data_parallel", "serial"),
     }
 
     def _objective_name(self) -> str:
         raise NotImplementedError
+
+    def _extra_train_options(self) -> dict:
+        """Learner-specific ``TrainOptions`` fields (regressor: alpha and
+        the tweedie power; ranker: its default metric)."""
+        return {}
 
     def _check_ported(self) -> None:
         for name, ported in self._PORTED_VALUES.items():
@@ -132,7 +135,7 @@ class LightGBMParams(HasFeaturesCol, HasLabelCol, HasPredictionCol, HasWeightCol
                 raise NotImplementedError(f"{name}={self.getOrDefault(name)!r} is not ported yet")
 
     def _make_options(self, num_class: int = 1) -> TrainOptions:
-        return TrainOptions(
+        kwargs = dict(
             objective=self._objective_name(),
             num_iterations=self.getNumIterations(),
             learning_rate=self.getLearningRate(),
@@ -172,6 +175,8 @@ class LightGBMParams(HasFeaturesCol, HasLabelCol, HasPredictionCol, HasWeightCol
             boost_from_average=self.getBoostFromAverage(),
             provide_training_metric=self.getIsProvideTrainingMetric(),
         )
+        kwargs.update(self._extra_train_options())
+        return TrainOptions(**kwargs)
 
 
 def extract_features(table: Table, features_col: str) -> np.ndarray:
@@ -213,6 +218,10 @@ class LightGBMBase(LightGBMParams, Estimator):
     def callbacks(self):
         return list(getattr(self, "_callbacks", []))
 
+    def _train_objective(self, table: Table):
+        """A per-fit objective handed to ``train`` (the ranker's), else None."""
+        return None
+
     def _fit(self, table: Table) -> "LightGBMModelBase":
         self._check_ported()
         # Validation split by indicator column (LightGBMBase.scala:196-197).
@@ -234,8 +243,9 @@ class LightGBMBase(LightGBMParams, Estimator):
         t0 = time.perf_counter()
         bins, mapper = bin_dataset(
             X, max_bin=opts.max_bin, categorical_features=sorted(cat_slots) or None,
-            sample_cnt=self.getBinSampleCount(), feature_bundling=self.getFeatureBundling(),
-            max_conflict_rate=self.getMaxConflictRate())
+            sample_cnt=self.getBinSampleCount(),
+            max_bin_by_feature=self.getMaxBinByFeature() or None,
+            feature_bundling=self.getFeatureBundling(), max_conflict_rate=self.getMaxConflictRate())
         binning_seconds = time.perf_counter() - t0
         valid_sets = []
         if valid_table is not None and valid_table.num_rows > 0:
@@ -251,7 +261,7 @@ class LightGBMBase(LightGBMParams, Estimator):
             init_margins = prev.raw_margin(X, device=self.getDevice())
         result = train(bins, y, opts, w=w, init_margins=init_margins, valid_sets=valid_sets,
                        mapper=mapper, feature_names=feature_names, callbacks=self.callbacks,
-                       device=self.getDevice())
+                       device=self.getDevice(), objective=self._train_objective(table))
         result.stats.binning_seconds = binning_seconds
         model = self._make_model(result)
         model.parent = self
@@ -282,9 +292,14 @@ class LightGBMBase(LightGBMParams, Estimator):
 
 
 class LightGBMModelBase(HasFeaturesCol, HasPredictionCol, Model):
-    """Shared model surface: booster access and native-model text."""
+    """Shared model surface: booster access, native-model text, and the
+    leaf-index and SHAP output columns."""
 
     boosterData = Param("Fitted booster state", is_complex=True)
+    leafPredictionCol = Param("Output column for leaf indices ('' = off)", default="",
+                              converter=to_str)
+    featuresShapCol = Param("Output column for SHAP values ('' = off)", default="",
+                            converter=to_str)
     device = Param("Torch device predict runs on: 'cuda' (default) or 'cpu'",
                    default="cuda", converter=to_str)
 
@@ -294,3 +309,17 @@ class LightGBMModelBase(HasFeaturesCol, HasPredictionCol, Model):
 
     def get_model_string(self) -> str:
         return self.booster.model_to_string()
+
+    def _with_leaf_col(self, table: Table, X: np.ndarray, booster: Booster) -> Table:
+        """``table`` with the leaf slots per tree (``leafPredictionCol``) and
+        the SHAP values (``featuresShapCol``) of ``X`` where those are set;
+        SHAP in LightGBM's contrib layout (N, C*(F+1)): per class, the
+        feature contributions then the bias."""
+        if self.getLeafPredictionCol():
+            leaves = booster.predict_leaf(X, device=self.getDevice()).astype(np.float64)
+            table = table.with_column(self.getLeafPredictionCol(), leaves)
+        if self.getFeaturesShapCol():
+            shap = booster.features_shap(X, device=self.getDevice())
+            table = table.with_column(self.getFeaturesShapCol(),
+                                      shap.reshape(shap.shape[0], -1).astype(np.float64))
+        return table

@@ -59,13 +59,24 @@ class BinMapper:
 
 def fit_bin_mapper(
     X: np.ndarray, max_bin: int = 255, sample_cnt: int = 200_000, seed: int = 0,
-    categorical_features=None,
+    categorical_features=None, max_bin_by_feature=None,
 ) -> BinMapper:
     """Per-feature quantile edges from ``sample_cnt`` seeded sampled rows
     (LightGBM ``bin_construct_sample_cnt``); ``categorical_features``: the
-    indices binned by value identity (one bin per frequent category)."""
+    indices binned by value identity (one bin per frequent category);
+    ``max_bin_by_feature``: a bin cap per feature (LightGBM
+    maxBinByFeature; empty or None: ``max_bin`` everywhere), each in [2,
+    max_bin] because the bins are uint8 of one width."""
     n, f = X.shape
     cat_set = set(int(c) for c in (categorical_features or []))
+    caps = list(max_bin_by_feature or [])
+    if caps:
+        if len(caps) != f:
+            raise ValueError(f"maxBinByFeature has {len(caps)} entries for {f} features")
+        bad = [c for c in caps if not (2 <= int(c) <= max_bin)]
+        if bad:
+            raise ValueError(f"maxBinByFeature entries must be in [2, maxBin={max_bin}] "
+                             f"(got {bad[:5]})")
     if n > sample_cnt:
         rng = np.random.default_rng(seed)
         idx = rng.choice(n, size=sample_cnt, replace=False)
@@ -75,21 +86,21 @@ def fit_bin_mapper(
     # max_bin usable value bins (bin 0 reserved for missing) -> max_bin-1 edges.
     edges = np.full((f, max_bin - 1), np.inf, dtype=np.float64)
     num_bins = np.zeros(f, dtype=np.int32)
-    qs = np.linspace(0, 1, max_bin)
     cat_values: dict = {}
     for j in range(f):
+        mb = int(caps[j]) if caps else max_bin
         col = sample[:, j]
         col = col[~np.isnan(col)]
         if j in cat_set:
             u, counts = np.unique(col, return_counts=True)
-            cat_values[j] = _cat_values_from_counts(u, counts, max_bin)
+            cat_values[j] = _cat_values_from_counts(u, counts, mb)
             num_bins[j] = len(cat_values[j]) + 1  # + missing bin
             continue
         if col.size == 0:
             num_bins[j] = 1
             continue
         u, counts = np.unique(col, return_counts=True)
-        e = _edges_from_counts(u, counts, max_bin, qs)
+        e = _edges_from_counts(u, counts, mb, np.linspace(0, 1, mb))
         edges[j, : len(e)] = e
         num_bins[j] = len(e) + 2  # +1 missing bin, +1 overflow bin above last edge
     # Snap edges to the float32 grid: prediction compares float32 values
@@ -212,7 +223,7 @@ def fit_bundles_inplace(
 
 def bin_dataset(
     X, max_bin: int = 255, mapper: Optional[BinMapper] = None,
-    categorical_features=None, sample_cnt: int = 200_000,
+    categorical_features=None, sample_cnt: int = 200_000, max_bin_by_feature=None,
     feature_bundling: bool = False, max_conflict_rate: float = 0.0,
 ) -> Tuple[np.ndarray, BinMapper]:
     """Fit a mapper (unless given) and bin ``X``; returns ((N, F) uint8, or
@@ -222,7 +233,8 @@ def bin_dataset(
     fresh = mapper is None
     if fresh:
         mapper = fit_bin_mapper(X, max_bin=max_bin, sample_cnt=sample_cnt,
-                                categorical_features=categorical_features)
+                                categorical_features=categorical_features,
+                                max_bin_by_feature=max_bin_by_feature)
     raw = _apply_bins_raw(X, mapper)
     if fresh and feature_bundling:
         fit_bundles_inplace(mapper, raw, max_conflict_rate=max_conflict_rate,

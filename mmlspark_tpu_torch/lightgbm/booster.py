@@ -17,8 +17,10 @@ as (num_trees, M), tree ``i*C + c`` = iteration i, class c):
 plain torch gathers, ``max_depth`` rounds (the reference predicts through a
 path-matrix product; neither is a kernel). At a categorical node a row goes
 left iff its category's value bin is in the node's left set; unseen and NaN
-categories take bin 0, which no left set holds, so they go right. Linear-tree
-models keep their fields for serde but do not predict here yet.
+categories take bin 0, which no left set holds, so they go right.
+:meth:`Booster.predict_leaf` returns the routed slots, linear-tree models
+evaluate their leaf models on the host after routing, and
+:meth:`Booster.features_shap` runs TreeSHAP (``shap.py``).
 """
 
 from __future__ import annotations
@@ -61,8 +63,10 @@ class Booster:
     # Categorical splits: cat_nodes (T, M) marks categorical decisions,
     # cat_masks (T, M, Bc) is each one's left set over value bins, and
     # cat_values maps a feature to its raw category values (bin i+1 <->
-    # values[i]). zero_as_missing routes; linear leaves are carried for serde
-    # and model text, not predicted by this port yet.
+    # values[i]). zero_missing (T, M): zero_as_missing nodes. Linear leaves
+    # (imported linear_tree models): at slot m the output is leaf_const +
+    # sum_l leaf_coeff[l] * x[leaf_feat[l]] (leaf_feat -1 pads), or the
+    # plain leaf value where a feature it reads is NaN.
     cat_nodes: Optional[np.ndarray] = None
     cat_masks: Optional[np.ndarray] = None
     cat_values: Optional[Dict[int, np.ndarray]] = None
@@ -105,25 +109,14 @@ class Booster:
 
     # -- predict -------------------------------------------------------------
 
-    def raw_margin(self, X, num_iteration: Optional[int] = None,
-                   device: DeviceLike = None) -> np.ndarray:
-        """(N, C) raw margins (init_score + sum of tree outputs) of a dense
-        (N, F) batch, routed on ``device`` (CUDA unless ``device='cpu'``)."""
-        if self.has_linear:
-            raise NotImplementedError("linear-tree boosters do not predict in the port yet")
-        dev = resolve_device(device)
+    def _leaf_chunks(self, X, t: int, dev: torch.device):
+        """Per chunk of rows of ``X``: the (n, t) final leaf slots of the
+        first ``t`` trees on ``dev``, and the trees' tables."""
         has_cat = self.has_categorical
-        X = np.asarray(X)
-        n = X.shape[0]
-        t = self._used_trees(num_iteration)
-        if t == 0:
-            return np.broadcast_to(self.init_score[None, :], (n, self.num_classes)).copy()
         tables = _tree_tables(self, t, dev, has_cat)
         cats = _cat_lookup(self, dev) if has_cat else ()
         chunk = max(1, _PREDICT_CHUNK_BYTES // (64 * t))
-        init = torch.as_tensor(np.asarray(self.init_score, np.float32), device=dev)
-        outs = []
-        for lo in range(0, max(n, 1), chunk):
+        for lo in range(0, max(X.shape[0], 1), chunk):
             if cats:
                 # Raw category ids are read as float64 before they become
                 # value bins, so ids above 2**24 are not rounded on the way.
@@ -133,7 +126,25 @@ class Booster:
                 xd = xd.to(torch.float32)
             else:
                 xd = torch.as_tensor(np.asarray(X[lo : lo + chunk], np.float32), device=dev)
-            leaf = _route_rows(xd, tables, self.max_depth)  # (n, T)
+            yield _route_rows(xd, tables, self.max_depth), tables
+
+    def raw_margin(self, X, num_iteration: Optional[int] = None,
+                   device: DeviceLike = None) -> np.ndarray:
+        """(N, C) raw margins (init_score + sum of tree outputs) of a dense
+        (N, F) batch, routed on ``device`` (CUDA unless ``device='cpu'``).
+        Linear-tree boosters evaluate their leaf models in float64 on the
+        host after routing (:meth:`_raw_margin_linear`)."""
+        dev = resolve_device(device)
+        X = np.asarray(X)
+        n = X.shape[0]
+        t = self._used_trees(num_iteration)
+        if t == 0:
+            return np.broadcast_to(self.init_score[None, :], (n, self.num_classes)).copy()
+        if self.has_linear:
+            return self._raw_margin_linear(X, num_iteration, dev)
+        init = torch.as_tensor(np.asarray(self.init_score, np.float32), device=dev)
+        outs = []
+        for leaf, tables in self._leaf_chunks(X, t, dev):
             contrib = torch.gather(tables["leaf_values"].expand(leaf.shape[0], -1, -1),
                                    2, leaf[:, :, None])[:, :, 0]
             rounds = t // self.num_classes
@@ -142,6 +153,62 @@ class Booster:
         if not outs:
             return np.zeros((0, self.num_classes), np.float32)
         return np.concatenate(outs, axis=0)
+
+    def predict_leaf(self, X, num_iteration: Optional[int] = None,
+                     device: DeviceLike = None) -> np.ndarray:
+        """(N, T) int32 final leaf slot of every row in every used tree
+        (``predictLeaf``), routed on ``device``."""
+        dev = resolve_device(device)
+        X = np.asarray(X)
+        t = self._used_trees(num_iteration)
+        if t == 0:
+            return np.zeros((X.shape[0], 0), np.int32)
+        outs = [leaf.to(torch.int32).cpu().numpy() for leaf, _ in self._leaf_chunks(X, t, dev)]
+        return np.concatenate(outs, axis=0) if outs else np.zeros((0, t), np.int32)
+
+    def _raw_margin_linear(self, X: np.ndarray, num_iteration: Optional[int],
+                           dev: torch.device) -> np.ndarray:
+        """Margins of a linear-tree booster: leaf slots routed on ``dev``,
+        then each leaf's model ``leaf_const + sum_l leaf_coeff * x`` in
+        float64 on the host, in the reference's order of operations; a leaf
+        whose model reads a NaN feature gives its plain leaf value (native
+        LightGBM's fallback)."""
+        slots = self.predict_leaf(X, num_iteration, device=dev)  # (N, T)
+        t = slots.shape[1]
+        Xd = np.asarray(X, np.float64)
+        n = Xd.shape[0]
+        tt = np.arange(t)[None, :]
+        lmax = self.leaf_feat.shape[-1]
+        out = np.empty((n, t), np.float64)
+        chunk = max(1, (64 << 20) // max(8 * t * lmax, 1))
+        for lo in range(0, max(n, 1), chunk):
+            sl = slots[lo : lo + chunk]
+            const = self.leaf_const[tt, sl]  # (n, T)
+            coeff = self.leaf_coeff[tt, sl]  # (n, T, L)
+            fidx = self.leaf_feat[tt, sl]  # (n, T, L)
+            valid = fidx >= 0
+            rows = np.arange(sl.shape[0])[:, None, None]
+            xv = Xd[lo : lo + chunk][rows, np.maximum(fidx, 0)]
+            nanf = np.any(valid & np.isnan(xv), axis=-1)
+            lin = const + np.where(valid & ~np.isnan(xv), coeff * xv, 0.0).sum(axis=-1)
+            plain = self.leaf_values[tt, sl].astype(np.float64)
+            out[lo : lo + chunk] = np.where(nanf, plain, lin)
+        rounds = t // self.num_classes
+        margins = out.reshape(n, rounds, self.num_classes).sum(axis=1)
+        return margins + np.asarray(self.init_score, np.float64)[None, :]
+
+    def features_shap(self, X, num_iteration: Optional[int] = None,
+                      device: DeviceLike = None) -> np.ndarray:
+        """(N, C, F+1) float64 SHAP values per feature plus the bias (last
+        column), path-dependent TreeSHAP over the training covers on
+        ``device``; they add up to :meth:`raw_margin` (``featuresShap``)."""
+        from mmlspark_tpu_torch.lightgbm.shap import tree_shap
+
+        if self.has_linear:
+            raise NotImplementedError(
+                "SHAP values are not implemented for linear-tree models (leaf outputs are "
+                "per-leaf linear functions, outside TreeSHAP's piecewise-constant contract)")
+        return tree_shap(self, np.asarray(X, dtype=np.float64), num_iteration, device=device)
 
     # -- serde ---------------------------------------------------------------
 

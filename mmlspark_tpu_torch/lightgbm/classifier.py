@@ -59,6 +59,8 @@ class LightGBMClassifier(LightGBMBase):
             predictionCol=self.getPredictionCol(),
             rawPredictionCol=self.getRawPredictionCol(),
             probabilityCol=self.getProbabilityCol(),
+            leafPredictionCol=self.getLeafPredictionCol(),
+            featuresShapCol=self.getFeaturesShapCol(),
             numClasses=self._inferred_classes,
             boosterData=result.booster.to_dict(),
             device=self.getDevice(),
@@ -84,8 +86,9 @@ class LightGBMClassificationModel(LightGBMModelBase):
             probs = e / e.sum(axis=1, keepdims=True)
             raw = margins
         pred = probs.argmax(axis=1).astype(np.float64)
-        return (
+        out = (
             table.with_column(self.getRawPredictionCol(), raw)
             .with_column(self.getProbabilityCol(), probs)
             .with_column(self.getPredictionCol(), pred)
         )
+        return self._with_leaf_col(out, X, booster)

@@ -17,8 +17,10 @@ from mmlspark_tpu_torch.lightgbm.bundling import BundleSpec
 
 def booster_from_jax(d: Dict[str, Any]) -> Booster:
     """The port's :class:`Booster` from a JAX ``Booster.to_dict()``. The two
-    dataclasses share their fields; values arrive as numpy arrays, and a
-    categorical booster brings its split sets and category values."""
+    dataclasses share their fields; values arrive as numpy arrays, a
+    categorical booster brings its split sets and category values, and a
+    linear-tree booster its leaf models. Boosters of every objective carry
+    over (the objective is a name in the booster)."""
     fields = {f.name for f in Booster.__dataclass_fields__.values()}
     unknown = set(d) - fields
     if unknown:

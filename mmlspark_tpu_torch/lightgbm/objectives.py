@@ -1,8 +1,13 @@
 """Training objectives and evaluation metrics.
 
-The port's copy of ``mmlspark_tpu/lightgbm/objectives.py`` for the binary,
-multiclass softmax and l2 regression objectives: gradients and hessians in
-torch on the fit's device, init scores and metrics in host numpy.
+The port's copy of ``mmlspark_tpu/lightgbm/objectives.py``: binary,
+multiclass softmax and the regression family (l2, l1, huber, quantile,
+poisson, tweedie), with gradients and hessians in torch on the fit's device
+and init scores and metrics in host numpy. Each objective's arithmetic is
+the compiled reference's on XLA's CPU backend, bit for bit: its ``exp``
+(:func:`xla_exp`) and the multiply-adds XLA fuses (tweedie). lambdarank is
+built per fit by :mod:`~mmlspark_tpu_torch.lightgbm.ranker` and handed to
+``train`` directly.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ class Objective:
     default_metric: str
 
 
-def _binary_grad_hess(margins, y, w):
+def _binary_grad_hess(margins, y, w, **kw):
     p = torch.sigmoid(margins[:, 0])
     g = (p - y) * w
     h = torch.clamp(p * (1.0 - p), min=1e-16) * w
@@ -55,14 +60,15 @@ def _fma(a, b, c):
     return (a.double() * b + c).to(torch.float32)
 
 
-def exp_nonpositive(x: torch.Tensor) -> torch.Tensor:
-    """float32 ``exp(x)`` for ``x <= 0`` with the reference's bits: XLA's CPU
-    exp is the Cephes polynomial with fused multiply-adds, and flushes
-    results below the smallest normal float32 to zero. The softmax takes it
-    (its inputs are ``x - max x``), so that multiclass gradients are the
-    reference's bit for bit on the CPU and the card alike."""
-    x = torch.clamp(x.to(torch.float32), min=-88.0)
-    fx = torch.floor(_fma(x, _LOG2E, 0.5))
+def xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``exp(x)`` with the reference's bits: XLA's CPU exp is the
+    Cephes polynomial with fused multiply-adds; it clamps the power of two to
+    at most 2**127 (so ``exp`` stays finite up to log(FLT_MAX)) and flushes
+    results below the smallest normal float32 to zero. The softmax, poisson
+    and tweedie take it, so that their gradients are the reference's bit for
+    bit on the CPU and the card alike."""
+    x = torch.clamp(x.to(torch.float32), min=-88.0, max=88.8)
+    fx = torch.clamp(torch.floor(_fma(x, _LOG2E, 0.5)), max=127.0)
     r = _fma(fx, -_LN2_HI, x.double())
     r = _fma(fx, -_LN2_LO, r.double())
     z = r * r
@@ -88,10 +94,10 @@ def row_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _multiclass_grad_hess(margins, y, w):
+def _multiclass_grad_hess(margins, y, w, **kw):
     """Softmax cross-entropy: ``g = p - onehot(y)``, ``h = 2 p (1 - p)``
     (LightGBM's factor 2), each times the weight."""
-    e = exp_nonpositive(margins - margins.amax(dim=1, keepdim=True))
+    e = xla_exp(margins - margins.amax(dim=1, keepdim=True))
     p = _flush(e / row_sum(e)[:, None])
     onehot = torch.nn.functional.one_hot(y.long(), margins.shape[1]).to(p.dtype)
     g = _flush((p - onehot) * w[:, None])
@@ -106,13 +112,61 @@ def _multiclass_init(y, num_classes, w):
     return np.log(probs).astype(np.float32)
 
 
-def _l2_grad_hess(margins, y, w):
+def _ones_hess(g, w):
+    return (w * torch.ones_like(g))[:, None]
+
+
+def _l2_grad_hess(margins, y, w, **kw):
     g = (margins[:, 0] - y) * w
-    return g[:, None], (w * torch.ones_like(g))[:, None]
+    return g[:, None], _ones_hess(g, w)
 
 
 def _l2_init(y, num_classes, w):
     return np.array([np.average(y, weights=w)], dtype=np.float32)
+
+
+def _l1_grad_hess(margins, y, w, **kw):
+    g = torch.sign(margins[:, 0] - y) * w
+    return g[:, None], _ones_hess(g, w)
+
+
+def _huber_grad_hess(margins, y, w, alpha=0.9, **kw):
+    """The reference's huber: ``clip(d, -alpha, alpha)`` with hessian ``w``."""
+    g = torch.clamp(margins[:, 0] - y, -alpha, alpha) * w
+    return g[:, None], _ones_hess(g, w)
+
+
+def _quantile_grad_hess(margins, y, w, alpha=0.9, **kw):
+    # 1.0 - alpha rounds as the reference's: a Python double, then float32
+    d = margins[:, 0] - y
+    g = torch.where(d >= 0, 1.0 - alpha, -alpha).to(d.dtype) * w
+    return g[:, None], _ones_hess(g, w)
+
+
+def _poisson_grad_hess(margins, y, w, **kw):
+    mu = xla_exp(margins[:, 0])
+    g = (mu - y) * w
+    h = torch.clamp(mu, min=1e-16) * w
+    return g[:, None], h[:, None]
+
+
+def _poisson_init(y, num_classes, w):
+    return np.array([np.log(max(np.average(y, weights=w), 1e-12))], dtype=np.float32)
+
+
+def _tweedie_grad_hess(margins, y, w, tweedie_variance_power=1.5, **kw):
+    """``g = -y e^((1-rho) m) + e^((2-rho) m)``, ``h = -a (1-rho) + b
+    (2-rho)``; XLA contracts ``-y * ea + b`` and ``b * (2-rho) + ...`` into
+    fused multiply-adds, and so does this copy."""
+    rho = tweedie_variance_power
+    m = margins[:, 0]
+    ea = xla_exp((1.0 - rho) * m)
+    b = xla_exp((2.0 - rho) * m)
+    a = y * ea
+    g = _fma(-y, ea.double(), b.double()) * w
+    c2 = float(np.float32(2.0 - rho))
+    h = torch.clamp(_fma(b, c2, (-a * (1.0 - rho)).double()), min=1e-16) * w
+    return g[:, None], h[:, None]
 
 
 OBJECTIVES: Dict[str, Objective] = {
@@ -120,16 +174,23 @@ OBJECTIVES: Dict[str, Objective] = {
     "multiclass": Objective("multiclass", lambda c: c, _multiclass_grad_hess, _multiclass_init,
                             "multi_logloss"),
     "regression": Objective("regression", lambda c: 1, _l2_grad_hess, _l2_init, "l2"),
+    "regression_l1": Objective("regression_l1", lambda c: 1, _l1_grad_hess, _l2_init, "l1"),
+    "huber": Objective("huber", lambda c: 1, _huber_grad_hess, _l2_init, "l2"),
+    "quantile": Objective("quantile", lambda c: 1, _quantile_grad_hess, _l2_init, "quantile"),
+    "poisson": Objective("poisson", lambda c: 1, _poisson_grad_hess, _poisson_init, "poisson"),
+    "tweedie": Objective("tweedie", lambda c: 1, _tweedie_grad_hess, _poisson_init, "tweedie"),
 }
 
 # LightGBM objective aliases (TrainParams.scala objective strings).
-_ALIASES = {"l2": "regression", "mean_squared_error": "regression", "mse": "regression"}
+_ALIASES = {"l2": "regression", "mean_squared_error": "regression", "mse": "regression",
+            "l1": "regression_l1", "mae": "regression_l1"}
 
 
 def get_objective(name: str) -> Objective:
     name = _ALIASES.get(name, name)
     if name not in OBJECTIVES:
-        raise ValueError(f"unknown or unported objective {name!r}; ported: {sorted(OBJECTIVES)}")
+        raise ValueError(f"unknown objective {name!r}; known: {sorted(OBJECTIVES)} (lambdarank: "
+                         "LightGBMRanker, or train(objective=ranker.make_lambdarank_objective(...)))")
     return OBJECTIVES[name]
 
 
@@ -197,7 +258,7 @@ def quantile_loss(y, pred, w, alpha=0.9):
 
 
 #: metric name -> (fn(y, score_or_margin, w), higher_is_better): the
-#: reference's metrics that the binary, multiclass and l2 objectives can use.
+#: reference's metrics.
 METRICS = {
     "auc": (auc, True),
     "binary_logloss": (binary_logloss, False),
@@ -210,6 +271,8 @@ METRICS = {
     "l1": (l1_loss, False),
     "mae": (l1_loss, False),
     "quantile": (quantile_loss, False),
+    "poisson": (l2_loss, False),  # l2, on the margin or response scale (train._margin_to_score)
+    "tweedie": (l2_loss, False),
 }
 
 

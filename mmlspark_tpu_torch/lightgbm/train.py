@@ -46,8 +46,12 @@ runs in node groups of ``histogram.cu`` (``ops/hopper_histogram.py``); on
 the U path such a level takes the compare-built pass on exact stats, as
 the reference's does.
 
-Not ported yet: meshes, process groups, the other tree learners and linear
-trees.
+The objectives are binary, multiclass, the regression family (l2, l1,
+huber, quantile, poisson, tweedie; l1 and quantile leaves renewed to the
+percentile of their residuals, :func:`renew_leaves`) and a per-fit one
+handed in (lambdarank, ``ranker.py``).
+
+Not ported yet: meshes, process groups and the other tree learners.
 """
 
 from __future__ import annotations
@@ -71,6 +75,7 @@ from mmlspark_tpu_torch.lightgbm.bundling import cat_row_maps_bundled, expand_ma
 from mmlspark_tpu_torch.lightgbm.callbacks import CallbackEnv, _has_iteration_hooks, _lr_schedule
 from mmlspark_tpu_torch.lightgbm.objectives import (
     METRICS,
+    Objective,
     get_objective,
     metric_higher_is_better,
     row_sum,
@@ -179,9 +184,12 @@ GROWTHS = ("leafwise", "depthwise")
 BOOSTING_TYPES = ("gbdt", "rf", "dart", "goss")
 
 
-def check_supported(opts: TrainOptions) -> None:
+def check_supported(opts: TrainOptions, objective: Optional[Objective] = None) -> None:
     """Raise ``NotImplementedError`` for options the port cannot honour, and
-    ``ValueError`` for a growth or boosting type no package knows."""
+    ``ValueError`` for a growth or boosting type no package knows, or an
+    objective that is not one of ``objectives.OBJECTIVES`` (binary,
+    multiclass, regression, regression_l1, huber, quantile, poisson,
+    tweedie and their aliases) unless ``objective`` is given (lambdarank)."""
     if opts.growth not in GROWTHS:
         raise ValueError(f"growth={opts.growth!r} is not one of {GROWTHS}")
     if opts.boosting_type not in BOOSTING_TYPES:
@@ -196,7 +204,8 @@ def check_supported(opts: TrainOptions) -> None:
         raise NotImplementedError(f"histogram_method={opts.histogram_method!r} is not ported")
     if opts.max_bin + 1 > 256:
         raise NotImplementedError("max_bin > 255 is not ported (bins are uint8)")
-    get_objective(opts.objective)
+    if objective is None:
+        get_objective(opts.objective)
 
 
 @dataclasses.dataclass
@@ -213,7 +222,9 @@ class FitStats:
     launches of level d over the fit (every tree, every class): more than
     one a pass where the level runs in node groups; 0 on the CPU, where no
     kernel launches. ``dart_drops[i]``: under dart, the earlier iterations
-    dropped at iteration i.
+    dropped at iteration i. ``renewal_seconds``: the percentile leaf
+    renewal of l1 and quantile fits (inside ``boost_seconds``), each
+    iteration's closed by a device sync.
 
     ``per_iteration`` holds, for each iteration run, the host seconds of
     its bag and feature-mask draw, their upload, the boosting step, the
@@ -235,6 +246,7 @@ class FitStats:
     per_iteration: List[Dict[str, float]] = dataclasses.field(default_factory=list)
     level_launches: List[int] = dataclasses.field(default_factory=list)
     dart_drops: List[List[int]] = dataclasses.field(default_factory=list)
+    renewal_seconds: float = 0.0
 
 
 @dataclasses.dataclass
@@ -381,9 +393,9 @@ def _split_search(
     ``quant_totals``: the quantized pass's integer totals and scales behind
     ``totals``. The right child's value then takes ``total * scale - left``
     in one rounding: XLA contracts the reference's dequantizing multiply
-    into that subtraction (a fused multiply-subtract) where the two meet in
-    one fusion, which they do for the child values the depthwise grower
-    reads."""
+    into that subtraction (a fused multiply-subtract) where the product has
+    no other use, as in the child values the depthwise grower reads below
+    ``max_depth`` 1."""
     k, f, b, _ = hist.shape
     dev = hist.device
     l1, l2 = opts.lambda_l1, opts.lambda_l2
@@ -1022,8 +1034,12 @@ def _build_tree_depthwise(
         stats.level_launches[d] += _kernel_launches() - launched
         hist, totals = _expand(h, tot, tree_stats, bundle, b)
         quant = not h.is_floating_point()
+        # XLA fuses the dequantizing multiply into the right child's
+        # subtraction except in a one-level program, where the root's own
+        # value reads the same product and keeps it apart
+        fused = quant and depth > 1
         s = _split_search(hist, totals, edges, feature_mask, opts, lr, in_bin_order=quant,
-                          quant_totals=(tot, tree_stats[1]) if quant else None)
+                          quant_totals=(tot, tree_stats[1]) if fused else None)
 
         can_split = alive & torch.isfinite(s.gain) & (s.gain > opts.min_gain_to_split)
         # A node's value if it ends here is what its parent's split gave it
@@ -1124,23 +1140,95 @@ def _goss_weights(grad: torch.Tensor, bag: Optional[torch.Tensor], opts: TrainOp
     return w if bag is None else bag * w
 
 
+#: Objectives whose leaves take the weighted percentile of their residuals
+#: (native RenewTreeOutput): l1 the median, quantile its ``alpha``.
+RENEWED_OBJECTIVES = ("regression_l1", "quantile")
+#: Block width of XLA's CPU prefix sum (its reduce-window rewrite).
+_SCAN_BLOCK = 16
+
+
+def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """float32 inclusive prefix sum of a 1-D tensor in XLA's CPU order: rows
+    of 16 summed in order, the rows' totals scanned the same way
+    recursively, and each row's exclusive prefix added to its sums. Only
+    float32 adds in a fixed order, so the bits are the same on the CPU and
+    the card (``torch.cumsum`` accumulates in float64 on the CPU and scans
+    in parallel on the card)."""
+    n = x.shape[0]
+    if n <= _SCAN_BLOCK:
+        return _row_scan(x[None, :])[0]
+    m = -(-n // _SCAN_BLOCK)
+    padded = torch.zeros(m * _SCAN_BLOCK, dtype=x.dtype, device=x.device)
+    padded[:n] = x
+    rows = _row_scan(padded.view(m, _SCAN_BLOCK))
+    tops = xla_cumsum(rows[:, -1].contiguous())
+    before = torch.cat([tops.new_zeros(1), tops[:-1]])
+    return (rows + before[:, None]).reshape(-1)[:n]
+
+
+def _row_scan(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums along each row, added left to right."""
+    cols = [x[:, 0]]
+    for j in range(1, x.shape[1]):
+        cols.append(cols[-1] + x[:, j])
+    return torch.stack(cols, dim=1)
+
+
+def renew_leaves(leaf_val: torch.Tensor, row_leaf: torch.Tensor, resid: torch.Tensor,
+                 w_eff: torch.Tensor, pct: float, lr: float) -> torch.Tensor:
+    """(M,) leaf values renewed to the ``w_eff``-weighted ``pct``-percentile
+    of each leaf's residuals ``y - margin``, times ``lr`` (the reference's
+    step, op for op): rows ordered by (leaf, residual) with two stable
+    sorts; one global float32 prefix sum of the sorted weights in XLA's
+    order (:func:`xla_cumsum`); within a leaf the first row whose inclusive
+    weight reaches ``pct`` of the leaf's total ``tw`` gives the value, and
+    the leaf's last row always does. Leaves without weight keep their
+    value. ``tw`` is a scatter-add of the sorted weights: in row order on
+    the CPU, as the reference's; in the order of the card's atomics there,
+    which can move a threshold by an ulp only where weights are not
+    integers."""
+    n, m_slots = resid.shape[0], leaf_val.shape[0]
+    leaf = row_leaf.long()
+    perm1 = torch.sort(resid, stable=True).indices
+    order = perm1[torch.sort(leaf[perm1], stable=True).indices]
+    r_s, l_s, w_s = resid[order], leaf[order], w_eff[order]
+    cum_all = xla_cumsum(w_s)
+    tw = torch.zeros(m_slots, dtype=w_s.dtype, device=w_s.device).index_add_(0, l_s, w_s)
+    before = cum_all - w_s  # exclusive global prefix
+    start = torch.full_like(tw, float("inf")).scatter_reduce_(0, l_s, before, "amin")
+    in_leaf_cum = cum_all - start[l_s]  # inclusive prefix within the leaf
+    hit = in_leaf_cum >= torch.clamp(pct * tw[l_s], min=1e-12)
+    last_in_leaf = torch.ones_like(hit)
+    last_in_leaf[:-1] = l_s[1:] != l_s[:-1]
+    rows = torch.arange(n, device=resid.device)
+    pos = torch.where(hit | last_in_leaf, rows, n)
+    first = torch.full((m_slots,), n, dtype=torch.int64, device=resid.device).scatter_reduce_(
+        0, l_s, pos, "amin")
+    vals = r_s[first.clamp(0, n - 1)] * lr
+    return torch.where((tw > 0) & (first < n), vals, leaf_val)
+
+
 def _stack_trees(trees: List[TreeArrays]) -> TreeArrays:
     """An iteration's per-column trees as one (C, M) TreeArrays."""
     return TreeArrays(*(torch.stack(field) for field in zip(*trees)))
 
 
-def _make_step(opts: TrainOptions, num_bins: int, stats: FitStats, u=None, u_spec=None,
-               quant: bool = False, bundle=None, cat_u=None):
+def _make_step(opts: TrainOptions, objective: Objective, num_bins: int, stats: FitStats, u=None,
+               u_spec=None, quant: bool = False, bundle=None, cat_u=None):
     """One boosting iteration: gradients (N, C) (bagged-out rows zeroed,
     GOSS weights applied), one tree per margin column in column order, the
-    margin update (none under rf, whose trees all fit the init score)."""
-    objective = get_objective(opts.objective)
+    percentile leaf renewal of l1 and quantile, the margin update (none
+    under rf, whose trees all fit the init score)."""
     # depthwise routing gathers a categorical split's set, as the reference's
     build = (functools.partial(_build_tree_leafwise, cat_u=cat_u) if opts.growth == "leafwise"
              else _build_tree_depthwise)
+    obj_kwargs = dict(alpha=opts.alpha, tweedie_variance_power=opts.tweedie_variance_power)
+    renew_pct = None
+    if objective.name in RENEWED_OBJECTIVES:
+        renew_pct = opts.alpha if objective.name == "quantile" else 0.5
 
     def step(bins_t, y, w, margins, edges, bag, feature_mask, it, lr):
-        grad, hess = objective.grad_hess(margins, y, w)  # (N, C)
+        grad, hess = objective.grad_hess(margins, y, w, **obj_kwargs)  # (N, C)
         n = y.shape[0]
         if opts.boosting_type == "goss":
             bag = _goss_weights(grad, bag, opts, it)
@@ -1160,6 +1248,14 @@ def _make_step(opts: TrainOptions, num_bins: int, stats: FitStats, u=None, u_spe
             ))
             stats.trees += 1
         tree = _stack_trees(trees)
+        if renew_pct is not None:
+            t_r = time.perf_counter()
+            w_eff = w if bag is None else w * bag
+            renewed = renew_leaves(tree.leaf_val[0], tree.row_leaf[0], y - margins[:, 0], w_eff,
+                                   renew_pct, lr)
+            tree = tree._replace(leaf_val=renewed[None, :])
+            _sync(y.device)
+            stats.renewal_seconds += time.perf_counter() - t_r
         if opts.boosting_type == "rf":
             return tree, margins
         return tree, margins + tree.leaf_val.gather(1, tree.row_leaf.long()).t()
@@ -1261,10 +1357,12 @@ def _dropped_contrib(trees: List[TreeArrays], dropped: List[int], bins_v, steps:
 
 def _margin_to_score(margins: np.ndarray, metric: str, objective: str) -> np.ndarray:
     """What the metric consumes: every margin column for the multiclass
-    metrics, else column 0 (binary and l2 have one; auc is
-    rank-invariant)."""
+    metrics, the response scale for l2, rmse and l1 of poisson and tweedie,
+    else margin column 0 (auc is rank-invariant)."""
     if metric in ("multi_logloss", "multi_error"):
         return margins
+    if objective in ("poisson", "tweedie") and metric in ("l2", "rmse", "l1"):
+        return np.exp(margins[:, 0])
     return margins[:, 0]
 
 
@@ -1353,8 +1451,15 @@ def train(
     feature_names: Optional[List[str]] = None,
     callbacks: Optional[Sequence] = None,
     device: DeviceLike = None,
+    objective: Optional[Objective] = None,
 ) -> TrainResult:
     """Run boosting on ``device`` (CUDA unless ``device='cpu'``).
+
+    ``objective`` is a per-fit :class:`~.objectives.Objective` (lambdarank,
+    from :func:`~.ranker.make_lambdarank_objective`, whose gradients close
+    over the fit's query groups); without it ``opts.objective`` names one
+    of ``objectives.OBJECTIVES``. l1 and quantile fits renew each tree's
+    leaves to the percentile of their residuals (:func:`renew_leaves`).
 
     ``valid_sets`` entries are (name, bins_v, y_v, w_v), binned by the
     fit's mapper (packed under bundling). Each iteration routes them
@@ -1383,7 +1488,7 @@ def train(
     booster averages them); goss refuses bagging and needs ``top_rate +
     other_rate <= 1``; dart refuses early stopping, and draws its dropped
     trees once per iteration, so that an out-of-memory retry reuses them."""
-    check_supported(opts)
+    check_supported(opts, objective)
     if opts.boosting_type == "rf":
         if not (opts.bagging_fraction < 1.0 and opts.bagging_freq > 0):
             raise ValueError("boosting_type='rf' requires bagging "
@@ -1407,7 +1512,10 @@ def train(
                          f"objective (got {opts.objective!r})")
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    objective = get_objective(opts.objective)
+    if objective is None:
+        objective = get_objective(opts.objective)
+    else:
+        opts = dataclasses.replace(opts, objective=objective.name)
     num_classes = objective.num_outputs_fn(opts.num_class)
     n, f = bins.shape
     num_bins = opts.max_bin + 1  # + missing bin
@@ -1483,7 +1591,7 @@ def train(
             stats.histogram_path = "u_chunked" if u_spec.chunk_rows else "u"
             stats.u_chunks = uh.num_u_chunks(n, u_spec)
         cat_u = _cat_u_rows(u, u_spec, bundle, opts.categorical_slots)
-        return _make_step(opts, num_bins, stats, u=u, u_spec=u_spec, quant=quant,
+        return _make_step(opts, objective, num_bins, stats, u=u, u_spec=u_spec, quant=quant,
                           bundle=bundle, cat_u=cat_u)
 
     def degrade(err, it, retries) -> bool:

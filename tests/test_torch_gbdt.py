@@ -268,8 +268,8 @@ def test_entry_points_refuse_the_cpu_unless_asked():
 
 
 @pytest.mark.parametrize(
-    "option", [dict(objective="regression_l1"), dict(tree_learner="voting_parallel"),
-               dict(objective="huber"), dict(tree_learner="feature_parallel")],
+    "option", [dict(objective="lambdarank"), dict(tree_learner="voting_parallel"),
+               dict(objective="cross_entropy"), dict(tree_learner="feature_parallel")],
 )
 def test_unported_options_raise(option):
     with pytest.raises((NotImplementedError, ValueError)):
@@ -279,5 +279,5 @@ def test_unported_options_raise(option):
 def test_unported_estimator_params_raise():
     X, logit = _higgs_like(100, 4)
     with pytest.raises(NotImplementedError):
-        LightGBMClassifier(device="cpu", maxBinByFeature=[15, 15, 15, 15]).fit(
+        LightGBMClassifier(device="cpu", numBatches=2).fit(
             Table({"features": X, "label": (logit > 0).astype(float)}))
