@@ -153,9 +153,33 @@ non-zero and prints no result):
    1e-5 and equals the CPU port's within 1e-9 on 1,000 rows; leaves equal
    the CPU port's), and a linear-tree booster (random leaf models on the
    HIGGS trees, 5% NaN inputs) equal to the CPU port; rows/s of each.
-22. One JSON line with every kernel (the grouped wide-level launches
-   among them), then the card line, then the result line. Each phase
-   prints its wall time; TF32 matmuls must be off.
+22. Sparse input: phase 10's 10,000,000 airline rows one-hot (phase 11's
+   674 columns) as a SparseRows features column, built from the codes (the
+   dense matrix never exists), through LightGBMClassifier.fit with
+   featureBundling: CSR build, mapper, bundle plan, apply-and-pack,
+   upload and boosting seconds, peak host RSS and device bytes, held-out
+   AUC on 500,000 sparse rows beside phase 10's categorical fit, predict
+   rows/s on them and SHAP rows/s on 10,000 CSR rows (SHAP adds up to the
+   margin within 1e-5); histogram.cu at k = 1 and 8 on the packed columns
+   and the fit's iteration-0 stats, bit-equal to the plain version, timed
+   with its bound. Then phase 11's 1,000,000 rows fitted sparse and dense:
+   the same model text.
+23. Out of core: 44,000,000 HIGGS-width rows (float32) written by
+   ShardedDataset.write_shards as 22 .npz shards of 2,000,000 rows with CRC
+   sidecars into the git-ignored smoke_data/ (fewer rows when the disk
+   lacks room; the line says so; removed at the end), then
+   fit_gbdt_sharded on the card: write, scan, mapper, streamed binning,
+   upload and boosting seconds, host RSS growth over the ingest (below a
+   quarter of the float64 matrix), peak device bytes, held-out AUC above
+   0.75 on 500,000 rows; histogram.cu on the memmap's bins and iteration-0
+   stats as in phase 22. Then a copy of the first 4 shards with shard 1
+   truncated: a permissive fit quarantines it to the dead-letter store and
+   writes the model text of a fit over the 3 clean shards; a failfast fit
+   raises.
+24. One JSON line with every kernel (the grouped wide-level launches and
+   phases 22 and 23's cases among them), then the card line, then the
+   result line. Each phase prints its wall time; TF32 matmuls must be
+   off.
 """
 
 import json
@@ -164,6 +188,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zipfile
 
 import numpy as np
 
@@ -249,51 +274,8 @@ def phase_kernel(torch, hh, rates):
         node = torch.randint(0, k + 1, (n,), device=dev, generator=gen, dtype=torch.int32)
         if k == 1:
             node.zero_()  # the root pass keys every row to node 0
-        args = (bins_t, grad, hess, count, node)
-        out = entry(*args, k, b)
-        again = entry(*args, k, b)
-        torch.cuda.synchronize()
-        plain = hh.build_histograms_plain(*args, k, b)
-        max_err = float((out - plain).abs().max())
-        if not torch.equal(out, plain):
-            raise AssertionError(f"k={k}: kernel differs from the plain version "
-                                 f"(max abs err {max_err})")
-        del plain
-        if not torch.equal(out, again):
-            raise AssertionError(f"k={k}: two launches on the same input differ")
-        ref = hh.build_histograms_plain(bins_t, grad.double(), hess.double(), count.double(),
-                                        node, k, b)
-        absref = hh.build_histograms_plain(bins_t, grad.double().abs(), hess.double(),
-                                           count.double(), node, k, b)
-        counts_equal = torch.equal(out[..., 2].double(), ref[..., 2])
-        err = (out[..., :2].double() - ref[..., :2]).abs()
-        tol = 1e-5 * absref[..., :2] + 1e-6
-        within = bool((err <= tol).all())
-        max_err_f64 = float((out.double() - ref).abs().max())
-        del ref, absref, err, tol
-        if not (counts_equal and within):
-            raise AssertionError(f"k={k}: kernel disagrees with the float64 sums "
-                                 f"(counts equal {counts_equal}, max abs err {max_err_f64})")
-        ms = _time_ms(torch, lambda: entry(*args, k, b), 20)
-        plain_ms = _time_ms(torch, lambda: hh.build_histograms_plain(*args, k, b), 3)
-        # library yardstick: the one index_add_ call inside the plain version
-        keep = node < k
-        rows = keep.nonzero().squeeze(1)
-        ids = ((node[rows].long()[None, :] * f + torch.arange(f, device=dev)[:, None]) * b
-               + bins_t[:, rows].long()).reshape(-1)
-        data = torch.stack([grad[rows], hess[rows], count[rows]], 1).repeat(f, 1)
-        acc = torch.zeros(k * f * b, 3, device=dev)
-        library_ms = _time_ms(torch, lambda: acc.index_add_(0, ids, data), 3)
-        n_in = int(rows.numel())
-        del ids, data, acc, rows, keep
-        bw, flops = rates
-        byte_ms = hh.bytes_needed(n, f, n_in, k, b) / bw * 1e3
-        op_ms = hh.adds_needed(f, n_in) / flops * 1e3
-        rec = dict(
-            k=k, rows_in_range=n_in, max_abs_err=max_err, max_abs_err_f64=max_err_f64,
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=max(byte_ms, op_ms), bound_by="bytes" if byte_ms >= op_ms else "operations",
-        )
+        rec = _hist_record(torch, hh, rates, entry, bins_t, grad, hess, count, node, k, b,
+                           f"k={k}", f64_check=True)
         print(f"kernel k={k}: " + json.dumps(rec), flush=True)
         records[k] = rec
         nodes[k] = node
@@ -320,6 +302,60 @@ def phase_kernel(torch, hh, rates):
     del bins_t, grad, hess, count, nodes
     torch.cuda.empty_cache()
     return records
+
+
+def _hist_record(torch, hh, rates, entry, bins_t, grad, hess, count, node, k, b, label,
+                 f64_check=False):
+    """One entry of histogram.cu against its plain version: bit-equal, two
+    launches bit-identical (and with ``f64_check`` counts equal to a float64
+    sum, g and h within 1e-5 * sum|x| + 1e-6 of it); the times of the kernel
+    (20 launches), the plain version and one index_add_ call, and the bound
+    of the pass on these inputs."""
+    dev = bins_t.device
+    f, n = bins_t.shape
+    args = (bins_t, grad, hess, count, node)
+    out = entry(*args, k, b)
+    again = entry(*args, k, b)
+    torch.cuda.synchronize()
+    plain = hh.build_histograms_plain(*args, k, b)
+    max_err = float((out - plain).abs().max())
+    if not torch.equal(out, plain):
+        raise AssertionError(f"{label}: kernel differs from the plain version "
+                             f"(max abs err {max_err})")
+    del plain
+    if not torch.equal(out, again):
+        raise AssertionError(f"{label}: two launches on the same input differ")
+    rec = dict(k=k, rows=n, columns=f, num_bins=b)
+    if f64_check:
+        ref = hh.build_histograms_plain(bins_t, grad.double(), hess.double(), count.double(),
+                                        node, k, b)
+        absref = hh.build_histograms_plain(bins_t, grad.double().abs(), hess.double(),
+                                           count.double(), node, k, b)
+        counts_equal = torch.equal(out[..., 2].double(), ref[..., 2])
+        err = (out[..., :2].double() - ref[..., :2]).abs()
+        within = bool((err <= 1e-5 * absref[..., :2] + 1e-6).all())
+        rec["max_abs_err_f64"] = float((out.double() - ref).abs().max())
+        del ref, absref, err
+        if not (counts_equal and within):
+            raise AssertionError(f"{label}: kernel disagrees with the float64 sums (counts "
+                                 f"equal {counts_equal}, max abs err {rec['max_abs_err_f64']})")
+    del out, again
+    ms = _time_ms(torch, lambda: entry(*args, k, b), 20)
+    plain_ms = _time_ms(torch, lambda: hh.build_histograms_plain(*args, k, b), 3)
+    # library yardstick: the one index_add_ call inside the plain version
+    rows = (node < k).nonzero().squeeze(1)
+    ids = ((node[rows].long()[None, :] * f + torch.arange(f, device=dev)[:, None]) * b
+           + bins_t[:, rows].long()).reshape(-1)
+    data = torch.stack([grad[rows], hess[rows], count[rows]], 1).repeat(f, 1)
+    acc = torch.zeros(k * f * b, 3, device=dev)
+    library_ms = _time_ms(torch, lambda: acc.index_add_(0, ids, data), 3)
+    n_in = int(rows.numel())
+    del ids, data, acc, rows
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = _bound(hh.bytes_needed(n, f, n_in, k, b), hh.adds_needed(f, n_in), rates)
+    rec.update(rows_in_range=n_in, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return rec
 
 
 def _wide_level_case(torch, hh, rates, bins_t, grad, hess, count, k, b, gen):
@@ -2224,6 +2260,423 @@ def phase_explain(torch, Table, LightGBMClassificationModel, Booster, boosters):
     return recs
 
 
+# -- phases 22-23: sparse (CSR) input and out-of-core sharded ingest -------------
+
+N_SHAP_SPARSE = 10_000
+N_OOC = 44_000_000  # four times HIGGS's 11,000,000 rows
+OOC_SHARD_ROWS = 2_000_000
+OOC_CORRUPT_SHARDS = 4  # the copy the read modes run on; its shard 1 is truncated
+OOC_BYTES_PER_ROW = N_FEATURES * 4 + 8 + N_FEATURES  # npz float32 X, float64 y; uint8 bins
+DATA_DIR = os.path.join(ROOT, "smoke_data")  # git-ignored; removed when phase 23 ends
+
+
+_RSS_POLL = """
+import select, sys
+path = "/proc/%s/status" % sys.argv[1]
+
+def rss():
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+
+peak = rss()
+print(peak, flush=True)
+while True:
+    asked = select.select([sys.stdin], [], [], 0.01)[0]
+    peak = max(peak, rss())
+    if asked:
+        print(peak, flush=True)
+        if not sys.stdin.readline():
+            break
+"""
+
+
+class _RssPeak:
+    """This process's resident memory over a window, read from
+    /proc/<pid>/status every 10 ms by a child process, so no thread of this
+    one competes with the timed work: ``base`` at the start, ``now()`` the
+    peak so far, ``peak`` the peak when the window closed."""
+
+    def __enter__(self):
+        import subprocess
+
+        self._proc = subprocess.Popen([sys.executable, "-c", _RSS_POLL, str(os.getpid())],
+                                      stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        self.base = int(self._proc.stdout.readline())
+        return self
+
+    def now(self):
+        self._proc.stdin.write("\n")
+        self._proc.stdin.flush()
+        return int(self._proc.stdout.readline())
+
+    def __exit__(self, *exc):
+        self._proc.stdin.close()
+        self.peak = int(self._proc.stdout.readline())
+        self._proc.wait(timeout=10)
+
+
+def _airline_sparse(SparseRows, X):
+    """Phase 11's one-hot airline columns (672 one-hot, DepTime, Distance)
+    as a SparseRows column built straight from the codes: the dense matrix
+    never exists, and a zero DepTime is an implicit entry, as a zero cell
+    of the dense matrix is."""
+    n = X.shape[0]
+    width = sum(c for _, c in AIR_CATEGORICAL) + 2
+    idx = np.empty((n, len(AIR_CATEGORICAL) + 2), np.int32)
+    val = np.ones(idx.shape, np.float32)
+    off = 0
+    for j, (_, card) in enumerate(AIR_CATEGORICAL):
+        idx[:, j] = off + X[:, j].astype(np.int32) - 1
+        off += card
+    idx[:, -2:] = (off, off + 1)
+    val[:, -2:] = X[:, -2:]
+    keep = val != 0
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(keep.sum(axis=1), out=indptr[1:])
+    return SparseRows(idx[keep], val[keep], indptr, width)
+
+
+def _timed_calls(module, names, seconds):
+    """Wrap ``module``'s functions ``names`` so that each call adds its wall
+    seconds to ``seconds[name]``; returns the originals to restore."""
+    saved = {name: getattr(module, name) for name in names}
+    for name, fn in saved.items():
+        def timed(*a, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                seconds[_name] = seconds.get(_name, 0.0) + time.perf_counter() - t0
+        setattr(module, name, timed)
+    return saved
+
+
+def _path_kernels(torch, hh, rates, label, bins_t, g, h, num_bins):
+    """histogram.cu's two entries on one fit's bins and iteration-0 stats:
+    the combined entry at k = 1 (the root pass) and the node-panel entry at
+    k = 8, each bit-equal to its plain version, timed, with its bound."""
+    dev = bins_t.device
+    n = bins_t.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(KERNEL_CHECK_NODES)
+    count = torch.ones(n, device=dev)
+    recs = {}
+    for k, entry in ((1, hh.build_histograms_combined_cuda), (8, hh.build_histograms_cuda)):
+        node = (torch.zeros(n, dtype=torch.int32, device=dev) if k == 1 else
+                torch.randint(0, k + 1, (n,), device=dev, generator=gen, dtype=torch.int32))
+        rec = _hist_record(torch, hh, rates, entry, bins_t, g.contiguous(), h.contiguous(),
+                           count, node, k, num_bins, f"{label} k={k}")
+        rec["case"] = label
+        print(f"kernel on {label} k={k}: " + json.dumps(rec), flush=True)
+        recs[k] = rec
+        del node
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_sparse_airline(torch, uh, hh, rates, base, binning, objectives, train, Table,
+                         LightGBMClassifier, SparseRows, CSRMatrix, auc, categorical_auc):
+    """Phase 10's 10,000,000 airline rows one-hot (phase 11's 674 columns)
+    as a sparse features column through LightGBMClassifier.fit with
+    featureBundling: the host parts timed apart, peak host RSS and device
+    bytes, held-out AUC on 500,000 sparse rows against phase 10's
+    categorical fit, predict and SHAP rows/s on CSR rows; histogram.cu on
+    the packed columns and iteration-0 stats; then on phase 11's 1,000,000
+    rows the sparse fit's model text against the dense fit's."""
+    X, y = _airline_data(N_AIR + N_TEST, seed=7)  # phase 10's rows
+    t0 = time.perf_counter()
+    col = _airline_sparse(SparseRows, X[:N_AIR])
+    csr_build_s = time.perf_counter() - t0
+    test_col = _airline_sparse(SparseRows, X[N_AIR:])
+    ytr, yte = y[:N_AIR], y[N_AIR:]
+    del X
+    params = dict(numIterations=FIT_ITERS, numLeaves=31, maxBin=NUM_BINS - 1, leafBatch=8,
+                  learningRate=0.1, featureBundling=True, device="cuda")
+    seconds = {}
+    binned = []
+    bin_dataset = base.bin_dataset
+
+    def keep_bins(*a, **kw):
+        out = bin_dataset(*a, **kw)
+        binned.append(out)
+        return out
+
+    saved = _timed_calls(binning, ("fit_bin_mapper_csr", "_apply_bins_csr_raw",
+                                   "fit_bundles_inplace", "apply_bins_csr"), seconds)
+    base.bin_dataset = keep_bins
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(uh, hh)
+    try:
+        with _RssPeak() as rss:
+            t0 = time.perf_counter()
+            model = LightGBMClassifier(**params).fit(Table({"features": col, "label": ytr}))
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+    finally:
+        base.bin_dataset = bin_dataset
+        for name, fn in saved.items():
+            setattr(binning, name, fn)
+    counts = _counts(uh, hh)
+    _need(counts, ("hist_panel", "hist_combined"), "sparse airline fit")
+    peak = torch.cuda.max_memory_allocated()
+    st = model.fit_stats
+    bins, mapper = binned[0]
+    spec = mapper.bundles
+    if spec is None or spec.num_columns >= col.dim:
+        raise AssertionError("the sparse one-hot columns did not bundle")
+    t1 = time.perf_counter()
+    prob = model.transform(Table({"features": test_col}))["probability"]
+    predict_s = time.perf_counter() - t1
+    if prob.shape != (N_TEST, 2) or not np.isfinite(prob).all():
+        raise AssertionError(f"sparse airline: bad probability column {prob.shape}")
+    held_out = auc(yte, prob[:, 1], np.ones(N_TEST))
+    if not held_out > 0.6:
+        raise AssertionError(f"sparse airline: held-out AUC {held_out}")
+    booster = model.booster
+    csr = CSRMatrix(test_col.values, test_col.indices, test_col.indptr,
+                    (N_TEST, test_col.dim)).row_slice(0, N_SHAP_SPARSE)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    shap = booster.features_shap(csr, device="cuda")
+    shap_s = time.perf_counter() - t1
+    add_err = float(np.abs(shap.sum(-1) - booster.raw_margin(csr, device="cuda")).max())
+    if shap.shape != (N_SHAP_SPARSE, 1, col.dim + 1) or not add_err <= 1e-5:
+        raise AssertionError(f"sparse airline SHAP: shape {shap.shape}, additivity {add_err}")
+    rec = dict(rows=N_AIR, features=col.dim, nnz=col.nnz, csr_bytes=col.indices.nbytes
+               + col.values.nbytes + col.indptr.nbytes, columns=spec.num_columns,
+               k_before=int(sum(int(w) for w in mapper.num_bins)), k_after=spec.k_packed,
+               conflicts=spec.conflict_count, csr_build_s=csr_build_s,
+               mapper_s=seconds["fit_bin_mapper_csr"],
+               plan_sample_bins_s=seconds["_apply_bins_csr_raw"],
+               bundle_plan_s=seconds["fit_bundles_inplace"],
+               apply_and_pack_s=seconds["apply_bins_csr"], binning_s=st.binning_seconds,
+               upload_s=st.upload_seconds, boosting_s=st.boost_seconds, fit_s=fit_s,
+               trees=st.trees, passes=st.passes, host_rss_base=rss.base,
+               host_rss_peak=rss.peak, host_rss_growth=rss.peak - rss.base,
+               peak_device_bytes=peak, held_out_auc=held_out,
+               categorical_fit_auc=categorical_auc, predict_rows_per_s=N_TEST / predict_s,
+               shap_rows_per_s=N_SHAP_SPARSE / shap_s, shap_additivity_err=add_err,
+               launches=counts)
+    print("sparse airline fit: " + json.dumps(rec), flush=True)
+    del col, test_col, prob, model
+    dev = torch.device("cuda")
+    bins_t = train.upload_bins(bins, dev)
+    g, h = _iteration0(torch, objectives.get_objective("binary"), ytr, None, dev)
+    rec["kernels"] = _path_kernels(torch, hh, rates, "sparse airline packed columns", bins_t,
+                                   g, h, spec.num_bins)
+    del bins_t, g, h, bins, binned
+
+    # the sparse fit writes the dense fit's model text (phase 11's rows)
+    Xa, ya = _airline_data(N_EFB + N_TEST, seed=8)
+    texts = {}
+    for name, feats in (("sparse", _airline_sparse(SparseRows, Xa[:N_EFB])),
+                        ("dense", _one_hot_airline(Xa[:N_EFB]))):
+        t0 = time.perf_counter()
+        m = LightGBMClassifier(**params).fit(Table({"features": feats, "label": ya[:N_EFB]}))
+        texts[name] = (m.get_model_string(), time.perf_counter() - t0, m.fit_stats.binning_seconds)
+        del feats, m
+    if texts["sparse"][0] != texts["dense"][0]:
+        raise AssertionError("the sparse fit's model text differs from the dense fit's")
+    rec["check_1m"] = dict(rows=N_EFB, text_equal=True, sparse_fit_s=texts["sparse"][1],
+                           sparse_binning_s=texts["sparse"][2], dense_fit_s=texts["dense"][1],
+                           dense_binning_s=texts["dense"][2])
+    print("sparse airline 1M: " + json.dumps(rec["check_1m"]), flush=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+class _HiggsShardRows:
+    """bench.py's HIGGS generator by row range, for
+    ShardedDataset.write_shards: ``X[lo:hi]`` and ``y[lo:hi]`` make rows lo
+    to hi from a seed of their own (float32 features, float64 labels), so
+    the matrix is never in memory whole."""
+
+    def __init__(self, n, seed):
+        self.n, self.seed, self._last = n, seed, None
+        self.X, self.y = self._Part(self, 0), self._Part(self, 1)
+
+    def rows(self, lo, hi):
+        if self._last is None or self._last[0] != (lo, hi):
+            X, y = _make_data(hi - lo, N_FEATURES, seed=(self.seed, lo))
+            self._last = ((lo, hi), X.astype(np.float32), y)
+        return self._last[1:]
+
+    class _Part:
+        def __init__(self, owner, i):
+            self.owner, self.i = owner, i
+
+        def __len__(self):
+            return self.owner.n
+
+        def __getitem__(self, sl):
+            return self.owner.rows(sl.start, sl.stop)[self.i]
+
+
+def _ooc_fit(torch, fit_gbdt_sharded, LightGBMClassifier, ds, bins_path):
+    est = LightGBMClassifier(numIterations=FIT_ITERS, numLeaves=31, maxBin=NUM_BINS - 1,
+                             leafBatch=8, learningRate=0.1, device="cuda")
+    return fit_gbdt_sharded(est, ds, bins_path=bins_path)
+
+
+def phase_out_of_core(torch, uh, hh, rates, objectives, train, sharded, PartitionLostError,
+                      Table, LightGBMClassifier, auc):
+    """HIGGS width out of core: 44,000,000 rows written as 22 .npz shards of
+    2,000,000 rows (CRC sidecars), then fit_gbdt_sharded on the card: the
+    scan, mapper, streamed binning, upload and boosting timed apart, host
+    RSS growth over the ingest (below a quarter of the float64 matrix),
+    peak device bytes, held-out AUC on 500,000 rows; histogram.cu on the
+    memmap's bins and iteration-0 stats. Then a copy of the first 4 shards
+    with shard 1 truncated: permissive quarantines it to the dead-letter
+    store and writes the model text of a fit over the 3 clean shards;
+    failfast raises."""
+    import shutil
+
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    os.makedirs(DATA_DIR)
+    try:
+        free = shutil.disk_usage(DATA_DIR).free
+        copy_bytes = OOC_CORRUPT_SHARDS * OOC_SHARD_ROWS * OOC_BYTES_PER_ROW
+        fits = (free - copy_bytes - (2 << 30)) // OOC_BYTES_PER_ROW // OOC_SHARD_ROWS
+        rows = min(N_OOC, max(OOC_CORRUPT_SHARDS, fits) * OOC_SHARD_ROWS)
+        print(f"out of core: {free} bytes free, {rows} rows"
+              + (f" (cut from {N_OOC} for disk space)" if rows < N_OOC else ""), flush=True)
+        return _out_of_core(torch, uh, hh, rates, objectives, train, sharded,
+                            PartitionLostError, Table, LightGBMClassifier, auc, rows)
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+
+
+def _out_of_core(torch, uh, hh, rates, objectives, train, sharded, PartitionLostError, Table,
+                 LightGBMClassifier, auc, rows):
+    import shutil
+
+    gen = _HiggsShardRows(rows, seed=44)
+    t0 = time.perf_counter()
+    paths = sharded.ShardedDataset.write_shards(os.path.join(DATA_DIR, "shards"), gen.X, gen.y,
+                                                rows_per_shard=OOC_SHARD_ROWS).paths
+    write_s = time.perf_counter() - t0
+    del gen
+    disk = sum(os.path.getsize(p) for p in paths)
+    Xte, yte = _make_data(N_TEST, N_FEATURES, seed=(44, rows))
+    Xte = Xte.astype(np.float32)
+    ds = sharded.ShardedDataset(paths)
+    seconds, ingest = {}, {}
+    with _RssPeak() as rss:
+        t0 = time.perf_counter()
+        ds.num_rows
+        seconds["scan"] = time.perf_counter() - t0
+        for name in ("fit_mapper", "bin_to_memmap"):
+            fn = getattr(ds, name)
+
+            def timed(*a, _fn=fn, _name=name, **kw):
+                t1 = time.perf_counter()
+                out = _fn(*a, **kw)
+                seconds[_name] = time.perf_counter() - t1
+                if _name == "bin_to_memmap":
+                    ingest["peak"] = rss.now()
+                    ingest["y"] = out[1]
+                return out
+            setattr(ds, name, timed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(uh, hh)
+        t0 = time.perf_counter()
+        model = _ooc_fit(torch, sharded.fit_gbdt_sharded, LightGBMClassifier, ds,
+                         os.path.join(DATA_DIR, "bins.u8"))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    counts = _counts(uh, hh)
+    _need(counts, ("hist_panel", "hist_combined"), "out-of-core fit")
+    peak = torch.cuda.max_memory_allocated()
+    st = model.fit_stats
+    float64_bytes = rows * N_FEATURES * 8
+    growth = ingest["peak"] - rss.base
+    if not growth < float64_bytes / 4:
+        raise AssertionError(f"out of core: host RSS grew {growth} bytes over the ingest, not "
+                             f"below a quarter of the {float64_bytes}-byte float64 matrix")
+    t1 = time.perf_counter()
+    prob = model.transform(Table({"features": Xte}))["probability"]
+    predict_s = time.perf_counter() - t1
+    held_out = auc(yte, prob[:, 1], np.ones(N_TEST))
+    if not held_out > 0.75:
+        raise AssertionError(f"out of core: held-out AUC {held_out}")
+    rec = dict(rows=rows, shards=len(paths), shard_bytes_on_disk=disk,
+               float64_matrix_bytes=float64_bytes, bins_bytes=rows * N_FEATURES,
+               write_s=write_s, scan_s=seconds["scan"], mapper_s=seconds["fit_mapper"],
+               bin_s=seconds["bin_to_memmap"], upload_s=st.upload_seconds,
+               boosting_s=st.boost_seconds, fit_s=fit_s, trees=st.trees, passes=st.passes,
+               host_rss_base=rss.base, host_rss_growth_ingest=growth,
+               host_rss_growth_fit=rss.peak - rss.base, peak_device_bytes=peak,
+               held_out_auc=held_out, predict_rows_per_s=N_TEST / predict_s, launches=counts)
+    print("out-of-core fit: " + json.dumps(rec), flush=True)
+    del model, prob
+    dev = torch.device("cuda")
+    bins = np.memmap(os.path.join(DATA_DIR, "bins.u8"), dtype=np.uint8, mode="r",
+                     shape=(rows, N_FEATURES))
+    # upload_bins reads a memmap through its file; the same bins as a plain
+    # view of the map take the block loop, which maps the file's pages in
+    upload, got = {}, {}
+    for name, src in (("read_through", bins), ("mapped_blocks", np.asarray(bins))):
+        torch.cuda.synchronize()
+        with _RssPeak() as rss_up:
+            t1 = time.perf_counter()
+            got[name] = train.upload_bins(src, dev)
+            torch.cuda.synchronize()
+            upload[name + "_s"] = time.perf_counter() - t1
+        upload[name + "_rss_growth"] = rss_up.peak - rss_up.base
+    bins_t = got.pop("read_through")
+    if not torch.equal(bins_t, got.pop("mapped_blocks")):
+        raise AssertionError("out of core: the two uploads of the memmap differ")
+    rec["upload"] = upload
+    print("out-of-core upload: " + json.dumps(upload), flush=True)
+    g, h = _iteration0(torch, objectives.get_objective("binary"), ingest.pop("y"), None, dev)
+    rec["kernels"] = _path_kernels(torch, hh, rates, "out-of-core memmap bins", bins_t, g, h,
+                                   NUM_BINS)
+    del bins_t, g, h, bins
+
+    # the read modes on a copy of the first 4 shards, shard 1 truncated
+    copy_dir = os.path.join(DATA_DIR, "corrupt")
+    os.makedirs(copy_dir)
+    copies = []
+    for p in paths[:OOC_CORRUPT_SHARDS]:
+        q = os.path.join(copy_dir, os.path.basename(p))
+        shutil.copy(p, q)
+        shutil.copy(p + ".crc32", q + ".crc32")
+        copies.append(q)
+    with open(copies[1], "r+b") as fh:
+        fh.truncate(os.path.getsize(copies[1]) // 2)
+    dlq = os.path.join(DATA_DIR, "dead_letters")
+    permissive = sharded.ShardedDataset(copies, mode="permissive", bad_records_path=dlq)
+    text = _ooc_fit(torch, sharded.fit_gbdt_sharded, LightGBMClassifier, permissive,
+                    os.path.join(DATA_DIR, "permissive.u8")).get_model_string()
+    clean = [q for i, q in enumerate(copies) if i != 1]
+    want = _ooc_fit(torch, sharded.fit_gbdt_sharded, LightGBMClassifier,
+                    sharded.ShardedDataset(clean),
+                    os.path.join(DATA_DIR, "clean.u8")).get_model_string()
+    with open(os.path.join(dlq, "manifest", "000000.json")) as fh:
+        manifest = json.load(fh)
+    if [r.source for r in permissive.quarantined] != [copies[1]] or manifest["count"] != 1:
+        raise AssertionError(f"permissive: quarantined {permissive.quarantined}, {manifest}")
+    if text != want:
+        raise AssertionError("permissive: the fit over the corrupted shards differs from the "
+                             "fit over the clean ones")
+    try:
+        _ooc_fit(torch, sharded.fit_gbdt_sharded, LightGBMClassifier,
+                 sharded.ShardedDataset(copies), os.path.join(DATA_DIR, "failfast.u8"))
+    except (PartitionLostError, zipfile.BadZipFile) as err:  # a torn zip, or a CRC mismatch
+        failfast = f"{type(err).__name__}: {err}"
+    else:
+        raise AssertionError("failfast: the fit over a truncated shard did not raise")
+    rec["read_modes"] = dict(shards=len(copies), permissive_quarantined=[
+        r.to_record() for r in permissive.quarantined], dead_letter_manifest=manifest,
+        permissive_text_equals_clean=True, failfast=failfast)
+    print("out-of-core read modes: " + json.dumps(rec["read_modes"]), flush=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     import torch
 
@@ -2234,6 +2687,8 @@ def main():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from mmlspark_tpu_torch.data import sharded
+    from mmlspark_tpu_torch.data.sparse import CSRMatrix, SparseRows
     from mmlspark_tpu_torch.data.table import Table
     from mmlspark_tpu_torch.kernels import sass_atomics
     from mmlspark_tpu_torch.kernels.build import histogram_extension
@@ -2255,6 +2710,7 @@ def main():
     from mmlspark_tpu_torch.ops import histogram
     from mmlspark_tpu_torch.ops import hopper_histogram as hh
     from mmlspark_tpu_torch.ops import u_histogram as uh
+    from mmlspark_tpu_torch.runtime.lineage import PartitionLostError
 
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
@@ -2294,8 +2750,8 @@ def main():
     u_fit_chunked, _ = timed("u_fit_11m", phase_u_fit, torch, uh, hh, binning, train, auc, N_FIT)
     if u_fit["histogram_path"] != "u" or u_fit_chunked["histogram_path"] != "u_chunked":
         raise AssertionError("the U fits did not take the resident and chunked passes")
-    timed("categorical", phase_categorical, torch, uh, hh, binning, train, Table,
-          LightGBMClassifier, auc)
+    categorical = timed("categorical", phase_categorical, torch, uh, hh, binning, train, Table,
+                        LightGBMClassifier, auc)
     timed("bundling", phase_bundling, torch, uh, hh, binning, bundling, train, auc)
     timed("oom", phase_oom, torch, uh, hh, binning, train, u_text)
     _, es_model, X_es, y_es = timed("early_stopping", phase_early_stopping, torch, uh, hh,
@@ -2318,6 +2774,11 @@ def main():
     timed("explain", phase_explain, torch, Table, LightGBMClassificationModel, Booster,
           explain_boosters)
     del explain_boosters
+    sparse_fit = timed("sparse_airline", phase_sparse_airline, torch, uh, hh, rates, base, binning,
+                       objectives, train, Table, LightGBMClassifier, SparseRows, CSRMatrix, auc,
+                       categorical["categorical"]["held_out_auc"])
+    ooc_fit = timed("out_of_core", phase_out_of_core, torch, uh, hh, rates, objectives, train,
+                    sharded, PartitionLostError, Table, LightGBMClassifier, auc)
 
     if entry_launches == 0:
         raise AssertionError("build_histograms_bin_scatter did not launch bin_scatter")
@@ -2337,6 +2798,17 @@ def main():
          types["depthwise_8"]["level_launches"][6], kernel[64]),
         ("hist_panel_k128_grouped", "histogram.cu", "mmlspark_tpu/ops/pallas_histogram.py:86",
          types["depthwise_8"]["level_launches"][7], kernel[128]),
+        # the sparse one-hot airline fit's packed columns, the out-of-core
+        # fit's memmap bins; each on its fit's iteration-0 stats
+        ("hist_panel_sparse_airline", "histogram.cu", "mmlspark_tpu/ops/pallas_histogram.py:86",
+         sparse_fit["launches"]["hist_panel"], sparse_fit["kernels"][8]),
+        ("hist_combined_sparse_airline", "histogram.cu",
+         "mmlspark_tpu/ops/pallas_histogram.py:177", sparse_fit["launches"]["hist_combined"],
+         sparse_fit["kernels"][1]),
+        ("hist_panel_out_of_core", "histogram.cu", "mmlspark_tpu/ops/pallas_histogram.py:86",
+         ooc_fit["launches"]["hist_panel"], ooc_fit["kernels"][8]),
+        ("hist_combined_out_of_core", "histogram.cu", "mmlspark_tpu/ops/pallas_histogram.py:177",
+         ooc_fit["launches"]["hist_combined"], ooc_fit["kernels"][1]),
     ):
         if launches == 0:
             raise AssertionError(f"{name} was not launched on its path")

@@ -1,13 +1,44 @@
 """Columnar, immutable Table — the port's minimal copy of
-``mmlspark_tpu/data/table.py``: named numpy columns of equal length (1-D, or
-2-D fixed-width "vector" columns). Sparse and ragged columns are not ported.
+``mmlspark_tpu/data/table.py``: named columns of equal length, each a 1-D
+numpy array, a 2-D fixed-width "vector" column, an object column (of per-row
+``(indices, values)`` sparse tuples, say) or a
+:class:`~mmlspark_tpu_torch.data.sparse.SparseRows` column, which row
+selection and :meth:`Table.concat` keep sparse.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
+
+from mmlspark_tpu_torch.data.sparse import SparseRows
+
+
+def _as_column(values):
+    """A numpy array (or :class:`SparseRows`) of ``values``; a list of
+    equal-length sequences becomes a 2-D column, ragged ones an object
+    column of their rows."""
+    if isinstance(values, (np.ndarray, SparseRows)):
+        return values
+    if hasattr(values, "__array__"):
+        return np.asarray(values)
+    values = list(values)
+    if values and isinstance(values[0], str):
+        return np.array(values, dtype=object)
+    if values and isinstance(values[0], (list, tuple, np.ndarray)):
+        if len({len(v) for v in values}) == 1:
+            try:
+                arr = np.asarray(values)
+            except ValueError:  # rows of ragged parts, as (indices, values) tuples
+                arr = None
+            if arr is not None and arr.dtype != object:
+                return arr
+        out = np.empty(len(values), dtype=object)
+        for i, v in enumerate(values):
+            out[i] = v
+        return out
+    return np.asarray(values)
 
 
 class Table:
@@ -19,7 +50,7 @@ class Table:
         cols: Dict[str, np.ndarray] = {}
         n = None
         for name, values in columns.items():
-            arr = np.asarray(values)
+            arr = _as_column(values)
             if n is None:
                 n = len(arr)
             elif len(arr) != n:
@@ -51,7 +82,7 @@ class Table:
         return self._columns[name]
 
     def with_column(self, name: str, values) -> "Table":
-        arr = np.asarray(values)
+        arr = _as_column(values)
         if self._columns and len(arr) != self._num_rows:
             raise ValueError(
                 f"column {name!r} has length {len(arr)}, expected {self._num_rows}"
@@ -74,6 +105,32 @@ class Table:
             n = len(col)
             order = (n - 1 - np.argsort(col[::-1], kind="stable"))[::-1]
         return Table({k: v[order] for k, v in self._columns.items()})
+
+    @staticmethod
+    def concat(tables: Sequence["Table"]) -> "Table":
+        """The rows of ``tables`` one after another; sparse columns stay
+        :class:`SparseRows` where every part is one."""
+        tables = [t for t in tables if t.num_rows > 0] or list(tables[:1])
+        if not tables:
+            return Table({})
+        cols = {}
+        for name in tables[0].columns:
+            parts = [t.column(name) for t in tables]
+            if all(isinstance(p, SparseRows) for p in parts):
+                cols[name] = SparseRows.concat(parts)
+                continue
+            parts = [p.to_object_column() if isinstance(p, SparseRows) else p for p in parts]
+            if any(p.dtype == object for p in parts):
+                merged = np.empty(sum(len(p) for p in parts), dtype=object)
+                i = 0
+                for p in parts:
+                    for row in p:  # element-wise: each row keeps its payload
+                        merged[i] = row
+                        i += 1
+                cols[name] = merged
+            else:
+                cols[name] = np.concatenate(parts)
+        return Table(cols)
 
     def __repr__(self) -> str:
         parts = ", ".join(

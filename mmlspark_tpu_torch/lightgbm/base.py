@@ -33,6 +33,7 @@ from mmlspark_tpu_torch.core.params import (
     to_str,
 )
 from mmlspark_tpu_torch.core.pipeline import Estimator, Model
+from mmlspark_tpu_torch.data.sparse import csr_column_to_matrix, is_sparse_column
 from mmlspark_tpu_torch.data.table import Table
 from mmlspark_tpu_torch.lightgbm.binning import bin_dataset
 from mmlspark_tpu_torch.lightgbm.booster import Booster
@@ -179,10 +180,18 @@ class LightGBMParams(HasFeaturesCol, HasLabelCol, HasPredictionCol, HasWeightCol
         return TrainOptions(**kwargs)
 
 
-def extract_features(table: Table, features_col: str) -> np.ndarray:
-    """Dense (N, F) float64 features of ``table``."""
+def extract_features(table: Table, features_col: str, num_features: int = 0):
+    """Dense (N, F) float64 features of ``table``, or a
+    :class:`~mmlspark_tpu_torch.data.sparse.CSRMatrix` when the column holds
+    sparse rows (``SparseRows``, or per-row (indices, values) tuples: the
+    ``LGBM_DatasetCreateFromCSRSpark`` ingest). ``num_features`` pins the
+    sparse width: pass the trained width at predict and validation time,
+    so a batch whose highest explicit index is smaller keeps it; an index
+    past it raises."""
     feats = table.column(features_col)
     if feats.dtype == object:
+        if is_sparse_column(feats):
+            return csr_column_to_matrix(feats, num_features=num_features)
         feats = np.stack([np.asarray(row, dtype=np.float64) for row in feats])
     return np.asarray(feats, dtype=np.float64)
 
@@ -197,9 +206,10 @@ class LightGBMBase(LightGBMParams, Estimator):
     def _adjust_weights(self, y: np.ndarray, w):
         return w
 
-    def _prepare(self, table: Table):
-        """Features, labels, weights and init scores of ``table``."""
-        X = extract_features(table, self.getFeaturesCol())
+    def _prepare(self, table: Table, num_features: int = 0):
+        """Features (sparse ones at ``num_features``, when given), labels,
+        weights and init scores of ``table``."""
+        X = extract_features(table, self.getFeaturesCol(), num_features)
         y = np.asarray(table.column(self.getLabelCol()), dtype=np.float64)
         w = init = None
         if self.isSet("weightCol"):
@@ -231,7 +241,9 @@ class LightGBMBase(LightGBMParams, Estimator):
             valid_table, table = table.filter(ind), table.filter(~ind)
         warm = self.getModelString()
         prev = Booster.from_string(warm) if warm else None
-        X, y, w, init = self._prepare(table)
+        # warm start: sparse rows at the previous booster's width, so its
+        # trees never read past the batch's explicit columns
+        X, y, w, init = self._prepare(table, num_features=prev.num_features if prev else 0)
         w = self._adjust_weights(y, w)
         opts = self._make_options(self._num_classes(y))
         num_features = X.shape[1]
@@ -249,7 +261,7 @@ class LightGBMBase(LightGBMParams, Estimator):
         binning_seconds = time.perf_counter() - t0
         valid_sets = []
         if valid_table is not None and valid_table.num_rows > 0:
-            Xv, yv, wv, _ = self._prepare(valid_table)
+            Xv, yv, wv, _ = self._prepare(valid_table, num_features=num_features)
             bv, _ = bin_dataset(Xv, mapper=mapper)
             valid_sets.append(("valid_0", bv, yv, wv))
         init_margins = None
@@ -310,9 +322,10 @@ class LightGBMModelBase(HasFeaturesCol, HasPredictionCol, Model):
     def get_model_string(self) -> str:
         return self.booster.model_to_string()
 
-    def _with_leaf_col(self, table: Table, X: np.ndarray, booster: Booster) -> Table:
+    def _with_leaf_col(self, table: Table, X, booster: Booster) -> Table:
         """``table`` with the leaf slots per tree (``leafPredictionCol``) and
-        the SHAP values (``featuresShapCol``) of ``X`` where those are set;
+        the SHAP values (``featuresShapCol``) of ``X`` (dense or CSR) where
+        those are set;
         SHAP in LightGBM's contrib layout (N, C*(F+1)): per class, the
         feature contributions then the bias."""
         if self.getLeafPredictionCol():

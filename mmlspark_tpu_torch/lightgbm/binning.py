@@ -1,13 +1,15 @@
 """Quantile feature binning — the ``max_bin`` dataset-construction stage.
 
-Host numpy, dense input only; the port's copy of the dense path of
-``mmlspark_tpu/lightgbm/binning.py`` and byte-identical to it: the same
-seeded row sample, the same quantile edges snapped to the float32 grid, and
-the same float32 ``searchsorted`` bin assignment. Bin 0 is the NaN/missing
-bin. Categorical features bin by value identity (:func:`cat_to_bins`), and
-a mapper that carries a fitted :class:`~.bundling.BundleSpec` bins to the
-packed (N, C) columns of Exclusive Feature Bundling. Sparse input is not
-ported yet.
+Host numpy; the port's copy of ``mmlspark_tpu/lightgbm/binning.py`` and
+byte-identical to it: the same seeded row sample, the same quantile edges
+snapped to the float32 grid, and the same float32 ``searchsorted`` bin
+assignment. Bin 0 is the NaN/missing bin. Categorical features bin by value
+identity (:func:`cat_to_bins`), and a mapper that carries a fitted
+:class:`~.bundling.BundleSpec` bins to the packed (N, C) columns of
+Exclusive Feature Bundling. Sparse (CSR) input bins without densifying
+(:func:`fit_bin_mapper_csr`, :func:`apply_bins_csr`) to the bins of its
+dense matrix. The reference's partitioned binning on the runtime scheduler
+(``bin_dataset_partitioned``, ``numExecutors``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from mmlspark_tpu_torch.data.sparse import CSRMatrix
 from mmlspark_tpu_torch.lightgbm.bundling import BundleSpec, fit_feature_bundles, pack_bundles
 
 MISSING_BIN = 0
@@ -103,8 +106,13 @@ def fit_bin_mapper(
         e = _edges_from_counts(u, counts, mb, np.linspace(0, 1, mb))
         edges[j, : len(e)] = e
         num_bins[j] = len(e) + 2  # +1 missing bin, +1 overflow bin above last edge
-    # Snap edges to the float32 grid: prediction compares float32 values
-    # with float32 thresholds, so binning must use the same grid.
+    return _snapped_mapper(edges, num_bins, max_bin, cat_values)
+
+
+def _snapped_mapper(edges, num_bins, max_bin: int, cat_values: dict) -> BinMapper:
+    """The mapper with its edges snapped to the float32 grid: prediction
+    compares float32 values with float32 thresholds, so binning must use
+    the same grid."""
     finite = np.isfinite(edges)
     edges[finite] = edges[finite].astype(np.float32).astype(np.float64)
     return BinMapper(edges=edges, num_bins=num_bins, max_bin=max_bin,
@@ -205,12 +213,8 @@ def fit_bundles_inplace(
     original-space bins and attach the spec to the mapper. It stays None
     when no bundle gains a second member, and then every consumer is
     bit-identical to an unbundled fit."""
-    n = raw_bins.shape[0]
-    if n > sample_cnt:
-        rng = np.random.default_rng(seed)
-        sample = raw_bins[rng.choice(n, size=sample_cnt, replace=False)]
-    else:
-        sample = raw_bins
+    rows = _bundle_sample_rows(raw_bins.shape[0], sample_cnt, seed)
+    sample = raw_bins if rows is None else raw_bins[rows]
     spec = fit_feature_bundles(
         sample,
         mapper.num_bins,
@@ -221,16 +225,38 @@ def fit_bundles_inplace(
     return spec
 
 
+def _bundle_sample_rows(n: int, sample_cnt: int, seed: int = 0) -> Optional[np.ndarray]:
+    """The rows the bundle plan is fitted on (None: all of them)."""
+    if n <= sample_cnt:
+        return None
+    return np.random.default_rng(seed).choice(n, size=sample_cnt, replace=False)
+
+
 def bin_dataset(
     X, max_bin: int = 255, mapper: Optional[BinMapper] = None,
     categorical_features=None, sample_cnt: int = 200_000, max_bin_by_feature=None,
     feature_bundling: bool = False, max_conflict_rate: float = 0.0,
 ) -> Tuple[np.ndarray, BinMapper]:
-    """Fit a mapper (unless given) and bin ``X``; returns ((N, F) uint8, or
-    (N, C) packed columns under bundling, and the mapper). Bundles are
-    fitted only with a fresh mapper and ``feature_bundling``."""
-    X = np.asarray(X, dtype=np.float64)
+    """Fit a mapper (unless given) and bin ``X``, dense or a
+    :class:`CSRMatrix`; returns ((N, F) uint8, or (N, C) packed columns
+    under bundling, and the mapper). Bundles are fitted only with a fresh
+    mapper and ``feature_bundling``. CSR input gives the bins of its dense
+    matrix; it takes no ``max_bin_by_feature``."""
     fresh = mapper is None
+    if isinstance(X, CSRMatrix):
+        if max_bin_by_feature:
+            raise ValueError("maxBinByFeature is not supported on sparse (CSR) input")
+        if fresh:
+            mapper = fit_bin_mapper_csr(X, max_bin=max_bin, sample_cnt=sample_cnt,
+                                        categorical_features=categorical_features)
+            if feature_bundling:
+                # the plan's sample rows binned alone: binning is row-pure
+                rows = _bundle_sample_rows(X.num_rows, sample_cnt)
+                sample = X if rows is None else X.take_rows(rows)
+                fit_bundles_inplace(mapper, _apply_bins_csr_raw(sample, mapper),
+                                    max_conflict_rate=max_conflict_rate, sample_cnt=sample_cnt)
+        return apply_bins_csr(X, mapper), mapper
+    X = np.asarray(X, dtype=np.float64)
     if fresh:
         mapper = fit_bin_mapper(X, max_bin=max_bin, sample_cnt=sample_cnt,
                                 categorical_features=categorical_features,
@@ -242,3 +268,148 @@ def bin_dataset(
     if mapper.bundles is not None:
         return pack_bundles(raw, mapper.bundles), mapper
     return raw, mapper
+
+
+# -- sparse (CSR) input ---------------------------------------------------------
+#
+# The reference's LGBM_DatasetCreateFromCSRSpark analogue. Implicit entries
+# are 0.0 and the dense float matrix never exists: the quantiles fold the
+# implicit zero mass in, and each column's cells start at its zero's bin
+# before its explicit entries scatter in.
+
+
+def fit_bin_mapper_csr(csr: CSRMatrix, max_bin: int = 255, sample_cnt: int = 200_000,
+                       seed: int = 0, categorical_features=None) -> BinMapper:
+    """Per-feature quantile edges from CSR without densifying; the mapper of
+    :func:`fit_bin_mapper` on the dense matrix, bit for bit (the same row
+    sample, the same quantile arithmetic with the implicit zeros counted;
+    a categorical feature counts them toward category 0.0)."""
+    n, f = csr.shape
+    if n > sample_cnt:
+        rng = np.random.default_rng(seed)
+        rows = np.sort(rng.choice(n, size=sample_cnt, replace=False))
+        sample = csr.take_rows(rows)
+        n_sample = sample_cnt
+    else:
+        sample = csr
+        n_sample = n
+    cols = sample.indices.astype(np.uint16) if f <= 1 << 16 else sample.indices
+    order = np.argsort(cols, kind="stable")
+    cols_s, vals_s = sample.indices[order], sample.data[order]
+    col_starts = np.searchsorted(cols_s, np.arange(f + 1))
+
+    cat_set = set(int(c) for c in (categorical_features or []))
+    edges = np.full((f, max_bin - 1), np.inf, dtype=np.float64)
+    num_bins = np.zeros(f, dtype=np.int32)
+    cat_values: dict = {}
+    qs = np.linspace(0, 1, max_bin)
+    for j in range(f):
+        explicit = vals_s[col_starts[j]: col_starts[j + 1]]
+        n_zero = n_sample - len(explicit)  # implicit entries are 0.0
+        explicit = explicit[~np.isnan(explicit)]
+        if len(explicit) + n_zero == 0:
+            num_bins[j] = 1
+            continue
+        # the implicit zeros folded into the (value, count) multiset
+        u, counts = np.unique(explicit, return_counts=True)
+        pos = np.searchsorted(u, 0.0)
+        if pos < len(u) and u[pos] == 0.0:
+            counts = counts.copy()
+            counts[pos] += n_zero
+        elif n_zero > 0:
+            u = np.insert(u, pos, 0.0)
+            counts = np.insert(counts, pos, n_zero)
+        if j in cat_set:
+            cat_values[j] = _cat_values_from_counts(u, counts, max_bin)
+            num_bins[j] = len(cat_values[j]) + 1
+            continue
+        e = _edges_from_counts(u, counts, max_bin, qs)
+        edges[j, : len(e)] = e
+        num_bins[j] = len(e) + 2
+    return _snapped_mapper(edges, num_bins, max_bin, cat_values)
+
+
+def apply_bins_csr(csr: CSRMatrix, mapper: BinMapper) -> np.ndarray:
+    """CSR -> row-major (N, F) uint8 bins, or the packed (N, C) columns when
+    the mapper bundles: :func:`apply_bins` of the dense matrix, bit for
+    bit. Bundled columns are packed straight from the entries, so the
+    (N, F) original-space bins never exist."""
+    return np.ascontiguousarray(_csr_columns(csr, mapper, mapper.bundles).T)
+
+
+def _apply_bins_csr_raw(csr: CSRMatrix, mapper: BinMapper) -> np.ndarray:
+    """Original-feature-space (N, F) bins of a CSR matrix."""
+    return np.ascontiguousarray(_csr_columns(csr, mapper, None).T)
+
+
+def _csr_columns(csr: CSRMatrix, mapper: BinMapper, spec: Optional[BundleSpec]) -> np.ndarray:
+    """(C, N) bins of a CSR matrix, one row a column: the original features
+    (``spec`` None) or the packed columns of ``spec``. A feature's column
+    starts at the bin of 0.0 and its explicit entries scatter in (the
+    later of two entries in one cell wins, as in the reference's scatter).
+    A packed column starts at 0 ("all default") and each member, in
+    packing order, writes the cells where it is not at its default bin,
+    as :func:`~.bundling.pack_bundles` does on the dense bins. Packed
+    columns are filled on a small thread pool, one column a task."""
+    n, f = csr.shape
+    edges32 = mapper.edges.astype(np.float32)
+    cat_values = mapper.cat_values or {}
+    zero = np.array([1 + np.searchsorted(edges32[j], np.float32(0.0), side="left")
+                     for j in range(f)]).clip(0, mapper.max_bin).astype(np.uint8)
+    for j, vals in cat_values.items():
+        zero[j] = np.uint8(cat_to_bins(np.array([0.0]), vals)[0])  # category 0.0, or missing
+    col_indptr, row_ids, values = csr.to_csc()
+    # two entries in one cell: the rows of a column ascend, so they are neighbours
+    same = row_ids[1:] == row_ids[:-1]
+    bounds = col_indptr[1:-1]
+    same[bounds[(bounds > 0) & (bounds < len(row_ids))] - 1] = False
+    duplicates = bool(same.any())
+    del same
+
+    def explicit(j: int):
+        lo, hi = col_indptr[j], col_indptr[j + 1]
+        if j in cat_values:
+            return row_ids[lo:hi], cat_to_bins(values[lo:hi], cat_values[j]).astype(np.uint8)
+        v = values[lo:hi].astype(np.float32)
+        b = 1 + np.searchsorted(edges32[j], v, side="left")
+        b = np.where(np.isnan(v), MISSING_BIN, b)
+        return row_ids[lo:hi], np.clip(b, 0, mapper.max_bin).astype(np.uint8)
+
+    def feature_column(j: int, out_row: np.ndarray) -> None:
+        out_row[:] = zero[j]
+        rows, b = explicit(j)
+        out_row[rows] = b
+
+    if spec is None:
+        out = np.empty((f, n), dtype=np.uint8)
+
+        def fill(c: int) -> None:
+            feature_column(c, out[c])
+        num_columns = f
+    else:
+        out = np.zeros((spec.num_columns, n), dtype=np.uint8)
+
+        def fill(c: int) -> None:
+            mem = spec.members[c]
+            if len(mem) == 1 and spec.identity[mem[0]]:
+                feature_column(mem[0], out[c])
+                return
+            for j in mem:
+                d, lo = spec.default_of[j], spec.lo_of[j]
+                if duplicates or zero[j] != d:
+                    col = np.empty(n, dtype=np.uint8)
+                    feature_column(j, col)
+                    rows = np.flatnonzero(col != d)
+                    v = col[rows].astype(np.int64)
+                else:  # only explicit entries can leave the default bin
+                    rows, b = explicit(j)
+                    keep = b != d
+                    rows, v = rows[keep], b[keep].astype(np.int64)
+                out[c, rows] = (lo + v - (v > d)).astype(np.uint8)
+        num_columns = spec.num_columns
+
+    workers = max(1, min(num_columns, os.cpu_count() or 1, 8))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        for done in [pool.submit(fill, c) for c in range(num_columns)]:
+            done.result()
+    return out

@@ -20,7 +20,9 @@ left iff its category's value bin is in the node's left set; unseen and NaN
 categories take bin 0, which no left set holds, so they go right.
 :meth:`Booster.predict_leaf` returns the routed slots, linear-tree models
 evaluate their leaf models on the host after routing, and
-:meth:`Booster.features_shap` runs TreeSHAP (``shap.py``).
+:meth:`Booster.features_shap` runs TreeSHAP (``shap.py``). Each takes dense
+rows or a :class:`~mmlspark_tpu_torch.data.sparse.CSRMatrix`, which is
+densified at the trained width in row chunks of at most 256 MB.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from mmlspark_tpu_torch.data.sparse import CSRMatrix
 from mmlspark_tpu_torch.device import DeviceLike, resolve_device
 
 #: LightGBM's kZeroThreshold: |x| <= this counts as zero (zero_as_missing).
@@ -131,9 +134,13 @@ class Booster:
     def raw_margin(self, X, num_iteration: Optional[int] = None,
                    device: DeviceLike = None) -> np.ndarray:
         """(N, C) raw margins (init_score + sum of tree outputs) of a dense
-        (N, F) batch, routed on ``device`` (CUDA unless ``device='cpu'``).
-        Linear-tree boosters evaluate their leaf models in float64 on the
-        host after routing (:meth:`_raw_margin_linear`)."""
+        (N, F) batch or a CSRMatrix, routed on ``device`` (CUDA unless
+        ``device='cpu'``). Linear-tree boosters evaluate their leaf models
+        in float64 on the host after routing (:meth:`_raw_margin_linear`)."""
+        chunks = self._csr_chunks(
+            X, np.float64 if self.has_categorical or self.has_linear else np.float32)
+        if chunks is not None:
+            return np.concatenate([self.raw_margin(c, num_iteration, device) for c in chunks])
         dev = resolve_device(device)
         X = np.asarray(X)
         n = X.shape[0]
@@ -158,6 +165,9 @@ class Booster:
                      device: DeviceLike = None) -> np.ndarray:
         """(N, T) int32 final leaf slot of every row in every used tree
         (``predictLeaf``), routed on ``device``."""
+        chunks = self._csr_chunks(X, np.float64 if self.has_categorical else np.float32)
+        if chunks is not None:
+            return np.concatenate([self.predict_leaf(c, num_iteration, device) for c in chunks])
         dev = resolve_device(device)
         X = np.asarray(X)
         t = self._used_trees(num_iteration)
@@ -208,7 +218,28 @@ class Booster:
             raise NotImplementedError(
                 "SHAP values are not implemented for linear-tree models (leaf outputs are "
                 "per-leaf linear functions, outside TreeSHAP's piecewise-constant contract)")
+        chunks = self._csr_chunks(X, np.float64)
+        if chunks is not None:
+            return np.concatenate([self.features_shap(c, num_iteration, device) for c in chunks])
         return tree_shap(self, np.asarray(X, dtype=np.float64), num_iteration, device=device)
+
+    def _csr_chunks(self, X, dtype, target_bytes: int = _PREDICT_CHUNK_BYTES):
+        """None for dense input; for a CSRMatrix, its rows densified at the
+        trained width in chunks of at most 65,536 rows and ``target_bytes``.
+        A narrower matrix is padded with implicit zeros; an explicit index
+        past the trained width raises. Categorical boosters densify in
+        float64: a float32 detour would round category ids above 2**24
+        before the value-identity match and route them as unseen."""
+        if not isinstance(X, CSRMatrix):
+            return None
+        width = self.num_features
+        if X.nnz and int(X.indices.max()) >= width:
+            raise ValueError(f"sparse feature index {int(X.indices.max())} out of range for "
+                             f"the booster's {width} trained features")
+        X = CSRMatrix(X.data, X.indices, X.indptr, (X.num_rows, width))
+        rows = min(65536, max(1, target_bytes // (np.dtype(dtype).itemsize * max(width, 1))))
+        return (X.row_slice(lo, min(lo + rows, X.num_rows)).to_dense(dtype)
+                for lo in range(0, max(X.num_rows, 1), rows))
 
     # -- serde ---------------------------------------------------------------
 

@@ -74,7 +74,7 @@ class LightGBMClassificationModel(LightGBMModelBase):
 
     def transform(self, table: Table) -> Table:
         booster = self.booster
-        X = extract_features(table, self.getFeaturesCol())
+        X = extract_features(table, self.getFeaturesCol(), booster.num_features)
         margins = booster.raw_margin(X, device=self.getDevice())  # (N, C)
         if booster.num_classes == 1:
             p1 = 1.0 / (1.0 + np.exp(-margins[:, 0]))

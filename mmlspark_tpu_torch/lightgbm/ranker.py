@@ -224,7 +224,7 @@ class LightGBMRanker(HasGroupCol, LightGBMBase):
 class LightGBMRankerModel(LightGBMModelBase):
     def transform(self, table: Table) -> Table:
         booster = self.booster
-        X = extract_features(table, self.getFeaturesCol())
+        X = extract_features(table, self.getFeaturesCol(), booster.num_features)
         margins = booster.raw_margin(X, device=self.getDevice())[:, 0]
         out = table.with_column(self.getPredictionCol(), margins.astype(np.float64))
         return self._with_leaf_col(out, X, booster)

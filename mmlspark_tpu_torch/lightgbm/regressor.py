@@ -55,7 +55,7 @@ class LightGBMRegressionModel(LightGBMModelBase):
 
     def transform(self, table: Table) -> Table:
         booster = self.booster
-        X = extract_features(table, self.getFeaturesCol())
+        X = extract_features(table, self.getFeaturesCol(), booster.num_features)
         margins = booster.raw_margin(X, device=self.getDevice())[:, 0]
         if self.getObjective() in ("poisson", "tweedie"):
             margins = np.exp(margins)

@@ -224,7 +224,8 @@ class FitStats:
     kernel launches. ``dart_drops[i]``: under dart, the earlier iterations
     dropped at iteration i. ``renewal_seconds``: the percentile leaf
     renewal of l1 and quantile fits (inside ``boost_seconds``), each
-    iteration's closed by a device sync.
+    iteration's closed by a device sync. ``upload_seconds``: the bins'
+    upload (inside ``boost_seconds``), closed by a device sync.
 
     ``per_iteration`` holds, for each iteration run, the host seconds of
     its bag and feature-mask draw, their upload, the boosting step, the
@@ -247,6 +248,7 @@ class FitStats:
     level_launches: List[int] = dataclasses.field(default_factory=list)
     dart_drops: List[List[int]] = dataclasses.field(default_factory=list)
     renewal_seconds: float = 0.0
+    upload_seconds: float = 0.0
 
 
 @dataclasses.dataclass
@@ -1440,6 +1442,49 @@ def _sync(dev: torch.device) -> None:
 ValidSet = Tuple[str, np.ndarray, np.ndarray, Optional[np.ndarray]]
 
 
+#: Host bytes of bins one upload block holds.
+UPLOAD_BLOCK_BYTES = 64 << 20
+
+
+def _file_rows(bins: np.ndarray) -> Optional[Tuple[str, int]]:
+    """(file, byte offset of row 0) of a C-contiguous uint8 memmap whose
+    rows lie in its file, a row slice of one too; None for an array in
+    memory or a copy-on-write map. The view's offset counts from the map's
+    own start, which sits at the file offset ``bins.offset``."""
+    if not (isinstance(bins, np.memmap) and bins.filename and bins.mode != "c"
+            and bins.dtype == np.uint8 and bins.flags.c_contiguous):
+        return None
+    root = bins
+    while isinstance(root.base, np.ndarray):
+        root = root.base
+    return bins.filename, bins.offset + (bins.ctypes.data - root.ctypes.data)
+
+
+def upload_bins(bins: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """(N, C) host bins as the (C, N) uint8 tensor on ``dev`` that the fit
+    keeps: feature-major, so the kernel's rows are contiguous per feature
+    and routing gathers whole rows of it. Copied in row blocks of at most
+    :data:`UPLOAD_BLOCK_BYTES`. A memmap's rows are read through its file
+    into one block buffer, so the file's pages are never mapped into the
+    process and its resident memory does not grow with N."""
+    n, c = bins.shape
+    out = torch.empty((c, n), dtype=torch.uint8, device=dev)
+    rows = max(1, UPLOAD_BLOCK_BYTES // max(c, 1))
+    buf = np.empty((min(rows, n), c), dtype=np.uint8)
+    span = _file_rows(bins)
+    with open(span[0], "rb") if span else contextlib.nullcontext() as fh:
+        if fh:
+            fh.seek(span[1])
+        for lo in range(0, n, rows):
+            block = buf[: min(rows, n - lo)]
+            if not fh:
+                block[...] = bins[lo: lo + len(block)]
+            elif fh.readinto(memoryview(block).cast("B")) != block.nbytes:
+                raise OSError(f"{span[0]}: short read at row {lo}")
+            out[:, lo: lo + len(block)] = torch.from_numpy(block).to(dev).t()
+    return out
+
+
 def train(
     bins: np.ndarray,  # (N, F) uint8, or (N, C) packed columns under bundling
     y: np.ndarray,
@@ -1552,10 +1597,10 @@ def train(
     else:
         edges = np.zeros((f_feat, 1))
     edges_dev = torch.as_tensor(edges.astype(np.float32), device=dev)
-    # Feature-major uint8 bins, laid out once per fit on the device: the
-    # kernel's rows are then contiguous per feature, and routing gathers
-    # whole rows of it.
-    bins_t = torch.as_tensor(np.asarray(bins, dtype=np.uint8), device=dev).t().contiguous()
+    t_bins = time.perf_counter()
+    bins_t = upload_bins(bins, dev)
+    _sync(dev)
+    upload_seconds = time.perf_counter() - t_bins
     y_dev = torch.as_tensor(y_np, device=dev)
     w_dev = torch.as_tensor(w_np, device=dev)
     if init_margins is None:
@@ -1566,6 +1611,7 @@ def train(
     fm_ones = torch.ones(f_feat, dtype=torch.float32, device=dev)
 
     stats = FitStats()
+    stats.upload_seconds = upload_seconds
     u_spec, quant = _histogram_path(opts, n, f, num_bins, mapper)
     stats.u_budget = uh.u_budget() if u_spec is not None else 0
     stats.quantized = quant
