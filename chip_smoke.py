@@ -74,9 +74,9 @@ non-zero and prints no result):
    on the packed columns and on widths 2 and 256, bit-equal to their plain
    versions.
 12. The U path's out-of-memory ladder on phase 9's 1,000,000-row resident
-   fit: the port's hook raises torch.cuda.OutOfMemoryError at the first
-   pass; the fit halves the U budget once, takes chunked passes and writes
-   phase 9's model text. Then a real one: a ballast allocation takes the
+   fit: FaultPlan.oom_task(0, kind="device") injects a device OOM at
+   iteration 0 (through runtime.inject_faults); the fit halves the U budget
+   once, takes chunked passes and writes phase 9's model text. Then a real one: a ballast allocation takes the
    card's free memory once U is built (the line says whether it raised).
 13. Validation sets, bagging and early stopping at full width:
    LightGBMClassifier.fit on 11,500,000 HIGGS-shaped rows, 500,000 of them
@@ -167,7 +167,7 @@ non-zero and prints no result):
 23. Out of core: 44,000,000 HIGGS-width rows (float32) written by
    ShardedDataset.write_shards as 22 .npz shards of 2,000,000 rows with CRC
    sidecars into the git-ignored smoke_data/ (fewer rows when the disk
-   lacks room; the line says so; removed at the end), then
+   lacks room; the line says so; removed when phase 24 ends), then
    fit_gbdt_sharded on the card: write, scan, mapper, streamed binning,
    upload and boosting seconds, host RSS growth over the ingest (below a
    quarter of the float64 matrix), peak device bytes, held-out AUC above
@@ -176,14 +176,29 @@ non-zero and prints no result):
    truncated: a permissive fit quarantines it to the dead-letter store and
    writes the model text of a fit over the 3 clean shards; a failfast fit
    raises.
-24. One JSON line with every kernel (the grouped wide-level launches and
-   phases 22 and 23's cases among them), then the card line, then the
+24. The partition runtime (mmlspark_tpu_torch.runtime) on phase 5's
+   11,000,000 rows: inline against numExecutors=8 binning (seconds of
+   each, equal bins); a fit binning under an ambient
+   runtime.policy(max_workers=8, result_integrity=True) with
+   kill_random_task(8), corrupt_result and a host oom_task, under a
+   checkpoint root in smoke_data/ (phase 5's model text, 3 retries, the
+   histogram.cu launches of the fit); its durable rerun (no journal line
+   added, restore seconds, ModelStore.latest holds the text); numBatches=4
+   (held-out AUC on phase 5's 500,000 rows, _ensemble_margin on the card
+   within 1e-5 of the merged booster's raw_margin). Then phase 23's shards
+   through the scheduler path of bin_to_memmap (8 executors, tasks of
+   250,000 rows): the sequential pass's bytes, bin seconds, host RSS growth
+   below the same limit; a memory-pressure WARN run on 4 shards halves each
+   shard's task; sample_hbm against torch.cuda.mem_get_info.
+25. One JSON line with every kernel (the grouped wide-level launches and
+   phases 22, 23 and 24's cases among them), then the card line, then the
    result line. Each phase prints its wall time; TF32 matmuls must be
    off.
 """
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -206,6 +221,9 @@ N_U = 1_000_000  # U pass rows: a 7.2 GB U at 28 x 256
 U_BUDGET_4_CHUNKS = 2 * 7168 * 262_144  # 1M rows in 4 chunks of 262,144
 PLAN_REPS = 5  # timed launches of each case in the launch-plan sweeps
 WIDE_LEVELS = (64, 128)  # depthwise levels 6 and 7: node-grouped histogram.cu launches
+# phase 5's estimator params, which phases 23 and 24 share
+HIGGS_PARAMS = dict(numIterations=FIT_ITERS, numLeaves=31, maxBin=NUM_BINS - 1, leafBatch=8,
+                    learningRate=0.1, device="cuda")
 
 # Card memory rate (bytes/s) and float32 peak outside the tensor cores
 # (ops/s), by name: NVIDIA's data sheets at the full power limit.
@@ -502,8 +520,8 @@ def phase_parity(torch, hh, histogram, binning, train):
 def phase_fit(torch, hh, histogram, base, Table, LightGBMClassifier, auc, rows):
     """The main path: fit and predict through the estimator on cuda, with
     CUDA events around every histogram launch. Returns the record and the
-    fit's bins, mapper and labels with the held-out rows (phase 17 fits on
-    them without binning again)."""
+    fit's rows, bins, mapper and labels with the held-out rows (phase 17
+    fits on them without binning again; phase 24 fits the rows again)."""
     X, y = _make_data(rows + N_TEST, N_FEATURES, seed=0)
     train_t = Table({"features": X[:rows], "label": y[:rows]})
     test_t = Table({"features": X[rows:], "label": y[rows:]})
@@ -532,8 +550,7 @@ def phase_fit(torch, hh, histogram, base, Table, LightGBMClassifier, auc, rows):
 
         wrapped[name] = fn
         setattr(histogram, name, timed)
-    est = LightGBMClassifier(numIterations=FIT_ITERS, numLeaves=31, maxBin=NUM_BINS - 1,
-                             leafBatch=8, learningRate=0.1, device="cuda")
+    est = LightGBMClassifier(**HIGGS_PARAMS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     hh.build_histograms_cuda.launches = 0
@@ -573,8 +590,8 @@ def phase_fit(torch, hh, histogram, base, Table, LightGBMClassifier, auc, rows):
     )
     print("fit: " + json.dumps(rec), flush=True)
     bins, mapper = binned[0]
-    return rec, dict(bins=bins, mapper=mapper, y=y[:rows].copy(), X_test=X[rows:].copy(),
-                     y_test=y[rows:].copy(), booster=model.booster)
+    return rec, dict(bins=bins, mapper=mapper, X=X[:rows], y=y[:rows], X_test=X[rows:],
+                     y_test=y[rows:], booster=model.booster)
 
 
 def _bound(bytes_, ops, rates):
@@ -1239,26 +1256,26 @@ def phase_bundling(torch, uh, hh, binning, bundling, train, auc):
     return recs
 
 
-def phase_oom(torch, uh, hh, binning, train, want_text):
+def phase_oom(torch, uh, hh, runtime, binning, train, want_text):
     """The out-of-memory ladder on phase 9's 1,000,000-row resident U fit:
-    the port's hook raises torch.cuda.OutOfMemoryError at the first pass;
-    the fit must halve the U budget once, take chunked passes and write the
-    undisturbed fit's model text. Then a real one: after U is built, a
-    ballast allocation takes the card's free memory."""
+    an injected device OOM (``FaultPlan.oom_task(0, kind="device")``) at
+    iteration 0; the fit must halve the U budget once, take chunked passes
+    and write the undisturbed fit's model text. Then a real one: after U is
+    built, a ballast allocation takes the card's free memory."""
     X, y = _make_data(N_U + N_TEST, N_FEATURES, seed=3)
     bins, mapper = binning.bin_dataset(X[:N_U], max_bin=NUM_BINS - 1)
     y = y[:N_U]
     opts = train.TrainOptions(objective="binary", num_iterations=FIT_ITERS, num_leaves=31,
                               learning_rate=0.1, max_bin=NUM_BINS - 1, leaf_batch=8,
                               histogram_method="u", use_quantized_grad=True)
-    fault = train.DeviceOomFault((0, 0))
+    fault = runtime.FaultPlan().oom_task(0, kind="device")
     _zero_counts(uh, hh)
-    with train.inject_device_oom(fault):
+    with runtime.inject_faults(fault):
         res = train.train(bins, y, opts, mapper=mapper, device="cuda")
     counts = _counts(uh, hh)
     _need(counts, ("bin_scatter",), "oom ladder (injected)")
     st = res.stats
-    if (fault.fired != [(0, 0)] or st.oom_retries != 1 or st.histogram_path != "u_chunked"
+    if (fault.fired != [("oom_device", 0, 0)] or st.oom_retries != 1 or st.histogram_path != "u_chunked"
             or st.u_budget != uh.u_budget() // 2):
         raise AssertionError(f"injected OOM: fired {fault.fired}, {st}")
     if res.booster.model_to_string() != want_text:
@@ -2267,7 +2284,7 @@ N_OOC = 44_000_000  # four times HIGGS's 11,000,000 rows
 OOC_SHARD_ROWS = 2_000_000
 OOC_CORRUPT_SHARDS = 4  # the copy the read modes run on; its shard 1 is truncated
 OOC_BYTES_PER_ROW = N_FEATURES * 4 + 8 + N_FEATURES  # npz float32 X, float64 y; uint8 bins
-DATA_DIR = os.path.join(ROOT, "smoke_data")  # git-ignored; removed when phase 23 ends
+DATA_DIR = os.path.join(ROOT, "smoke_data")  # git-ignored; removed when phase 24 ends
 
 
 _RSS_POLL = """
@@ -2515,8 +2532,7 @@ class _HiggsShardRows:
 
 
 def _ooc_fit(torch, fit_gbdt_sharded, LightGBMClassifier, ds, bins_path):
-    est = LightGBMClassifier(numIterations=FIT_ITERS, numLeaves=31, maxBin=NUM_BINS - 1,
-                             leafBatch=8, learningRate=0.1, device="cuda")
+    est = LightGBMClassifier(**HIGGS_PARAMS)
     return fit_gbdt_sharded(est, ds, bins_path=bins_path)
 
 
@@ -2530,28 +2546,23 @@ def phase_out_of_core(torch, uh, hh, rates, objectives, train, sharded, Partitio
     memmap's bins and iteration-0 stats. Then a copy of the first 4 shards
     with shard 1 truncated: permissive quarantines it to the dead-letter
     store and writes the model text of a fit over the 3 clean shards;
-    failfast raises."""
-    import shutil
-
+    failfast raises. Returns the record and what phase 24 reads again: the
+    shard paths, the fit's mapper and its memmap's path; the caller
+    removes DATA_DIR."""
     shutil.rmtree(DATA_DIR, ignore_errors=True)
     os.makedirs(DATA_DIR)
-    try:
-        free = shutil.disk_usage(DATA_DIR).free
-        copy_bytes = OOC_CORRUPT_SHARDS * OOC_SHARD_ROWS * OOC_BYTES_PER_ROW
-        fits = (free - copy_bytes - (2 << 30)) // OOC_BYTES_PER_ROW // OOC_SHARD_ROWS
-        rows = min(N_OOC, max(OOC_CORRUPT_SHARDS, fits) * OOC_SHARD_ROWS)
-        print(f"out of core: {free} bytes free, {rows} rows"
-              + (f" (cut from {N_OOC} for disk space)" if rows < N_OOC else ""), flush=True)
-        return _out_of_core(torch, uh, hh, rates, objectives, train, sharded,
-                            PartitionLostError, Table, LightGBMClassifier, auc, rows)
-    finally:
-        shutil.rmtree(DATA_DIR, ignore_errors=True)
+    free = shutil.disk_usage(DATA_DIR).free
+    copy_bytes = OOC_CORRUPT_SHARDS * OOC_SHARD_ROWS * OOC_BYTES_PER_ROW
+    fits = (free - copy_bytes - (2 << 30)) // OOC_BYTES_PER_ROW // OOC_SHARD_ROWS
+    rows = min(N_OOC, max(OOC_CORRUPT_SHARDS, fits) * OOC_SHARD_ROWS)
+    print(f"out of core: {free} bytes free, {rows} rows"
+          + (f" (cut from {N_OOC} for disk space)" if rows < N_OOC else ""), flush=True)
+    return _out_of_core(torch, uh, hh, rates, objectives, train, sharded,
+                        PartitionLostError, Table, LightGBMClassifier, auc, rows)
 
 
 def _out_of_core(torch, uh, hh, rates, objectives, train, sharded, PartitionLostError, Table,
                  LightGBMClassifier, auc, rows):
-    import shutil
-
     gen = _HiggsShardRows(rows, seed=44)
     t0 = time.perf_counter()
     paths = sharded.ShardedDataset.write_shards(os.path.join(DATA_DIR, "shards"), gen.X, gen.y,
@@ -2577,6 +2588,8 @@ def _out_of_core(torch, uh, hh, rates, objectives, train, sharded, PartitionLost
                 if _name == "bin_to_memmap":
                     ingest["peak"] = rss.now()
                     ingest["y"] = out[1]
+                else:
+                    ingest["mapper"] = out
                 return out
             setattr(ds, name, timed)
         torch.cuda.synchronize()
@@ -2673,7 +2686,226 @@ def _out_of_core(torch, uh, hh, rates, objectives, train, sharded, PartitionLost
         r.to_record() for r in permissive.quarantined], dead_letter_manifest=manifest,
         permissive_text_equals_clean=True, failfast=failfast)
     print("out-of-core read modes: " + json.dumps(rec["read_modes"]), flush=True)
+    # phase 24 reads the shards and the memmap again; the rest makes room
+    shutil.rmtree(copy_dir)
+    for name in ("permissive.u8", "clean.u8", "failfast.u8"):
+        if os.path.exists(os.path.join(DATA_DIR, name)):
+            os.remove(os.path.join(DATA_DIR, name))
     torch.cuda.empty_cache()
+    return rec, dict(rows=rows, paths=paths, mapper=ingest["mapper"],
+                     bins_path=os.path.join(DATA_DIR, "bins.u8"), bin_s=seconds["bin_to_memmap"])
+
+
+# -- phase 24: the partition runtime --------------------------------------------
+
+RT_WORKERS = 8  # numExecutors and the scheduled ingest's executors
+RT_FAULT_SEED = 24
+# Scheduled ingest: 8 tasks of 250,000 rows hold about 8 x 250,000 x 28 x
+# (4 + 8 + 1) bytes of float32 reads, float64 rows and bins at once
+# (0.73 GB), below the 2.46 GB limit with phase 23's 0.35 GB of labels.
+RT_ROWS_PER_TASK = 250_000
+RT_WARN_SHARDS = 4  # the memory-pressure run: 4 shards, whole-shard tasks halved
+RT_WARN_WORKERS = 2
+RT_BATCHES = 4
+
+
+def _journal_lines(root):
+    lines = []
+    for d in sorted(os.listdir(root)):
+        with open(os.path.join(root, d, "journal.jsonl")) as fh:
+            lines += fh.read().splitlines()
+    return lines
+
+
+def phase_runtime(torch, uh, hh, runtime, binning, base, sharded, Table, LightGBMClassifier,
+                  auc, higgs, phase5_auc, ooc):
+    """The partition runtime on phase 5's 11,000,000 rows and phase 23's
+    shards: inline against numExecutors=8 binning (seconds, equal bins); a
+    fit binning under an ambient runtime.policy(max_workers=8,
+    result_integrity=True) with kill_random_task(8), corrupt_result and a
+    host oom_task, under a checkpoint root (phase 5's model text, the
+    retries counted, histogram.cu launches); its durable rerun (no journal
+    line added, restore seconds, ModelStore.latest); numBatches=4 (held-out
+    AUC, _ensemble_margin against the merged booster's raw_margin); the
+    44,000,000-row ingest through the scheduler path (the sequential
+    pass's bytes, bin seconds, host RSS growth) and a memory-pressure WARN
+    run (task count doubled); sample_hbm against torch.cuda.mem_get_info."""
+    import filecmp
+
+    X, y = higgs["X"], higgs["y"]
+    train_t = Table({"features": X, "label": y})
+    want_text = higgs["booster"].model_to_string()
+    name = "lightgbmclassificationmodel"
+    rec = {}
+
+    # inline against numExecutors=8 binning
+    est = LightGBMClassifier(numExecutors=RT_WORKERS, **HIGGS_PARAMS)
+    opts = est._make_options()
+    t0 = time.perf_counter()
+    b_inline, _ = binning.bin_dataset(X, max_bin=opts.max_bin)
+    inline_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b_part, _ = est._bin_dataset(X, opts, set())
+    part_s = time.perf_counter() - t0
+    if b_inline.tobytes() != b_part.tobytes():
+        raise AssertionError("runtime: partitioned bins differ from the inline bins")
+    rec["binning"] = dict(rows=len(y), inline_s=inline_s, partitioned_s=part_s,
+                          executors=RT_WORKERS, tasks=est._runtime_metrics.summary()["tasks_done"],
+                          bins_equal=True)
+    print("runtime binning: " + json.dumps(rec["binning"]), flush=True)
+    del b_inline, b_part
+
+    ckpt = os.path.join(DATA_DIR, "checkpoints")
+    saved_root = os.environ.get(runtime.CHECKPOINT_DIR_ENV)
+    os.environ[runtime.CHECKPOINT_DIR_ENV] = ckpt
+    try:
+        # a fit whose binning loses an executor, a result and a task to OOM
+        plan = runtime.FaultPlan(seed=RT_FAULT_SEED).kill_random_task(RT_WORKERS)
+        (victim, _), = plan._kill
+        plan.corrupt_result((victim + 1) % RT_WORKERS)
+        plan.oom_task((victim + 2) % RT_WORKERS, kind="host")
+        est = LightGBMClassifier(**HIGGS_PARAMS)
+        torch.cuda.synchronize()
+        _zero_counts(uh, hh)
+        t0 = time.perf_counter()
+        with runtime.inject_faults(plan), runtime.policy(max_workers=RT_WORKERS,
+                                                         result_integrity=True):
+            model = est.fit(train_t)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = _counts(uh, hh)
+        _need(counts, ("hist_panel", "hist_combined"), "partitioned fit")
+        summary = est._runtime_metrics.summary()
+        kinds = sorted(k for k, _, _ in plan.fired)
+        if kinds != ["corrupt_result", "kill", "oom_host"] or summary["retries_total"] != 3:
+            raise AssertionError(f"partitioned fit: fired {plan.fired}, {summary}")
+        if model.get_model_string() != want_text:
+            raise AssertionError("partitioned fit: the model text differs from phase 5's")
+        lines = _journal_lines(os.path.join(ckpt, "binning"))
+        if len(lines) != RT_WORKERS:
+            raise AssertionError(f"partitioned fit: {len(lines)} journal lines")
+        rec["faulted_fit"] = dict(
+            fired=plan.fired, retries_total=summary["retries_total"],
+            failures={k: summary[k] for k in summary if k.startswith("failures_")},
+            binning_s=model.fit_stats.binning_seconds, boosting_s=model.fit_stats.boost_seconds,
+            fit_s=fit_s, text_equals_phase5=True, journal_lines=len(lines), launches=counts)
+        print("runtime faulted fit: " + json.dumps(rec["faulted_fit"]), flush=True)
+
+        # the durable rerun restores every partition
+        est = LightGBMClassifier(numExecutors=RT_WORKERS, **HIGGS_PARAMS)
+        t0 = time.perf_counter()
+        model = est.fit(train_t)
+        torch.cuda.synchronize()
+        rerun_s = time.perf_counter() - t0
+        recovered = est._runtime_metrics.summary()["tasks_recovered"]
+        latest = runtime.ModelStore(os.path.join(ckpt, "models")).latest(name)
+        text = model.get_model_string()
+        if (_journal_lines(os.path.join(ckpt, "binning")) != lines or recovered != RT_WORKERS
+                or text != want_text or latest != (2, text)):
+            raise AssertionError(f"durable rerun: {recovered} restored, store {latest and latest[0]}")
+        rec["durable_rerun"] = dict(restore_s=model.fit_stats.binning_seconds, fit_s=rerun_s,
+                                    tasks_recovered=recovered, journal_lines_added=0,
+                                    model_store_version=latest[0], text_equals_phase5=True)
+        print("runtime durable rerun: " + json.dumps(rec["durable_rerun"]), flush=True)
+    finally:
+        if saved_root is None:
+            os.environ.pop(runtime.CHECKPOINT_DIR_ENV, None)
+        else:
+            os.environ[runtime.CHECKPOINT_DIR_ENV] = saved_root
+
+    # numBatches: boosters chained over 4 row batches, merged
+    binned = []
+    bin_dataset = base.bin_dataset
+
+    def keep_bins(*a, **kw):
+        out = bin_dataset(*a, **kw)
+        binned.append(out)
+        return out
+
+    base.bin_dataset = keep_bins
+    _zero_counts(uh, hh)
+    try:
+        t0 = time.perf_counter()
+        model = LightGBMClassifier(numBatches=RT_BATCHES, **HIGGS_PARAMS).fit(train_t)
+        torch.cuda.synchronize()
+        batches_s = time.perf_counter() - t0
+    finally:
+        base.bin_dataset = bin_dataset
+    counts = _counts(uh, hh)
+    _need(counts, ("hist_panel", "hist_combined"), "numBatches fit")
+    Xte, yte = higgs["X_test"], higgs["y_test"]
+    prob = model.transform(Table({"features": Xte}))["probability"]
+    held_out = auc(yte, prob[:, 1], np.ones(len(yte)))
+    merged = model.booster
+    mapper = binned[0][1]
+    em = base._ensemble_margin([merged], binning.apply_bins(Xte, mapper), mapper, "cuda")
+    err = float(np.abs(em - merged.raw_margin(Xte, device="cuda")).max())
+    if merged.num_trees != RT_BATCHES * FIT_ITERS or not held_out > 0.75 or not err <= 1e-5:
+        raise AssertionError(f"numBatches: {merged.num_trees} trees, AUC {held_out}, "
+                             f"ensemble margin error {err}")
+    rec["num_batches"] = dict(batches=RT_BATCHES, trees=merged.num_trees, fit_s=batches_s,
+                              binning_s=model.fit_stats.binning_seconds,
+                              boosting_s=model.fit_stats.boost_seconds, held_out_auc=held_out,
+                              phase5_auc=phase5_auc, ensemble_margin_max_err=err,
+                              launches=counts)
+    print("runtime numBatches: " + json.dumps(rec["num_batches"]), flush=True)
+    del model, prob, binned, train_t
+
+    # phase 23's ingest through the scheduler path
+    paths, mapper, seq_path = ooc["paths"], ooc["mapper"], ooc["bins_path"]
+    out = os.path.join(DATA_DIR, "scheduled.u8")
+    metrics = runtime.RuntimeMetrics()
+    with _RssPeak() as rss:
+        t0 = time.perf_counter()
+        sharded.ShardedDataset(paths).bin_to_memmap(
+            mapper, out_path=out, policy=runtime.SchedulerPolicy(max_workers=RT_WORKERS),
+            metrics=metrics, rows_per_task=RT_ROWS_PER_TASK)
+        bin_s = time.perf_counter() - t0
+        peak = rss.now()
+    growth = peak - rss.base
+    float64_bytes = ooc["rows"] * N_FEATURES * 8
+    tasks = sum(-(-OOC_SHARD_ROWS // RT_ROWS_PER_TASK) for _ in paths)
+    if not filecmp.cmp(out, seq_path, shallow=False):
+        raise AssertionError("scheduled ingest: the memmap differs from the sequential pass's")
+    if not growth < float64_bytes / 4 or metrics.summary()["tasks_done"] != tasks:
+        raise AssertionError(f"scheduled ingest: RSS grew {growth} bytes (limit "
+                             f"{float64_bytes / 4}), {metrics.summary()['tasks_done']} tasks")
+    os.remove(out)
+    warn = runtime.RuntimeMetrics()
+    prev = runtime.set_pressure_level("memory", runtime.PressureLevel.WARN)
+    try:
+        t0 = time.perf_counter()
+        got, _, _ = sharded.ShardedDataset(paths[:RT_WARN_SHARDS]).bin_to_memmap(
+            mapper, out_path=out, policy=runtime.SchedulerPolicy(max_workers=RT_WARN_WORKERS),
+            metrics=warn)
+        warn_s = time.perf_counter() - t0
+    finally:
+        runtime.set_pressure_level("memory", prev)
+    seq = np.memmap(seq_path, dtype=np.uint8, mode="r", shape=(ooc["rows"], N_FEATURES))
+    if (warn.summary()["tasks_done"] != 2 * RT_WARN_SHARDS
+            or not np.array_equal(got, seq[:len(got)])):
+        raise AssertionError(f"WARN ingest: {warn.summary()['tasks_done']} tasks, or bytes differ")
+    del got, seq
+    os.remove(out)
+    rec["scheduled_ingest"] = dict(
+        rows=ooc["rows"], shards=len(paths), executors=RT_WORKERS,
+        rows_per_task=RT_ROWS_PER_TASK, tasks=tasks, bin_s=bin_s,
+        phase23_sequential_bin_s=ooc["bin_s"], bytes_equal_sequential=True,
+        host_rss_base=rss.base, host_rss_growth=growth, host_rss_limit=float64_bytes / 4,
+        warn=dict(shards=RT_WARN_SHARDS, executors=RT_WARN_WORKERS,
+                  tasks=warn.summary()["tasks_done"], bin_s=warn_s, bytes_equal=True))
+    print("runtime scheduled ingest: " + json.dumps(rec["scheduled_ingest"]), flush=True)
+
+    # the card gauge against torch.cuda.mem_get_info
+    torch.cuda.synchronize()
+    free, total = torch.cuda.mem_get_info(0)
+    (dev_name, used, limit), = runtime.sample_hbm()
+    if dev_name != "cuda:0" or limit != total or abs(used - (total - free)) > (64 << 20):
+        raise AssertionError(f"sample_hbm {dev_name, used, limit} against mem_get_info "
+                             f"{free, total}")
+    rec["sample_hbm"] = dict(device=dev_name, bytes_in_use=used, bytes_limit=limit,
+                             mem_get_info_used=total - free)
+    print("runtime sample_hbm: " + json.dumps(rec["sample_hbm"]), flush=True)
     return rec
 
 
@@ -2687,6 +2919,7 @@ def main():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from mmlspark_tpu_torch import runtime
     from mmlspark_tpu_torch.data import sharded
     from mmlspark_tpu_torch.data.sparse import CSRMatrix, SparseRows
     from mmlspark_tpu_torch.data.table import Table
@@ -2753,7 +2986,7 @@ def main():
     categorical = timed("categorical", phase_categorical, torch, uh, hh, binning, train, Table,
                         LightGBMClassifier, auc)
     timed("bundling", phase_bundling, torch, uh, hh, binning, bundling, train, auc)
-    timed("oom", phase_oom, torch, uh, hh, binning, train, u_text)
+    timed("oom", phase_oom, torch, uh, hh, runtime, binning, train, u_text)
     _, es_model, X_es, y_es = timed("early_stopping", phase_early_stopping, torch, uh, hh,
                                     binning, train, callbacks, Table, LightGBMClassifier, auc)
     timed("warm_start", phase_warm_start, torch, uh, hh, Table, LightGBMClassifier, Booster,
@@ -2765,7 +2998,7 @@ def main():
     types = timed("boosting_types", phase_boosting_types, torch, uh, hh, train, auc, higgs)
     explain_boosters = [("higgs", higgs["booster"], higgs["X_test"]),
                         ("covertype", cover["booster"], cover["X_test"])]
-    del higgs, cover
+    del higgs["bins"], cover
     timed("regression", phase_regression, torch, uh, hh, binning, train, objectives, Table,
           LightGBMRegressor)
     timed("insurance", phase_insurance, torch, uh, hh, binning, objectives, Table,
@@ -2777,8 +3010,14 @@ def main():
     sparse_fit = timed("sparse_airline", phase_sparse_airline, torch, uh, hh, rates, base, binning,
                        objectives, train, Table, LightGBMClassifier, SparseRows, CSRMatrix, auc,
                        categorical["categorical"]["held_out_auc"])
-    ooc_fit = timed("out_of_core", phase_out_of_core, torch, uh, hh, rates, objectives, train,
-                    sharded, PartitionLostError, Table, LightGBMClassifier, auc)
+    try:
+        ooc_fit, ooc = timed("out_of_core", phase_out_of_core, torch, uh, hh, rates, objectives,
+                             train, sharded, PartitionLostError, Table, LightGBMClassifier, auc)
+        timed("runtime", phase_runtime, torch, uh, hh, runtime, binning, base, sharded, Table,
+              LightGBMClassifier, auc, higgs, fit["held_out_auc"], ooc)
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+    del higgs
 
     if entry_launches == 0:
         raise AssertionError("build_histograms_bin_scatter did not launch bin_scatter")

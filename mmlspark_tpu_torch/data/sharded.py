@@ -23,11 +23,18 @@ input equals the fit over the clean complement byte for byte;
 ``ignore_corrupt_files=True`` (``spark.sql.files.ignoreCorruptFiles``)
 skips corrupt files even under ``failfast``.
 
-Not ported yet, and refused with ``NotImplementedError``: parquet shards,
-the scheduler path of :meth:`ShardedDataset.bin_to_memmap` (a scheduler
-policy, memory-pressure splits, ``rows_per_task``) and a multi-device
-mesh in :func:`fit_gbdt_sharded`. The reference's row-range read
-``load_rows``, which only that scheduler path calls, comes with it.
+Every shard read passes the read gate
+(:func:`~mmlspark_tpu_torch.runtime.faults.check_record`), so an injected
+``FaultPlan.truncate_shard`` lands where a torn file would.
+
+With a scheduler policy (explicit or an ambient ``runtime.policy()``),
+:meth:`ShardedDataset.bin_to_memmap` bins shards, or row ranges of them,
+as tasks on the fault-tolerant scheduler; each task reads its own rows
+(:meth:`ShardedDataset.load_rows`) and writes its bins at its own offset
+of the file.
+
+Not ported yet, and refused with ``NotImplementedError``: parquet shards
+and a multi-device mesh in :func:`fit_gbdt_sharded`.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from mmlspark_tpu_torch import runtime
 from mmlspark_tpu_torch.dataguard.modes import (
     FAILFAST,
     PERMISSIVE,
@@ -50,8 +58,9 @@ from mmlspark_tpu_torch.dataguard.modes import (
     normalize_mode,
 )
 from mmlspark_tpu_torch.lightgbm.binning import BinMapper, apply_bins, fit_bin_mapper
-from mmlspark_tpu_torch.runtime.faults import CorruptShardError
+from mmlspark_tpu_torch.runtime.faults import CorruptShardError, check_record
 from mmlspark_tpu_torch.runtime.lineage import PartitionLostError
+from mmlspark_tpu_torch.runtime.pressure import PressureLevel, current_pressure_level
 
 #: error classes a corrupt shard file can surface as at decode time
 _CORRUPT_ERRORS = (
@@ -179,6 +188,7 @@ class ShardedDataset:
     @staticmethod
     def _load(path: str) -> Tuple[np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]:
         _refuse_parquet(path)
+        check_record(path)
         _verify_shard(path)
         if path.endswith(".npz"):
             with np.load(path, allow_pickle=False) as z:
@@ -189,6 +199,47 @@ class ShardedDataset:
         if path.endswith(".npy"):
             return np.asarray(np.load(path), dtype=np.float64), None, None
         raise ValueError(f"unsupported shard format: {path}")
+
+    @staticmethod
+    def load_rows(path: str, lo: int, hi: int
+                  ) -> Tuple[np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]:
+        """Decode only rows ``[lo, hi)`` of a shard, the memory-bounded
+        read. ``.npy`` slices a read-only memmap; ``.npz`` seeks within the
+        zip member past the skipped rows (``np.savez`` stores members
+        uncompressed, so the seek is a file seek) and reads the range."""
+        _refuse_parquet(path)
+        check_record(path)
+        _verify_shard(path)
+        lo, hi = int(lo), int(hi)
+        if path.endswith(".npy"):
+            mm = np.load(path, mmap_mode="r")
+            return np.asarray(mm[lo:hi], dtype=np.float64), None, None
+        if not path.endswith(".npz"):
+            raise ValueError(f"unsupported shard format: {path}")
+
+        def member_rows(z, name):
+            with z.open(name) as fh:
+                version = np.lib.format.read_magic(fh)
+                if version == (1, 0):
+                    shape, fortran, dtype = np.lib.format.read_array_header_1_0(fh)
+                else:
+                    shape, fortran, dtype = np.lib.format.read_array_header_2_0(fh)
+                if fortran:
+                    # column-major rows are not contiguous in the stream
+                    data = np.frombuffer(fh.read(), dtype=dtype)
+                    return data.reshape(shape, order="F")[lo:hi].astype(np.float64)
+                rowbytes = int(np.prod(shape[1:], dtype=np.int64)) * dtype.itemsize
+                fh.seek(lo * rowbytes, 1)
+                buf = fh.read((hi - lo) * rowbytes)
+                arr = np.frombuffer(buf, dtype=dtype).reshape((hi - lo,) + tuple(shape[1:]))
+                return arr.astype(np.float64)
+
+        with zipfile.ZipFile(path) as z:
+            names = set(z.namelist())
+            X = member_rows(z, "X.npy")
+            y = member_rows(z, "y.npy") if "y.npy" in names else None
+            w = member_rows(z, "w.npy") if "w.npy" in names else None
+        return X, y, w
 
     def iter_shards(self) -> Iterator[Tuple[np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]]:
         # the scan first: under permissive and dropmalformed it prunes
@@ -228,6 +279,7 @@ class ShardedDataset:
                 # memmap's extent, samples) is taken over the survivors
                 try:
                     _refuse_parquet(p)
+                    check_record(p)
                     _verify_shard(p)
                     info = self._shard_info(p)
                 except _CORRUPT_ERRORS as e:
@@ -296,12 +348,19 @@ class ShardedDataset:
         matrix, in path order. Returns (bins memmap (N, F) uint8, y (N,), w
         or None); labels and weights stay in memory. The bins are written
         through the file, not the mapping, so the pages the pass dirties
-        are the page cache's and not the process's resident memory. The
-        scheduler path (``policy``, ``metrics``, ``rows_per_task``) is not
-        ported yet."""
-        if policy is not None or metrics is not None or rows_per_task is not None:
-            raise NotImplementedError("bin_to_memmap's scheduler path (policy, metrics, "
-                                      "rows_per_task) is not ported yet")
+        are the page cache's and not the process's resident memory.
+
+        With a :class:`~mmlspark_tpu_torch.runtime.SchedulerPolicy`
+        (``policy``, else an ambient ``runtime.policy()``) each shard, or
+        each range of ``rows_per_task`` rows of it, is one task on the
+        fault-tolerant scheduler: tasks bin concurrently, each reading only
+        its rows (:meth:`load_rows`, the shard file its lineage source) and
+        writing its bins at its own offset of the file, so the bytes are the
+        sequential pass's. Without ``rows_per_task``, whole shards make the
+        tasks unless the ambient memory-pressure level says otherwise:
+        halved ranges at WARN, quartered at CRITICAL. ``metrics`` (a
+        :class:`~mmlspark_tpu_torch.runtime.RuntimeMetrics`) collects the
+        scheduler's counts."""
         self._scan()
         n, f = self.num_rows, self.num_features
         # fail before the long binning pass; the scan read the keys already
@@ -313,17 +372,67 @@ class ShardedDataset:
             os.close(fd)
         y_all = np.empty(n, dtype=np.float64)
         w_all = np.empty(n, dtype=np.float64) if have_w else None
-        lo = 0
-        with open(out_path, "wb") as fh:
-            for X, y, w in self.iter_shards():
-                hi = lo + len(X)
-                fh.write(np.ascontiguousarray(apply_bins(X, mapper), dtype=np.uint8).data)
-                y_all[lo:hi] = y
-                if have_w:
-                    w_all[lo:hi] = w
-                lo = hi
+        pol = policy or runtime.current_policy()
+        if pol is None:
+            lo = 0
+            with open(out_path, "wb") as fh:
+                for X, y, w in self.iter_shards():
+                    hi = lo + len(X)
+                    fh.write(np.ascontiguousarray(apply_bins(X, mapper), dtype=np.uint8).data)
+                    y_all[lo:hi] = y
+                    if have_w:
+                        w_all[lo:hi] = w
+                    lo = hi
+        else:
+            self._bin_scheduled(mapper, out_path, pol, metrics, rows_per_task, y_all, w_all)
         bins = np.memmap(out_path, dtype=np.uint8, mode="r+", shape=(n, f))
         return bins, y_all, w_all
+
+    def _bin_scheduled(self, mapper: BinMapper, out_path: str, pol, metrics,
+                       rows_per_task: Optional[int], y_all: np.ndarray,
+                       w_all: Optional[np.ndarray]) -> None:
+        """The scheduler path of :meth:`bin_to_memmap`: one task per shard or
+        row range, each writing its bins with positional writes at
+        ``lo * F`` of ``out_path``."""
+        f = self.num_features
+        offsets = np.cumsum([0] + [i.num_rows for i in self._infos])
+        split = rows_per_task
+        if split is None:
+            level = current_pressure_level("memory")
+            if level >= PressureLevel.WARN:
+                biggest = max(i.num_rows for i in self._infos)
+                div = 4 if level >= PressureLevel.CRITICAL else 2
+                split = max(1, -(-biggest // div))
+        parts = []  # (shard index, row lo, row hi) within the shard
+        for si, info in enumerate(self._infos):
+            step = split if split is not None else max(info.num_rows, 1)
+            for plo in range(0, info.num_rows, step):
+                parts.append((si, plo, min(plo + step, info.num_rows)))
+        lineage = runtime.Lineage()
+        tasks = [lineage.record(pi, (lambda si=si, plo=plo, phi=phi, p=self.paths[si]:
+                                     (si, plo, phi) + self.load_rows(p, plo, phi)),
+                                describe=f"{self.paths[si]}[{plo}:{phi}]")
+                 for pi, (si, plo, phi) in enumerate(parts)]
+        fd = os.open(out_path, os.O_RDWR | os.O_CREAT | os.O_TRUNC, 0o644)
+        try:
+            os.ftruncate(fd, int(offsets[-1]) * f)
+
+            def bin_part(payload):
+                si, plo, phi, X, y, w = payload
+                lo, hi = int(offsets[si]) + plo, int(offsets[si]) + phi
+                data = memoryview(np.ascontiguousarray(apply_bins(X, mapper), dtype=np.uint8)
+                                  ).cast("B")
+                done = 0
+                while done < len(data):  # a positional write may be short
+                    done += os.pwrite(fd, data[done:], lo * f + done)
+                y_all[lo:hi] = y
+                if w_all is not None:
+                    w_all[lo:hi] = w
+                return hi - lo
+
+            runtime.run_partitioned(bin_part, tasks, pol, lineage=lineage, metrics=metrics)
+        finally:
+            os.close(fd)
 
 
 def fit_gbdt_sharded(estimator, dataset: ShardedDataset, mesh="auto",

@@ -4,13 +4,24 @@ The port's counterpart of ``mmlspark_tpu/lightgbm/base.py``: the same param
 names and defaults (``LightGBMParams.scala``), plus ``device``. Params that
 select a path the port has not taken over raise ``NotImplementedError`` when
 set away from their defaults, instead of being ignored.
+
+``numExecutors`` (or an ambient ``runtime.policy()``) bins on the
+fault-tolerant scheduler; under ``MMLSPARK_TPU_CHECKPOINT_DIR`` that binning
+is journaled and the fitted model committed to a ``ModelStore``, in the
+reference's layout; ``numBatches`` chains boosters over row batches
+(``LightGBMBase.scala:26-48``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import time
+import zlib
+from typing import List
 
 import numpy as np
+import torch
 
 from mmlspark_tpu_torch.core.params import (
     HasFeaturesCol,
@@ -32,12 +43,25 @@ from mmlspark_tpu_torch.core.params import (
     to_list_str,
     to_str,
 )
+from mmlspark_tpu_torch import runtime
 from mmlspark_tpu_torch.core.pipeline import Estimator, Model
-from mmlspark_tpu_torch.data.sparse import csr_column_to_matrix, is_sparse_column
+from mmlspark_tpu_torch.data.sparse import CSRMatrix, csr_column_to_matrix, is_sparse_column
 from mmlspark_tpu_torch.data.table import Table
-from mmlspark_tpu_torch.lightgbm.binning import bin_dataset
+from mmlspark_tpu_torch.device import DeviceLike, resolve_device
+from mmlspark_tpu_torch.lightgbm.binning import BinMapper, bin_dataset, bin_dataset_partitioned
 from mmlspark_tpu_torch.lightgbm.booster import Booster
-from mmlspark_tpu_torch.lightgbm.train import TrainOptions, TrainResult, train
+from mmlspark_tpu_torch.lightgbm.train import (
+    FitStats,
+    TrainOptions,
+    TrainResult,
+    _bundle_route_consts,
+    _route_binned,
+    train,
+)
+
+#: FitStats fields that add up over the batches of a numBatches fit
+_SUMMED_STATS = ("trees", "passes", "syncs", "boost_seconds", "u_build_seconds", "oom_retries",
+                 "renewal_seconds", "upload_seconds")
 
 
 class LightGBMParams(HasFeaturesCol, HasLabelCol, HasPredictionCol, HasWeightCol,
@@ -117,10 +141,7 @@ class LightGBMParams(HasFeaturesCol, HasLabelCol, HasPredictionCol, HasWeightCol
                    default="cuda", converter=to_str)
 
     #: Params of paths the port has not taken over, with the values it takes.
-    _PORTED_VALUES = {
-        "numBatches": (0,), "numExecutors": (0,), "numProcesses": (0, 1),
-        "parallelism": ("data_parallel", "serial"),
-    }
+    _PORTED_VALUES = {"numProcesses": (0, 1), "parallelism": ("data_parallel", "serial")}
 
     def _objective_name(self) -> str:
         raise NotImplementedError
@@ -233,6 +254,8 @@ class LightGBMBase(LightGBMParams, Estimator):
         return None
 
     def _fit(self, table: Table) -> "LightGBMModelBase":
+        if self.getNumBatches() > 1 and self.getNumProcesses() > 1:
+            raise ValueError("numProcesses and numBatches are exclusive")
         self._check_ported()
         # Validation split by indicator column (LightGBMBase.scala:196-197).
         valid_table = None
@@ -253,11 +276,7 @@ class LightGBMBase(LightGBMParams, Estimator):
         feature_names = list(slot_names) or [f"f{i}" for i in range(num_features)]
         cat_slots = self._categorical_slots(feature_names)
         t0 = time.perf_counter()
-        bins, mapper = bin_dataset(
-            X, max_bin=opts.max_bin, categorical_features=sorted(cat_slots) or None,
-            sample_cnt=self.getBinSampleCount(),
-            max_bin_by_feature=self.getMaxBinByFeature() or None,
-            feature_bundling=self.getFeatureBundling(), max_conflict_rate=self.getMaxConflictRate())
+        bins, mapper = self._bin_dataset(X, opts, cat_slots)
         binning_seconds = time.perf_counter() - t0
         valid_sets = []
         if valid_table is not None and valid_table.num_rows > 0:
@@ -271,9 +290,19 @@ class LightGBMBase(LightGBMParams, Estimator):
                 init_margins = init_margins[:, None]
         if prev is not None:
             init_margins = prev.raw_margin(X, device=self.getDevice())
-        result = train(bins, y, opts, w=w, init_margins=init_margins, valid_sets=valid_sets,
-                       mapper=mapper, feature_names=feature_names, callbacks=self.callbacks,
-                       device=self.getDevice(), objective=self._train_objective(table))
+        objective = self._train_objective(table)
+        num_batches = self.getNumBatches()
+        if num_batches > 1:
+            if objective is not None:
+                raise ValueError("numBatches would cut the ranker's query groups; "
+                                 "fit the ranker in one batch")
+            result = self._fit_batches(bins, y, w, init_margins, opts, mapper, valid_sets,
+                                       feature_names, num_batches)
+        else:
+            result = train(bins, y, opts, w=w, init_margins=init_margins,
+                           valid_sets=valid_sets, mapper=mapper, feature_names=feature_names,
+                           callbacks=self.callbacks, device=self.getDevice(),
+                           objective=objective)
         result.stats.binning_seconds = binning_seconds
         model = self._make_model(result)
         model.parent = self
@@ -281,7 +310,95 @@ class LightGBMBase(LightGBMParams, Estimator):
         # per-iteration metric histories (valid sets, and 'training' under
         # isProvideTrainingMetric)
         model._train_evals = result.evals
+        # durable model commit: a versioned atomic write under the
+        # checkpoint root, so a restarting server's recovery scan
+        # (ModelStore.latest) never reads a torn model file
+        ckpt_root = runtime.default_checkpoint_dir()
+        if ckpt_root is not None:
+            runtime.ModelStore(os.path.join(ckpt_root, "models")).commit(
+                model.get_model_string(), name=type(model).__name__.lower())
         return model
+
+    def _bin_dataset(self, X, opts: TrainOptions, cat_slots):
+        """Bin the training matrix. With ``numExecutors`` > 0 or an ambient
+        :func:`mmlspark_tpu_torch.runtime.policy`, the row pass runs as
+        partitioned tasks on the fault-tolerant scheduler (Spark's binning
+        inside executors), byte-identical to the inline pass; its metrics
+        land on ``self._runtime_metrics``. Under a checkpoint root the
+        partitions are journaled under ``<root>/binning``, so a rerun with
+        the same params and data re-executes none of them."""
+        kwargs = dict(
+            max_bin=opts.max_bin, categorical_features=sorted(cat_slots) or None,
+            sample_cnt=self.getBinSampleCount(),
+            max_bin_by_feature=self.getMaxBinByFeature() or None,
+            feature_bundling=self.getFeatureBundling(),
+            max_conflict_rate=self.getMaxConflictRate(),
+        )
+        ambient = runtime.current_policy()
+        if ambient is None and self.getNumExecutors() <= 0:
+            return bin_dataset(X, **kwargs)
+        pol = ambient or runtime.SchedulerPolicy(max_workers=self.getNumExecutors(),
+                                                 seed=self.getSeed())
+        journal_root = journal_key = None
+        ckpt_root = runtime.default_checkpoint_dir()
+        # CSR input bins inline (bin_dataset_partitioned's rule), so it has
+        # no partitions to journal
+        if ckpt_root is not None and not isinstance(X, CSRMatrix):
+            journal_root = os.path.join(ckpt_root, "binning")
+            journal_key = self._checkpoint_key(X, kwargs)
+        self._runtime_metrics = runtime.RuntimeMetrics()
+        bins, mapper = bin_dataset_partitioned(
+            X, policy=pol, metrics=self._runtime_metrics, journal_root=journal_root,
+            journal_key=journal_key, **kwargs)
+        self._runtime_metrics.log(prefix="binning: ")
+        return bins, mapper
+
+    def _checkpoint_key(self, X, bin_kwargs: dict) -> str:
+        """Identity of one durable fit, the reference's: estimator class,
+        seed, binning params and a data fingerprint (shape and CRC32 of the
+        float64 bytes). A rerun with identical inputs resumes, under either
+        package; any change lands in a fresh journal directory."""
+        arr = np.ascontiguousarray(np.asarray(X, dtype=np.float64))
+        crc = zlib.crc32(arr.view(np.uint8).reshape(-1)) & 0xFFFFFFFF
+        parts = [type(self).__name__, f"seed{self.getSeed()}"]
+        parts += [f"{k}={bin_kwargs[k]}" for k in sorted(bin_kwargs)]
+        parts.append(f"X{arr.shape[0]}x{arr.shape[1] if arr.ndim > 1 else 1}")
+        parts.append(f"{crc:08x}")
+        return "-".join(parts)
+
+    def _fit_batches(self, bins, y, w, init_margins, opts, mapper, valid_sets, feature_names,
+                     num_batches) -> TrainResult:
+        """Batch-mode training (LightGBMBase.scala:26-48): one booster per
+        contiguous row batch, each started from the margins of the boosters
+        before it on its rows, then merged into one additive model."""
+        n = len(y)
+        edges = np.linspace(0, n, num_batches + 1).astype(int)
+        boosters: List[Booster] = []
+        stats: List[FitStats] = []
+        merged_evals: dict = {}
+        result = None
+        for lo, hi in zip(edges[:-1], edges[1:]):
+            if hi <= lo:
+                continue
+            im = None if init_margins is None else init_margins[lo:hi]
+            if boosters:
+                im = _ensemble_margin(boosters, bins[lo:hi], mapper, self.getDevice())
+            result = train(bins[lo:hi], y[lo:hi], opts, w=None if w is None else w[lo:hi],
+                           init_margins=im, valid_sets=valid_sets, mapper=mapper,
+                           feature_names=feature_names, device=self.getDevice())
+            boosters.append(result.booster)
+            stats.append(result.stats)
+            # metric histories concatenate across the chained batches (each
+            # batch scores its delta booster)
+            for name, metrics in result.evals.items():
+                dst = merged_evals.setdefault(name, {})
+                for mname, scores in metrics.items():
+                    dst.setdefault(mname, []).extend(scores)
+        summed = {f: sum(getattr(st, f) for st in stats) for f in _SUMMED_STATS}
+        merged_stats = dataclasses.replace(
+            stats[-1], per_iteration=[it for st in stats for it in st.per_iteration], **summed)
+        return TrainResult(booster=_merge_boosters(boosters), stats=merged_stats,
+                           evals=merged_evals, best_iteration=result.best_iteration)
 
     def _categorical_slots(self, feature_names) -> set:
         """``categoricalSlotIndexes`` united with ``categoricalSlotNames``
@@ -301,6 +418,74 @@ class LightGBMBase(LightGBMParams, Estimator):
 
     def _make_model(self, result: TrainResult) -> "LightGBMModelBase":
         raise NotImplementedError
+
+
+def _ensemble_margin(boosters: List[Booster], bins: np.ndarray, mapper: BinMapper,
+                     device: DeviceLike = None) -> np.ndarray:
+    """(N, C) float32 margins of the chained ``boosters`` on ``bins`` binned
+    with their shared mapper (EFB-packed when it carries a bundle plan; the
+    trees are in original feature ids), routed on ``device`` through the
+    training loop's :func:`~.train._route_binned`: each booster's init
+    score plus its trees' leaf values, in tree order, summed over boosters
+    in order, as the reference adds them."""
+    dev = resolve_device(device)
+    bins_t = torch.as_tensor(np.ascontiguousarray(bins), device=dev)
+    spec = mapper.bundles
+    consts = _bundle_route_consts(spec, dev) if spec is not None else None
+    total = None
+    for b in boosters:
+        def arr(a, dtype=torch.int64):
+            return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+
+        m = arr(b.init_score, torch.float32)[None, :].expand(bins_t.shape[0],
+                                                              b.num_classes).clone()
+        for t in range(b.num_trees):
+            leaf = _route_binned(
+                bins_t, arr(b.split_feature[t]), arr(b.split_bin[t]), arr(b.left_child[t]),
+                arr(b.right_child[t]), arr(b.is_leaf[t], torch.bool), b.max_depth,
+                cat_node=None if b.cat_nodes is None else arr(b.cat_nodes[t], torch.bool),
+                cat_mask=None if b.cat_masks is None else arr(b.cat_masks[t], torch.bool),
+                bundle_consts=consts)
+            m[:, t % b.num_classes] += arr(b.leaf_values[t], torch.float32)[leaf]
+        total = m if total is None else total + m
+    return total.cpu().numpy()
+
+
+def _merge_boosters(boosters: List[Booster]) -> Booster:
+    """Concatenate chained batch boosters into one additive model (the
+    ``LGBM_BoosterMerge`` analogue, TrainUtils.scala:165-167)."""
+    if len(boosters) == 1:
+        return boosters[0]
+    first = boosters[0]
+
+    def cat(field, pad=0):
+        arrs = [getattr(b, field) for b in boosters]
+        if any(a is None for a in arrs):
+            return None
+        arrs = [np.asarray(a) for a in arrs]
+        # pad the node (and bitmask) axes to the widest booster: a model
+        # text round trip trims each tree's arrays to its own width. Pad
+        # slots are unreachable; is_leaf pads True all the same.
+        target = tuple(max(a.shape[d] for a in arrs) for d in range(1, arrs[0].ndim))
+        padded = []
+        for a in arrs:
+            widths = [(0, 0)] + [(0, t - a.shape[d + 1]) for d, t in enumerate(target)]
+            if any(wd for _, wd in widths):
+                a = np.pad(a, widths, constant_values=pad)
+            padded.append(a)
+        return np.concatenate(padded)
+
+    return Booster(
+        split_feature=cat("split_feature"), split_bin=cat("split_bin"),
+        split_threshold=cat("split_threshold"), left_child=cat("left_child"),
+        right_child=cat("right_child"), is_leaf=cat("is_leaf", pad=1),
+        leaf_values=cat("leaf_values"), cover=cat("cover"), split_gain=cat("split_gain"),
+        init_score=first.init_score, num_classes=first.num_classes, objective=first.objective,
+        max_depth=max(b.max_depth for b in boosters), best_iteration=-1,
+        feature_names=first.feature_names, bin_edges=first.bin_edges,
+        nan_left=cat("nan_left"), zero_missing=cat("zero_missing"),
+        cat_nodes=cat("cat_nodes"), cat_masks=cat("cat_masks"), cat_values=first.cat_values,
+    )
 
 
 class LightGBMModelBase(HasFeaturesCol, HasPredictionCol, Model):

@@ -8,8 +8,8 @@ identity (:func:`cat_to_bins`), and a mapper that carries a fitted
 :class:`~.bundling.BundleSpec` bins to the packed (N, C) columns of
 Exclusive Feature Bundling. Sparse (CSR) input bins without densifying
 (:func:`fit_bin_mapper_csr`, :func:`apply_bins_csr`) to the bins of its
-dense matrix. The reference's partitioned binning on the runtime scheduler
-(``bin_dataset_partitioned``, ``numExecutors``) is not ported yet.
+dense matrix. :func:`bin_dataset_partitioned` runs the row pass as tasks
+on the fault-tolerant scheduler (:mod:`mmlspark_tpu_torch.runtime`).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from mmlspark_tpu_torch import runtime
 from mmlspark_tpu_torch.data.sparse import CSRMatrix
 from mmlspark_tpu_torch.lightgbm.bundling import BundleSpec, fit_feature_bundles, pack_bundles
 
@@ -268,6 +269,69 @@ def bin_dataset(
     if mapper.bundles is not None:
         return pack_bundles(raw, mapper.bundles), mapper
     return raw, mapper
+
+
+def bin_dataset_partitioned(
+    X, max_bin: int = 255, mapper: Optional[BinMapper] = None, categorical_features=None,
+    sample_cnt: int = 200_000, max_bin_by_feature=None, policy=None, metrics=None,
+    journal_root: Optional[str] = None, journal_key: Optional[str] = None,
+    feature_bundling: bool = False, max_conflict_rate: float = 0.0,
+) -> Tuple[np.ndarray, BinMapper]:
+    """:func:`bin_dataset` with the row pass run as partitioned tasks on the
+    fault-tolerant scheduler, the reference's ``bin_dataset_partitioned``.
+    The mapper (and bundle plan) are fitted inline; :func:`apply_bins` is
+    row-pure, so the row slices binned in ``max_workers`` tasks and joined
+    in task order are the inline bins byte for byte, whatever executor died
+    or result was corrupted on the way. Each slice is recorded in a
+    :class:`~mmlspark_tpu_torch.runtime.lineage.Lineage`, so a lost one is
+    recomputed. CSR input takes the inline path.
+
+    The bundle plan is fitted on the raw bins of ``sample_cnt`` rows drawn
+    by ``default_rng(0)``, as the reference's partitioned path does.
+    ``journal_root`` and ``journal_key`` make the pass durable: each
+    slice's bins checkpoint to a
+    :class:`~mmlspark_tpu_torch.runtime.journal.FitJournal` keyed
+    ``<journal_key>-p<slices>``, and a rerun restores the finished ones."""
+    if isinstance(X, CSRMatrix):
+        return bin_dataset(X, max_bin=max_bin, mapper=mapper,
+                           categorical_features=categorical_features, sample_cnt=sample_cnt,
+                           max_bin_by_feature=max_bin_by_feature,
+                           feature_bundling=feature_bundling,
+                           max_conflict_rate=max_conflict_rate)
+    X = np.asarray(X, dtype=np.float64)
+    fresh = mapper is None
+    if fresh:
+        mapper = fit_bin_mapper(X, max_bin=max_bin, sample_cnt=sample_cnt,
+                                categorical_features=categorical_features,
+                                max_bin_by_feature=max_bin_by_feature)
+    if fresh and feature_bundling:
+        n_all = X.shape[0]
+        rows = X
+        if n_all > sample_cnt:
+            rows = X[np.random.default_rng(0).choice(n_all, size=sample_cnt, replace=False)]
+        fit_bundles_inplace(mapper, _apply_bins_raw(rows, mapper),
+                            max_conflict_rate=max_conflict_rate, sample_cnt=sample_cnt)
+    pol = policy or runtime.current_policy() or runtime.SchedulerPolicy()
+    n = X.shape[0]
+    if n == 0:
+        return apply_bins(X, mapper), mapper
+    num_parts = max(1, min(pol.max_workers, n))
+    bounds = np.linspace(0, n, num_parts + 1).astype(np.int64)
+    lineage = runtime.Lineage()
+    shards = [lineage.record(i, (lambda lo=int(bounds[i]), hi=int(bounds[i + 1]): X[lo:hi]),
+                             describe=f"rows[{bounds[i]}:{bounds[i + 1]}]")
+              for i in range(num_parts)]
+    journal = None
+    if journal_root is not None and journal_key is not None:
+        journal = runtime.FitJournal(journal_root, f"{journal_key}-p{num_parts}",
+                                     num_tasks=num_parts)
+    try:
+        parts = runtime.run_partitioned(lambda rows: apply_bins(rows, mapper), shards, pol,
+                                        lineage=lineage, metrics=metrics, journal=journal)
+    finally:
+        if journal is not None:
+            journal.close()
+    return np.concatenate(parts, axis=0), mapper
 
 
 # -- sparse (CSR) input ---------------------------------------------------------

@@ -83,6 +83,7 @@ from mmlspark_tpu_torch.lightgbm.objectives import (
 from mmlspark_tpu_torch.ops import histogram
 from mmlspark_tpu_torch.ops import hopper_histogram as hh
 from mmlspark_tpu_torch.ops import u_histogram as uh
+from mmlspark_tpu_torch.runtime.faults import current_faults, is_oom_error
 
 _log = logging.getLogger("mmlspark_tpu_torch.lightgbm")
 
@@ -634,45 +635,6 @@ def _expand_bundled(h, totals, bundle, num_bins: int):
     return dense + dmask.to(resid.dtype)[None, :, :, None] * resid[:, :, None, :]
 
 
-class DeviceOomFault:
-    """Test hook of the out-of-memory ladder: raises
-    ``torch.cuda.OutOfMemoryError`` at the first histogram pass of each
-    listed (iteration, attempt), once, as a full card would. Install it with
-    :func:`inject_device_oom`; ``fired`` lists the keys that raised."""
-
-    def __init__(self, *keys):
-        self.pending = set(keys or [(0, 0)])
-        self.fired: List[tuple] = []
-        self._armed = None
-
-    def arm(self, iteration: int, attempt: int) -> None:
-        key = (int(iteration), int(attempt))
-        self._armed = key if key in self.pending else None
-
-    def on_histogram(self) -> None:
-        if self._armed is None:
-            return
-        key, self._armed = self._armed, None
-        self.pending.discard(key)
-        self.fired.append(key)
-        raise torch.cuda.OutOfMemoryError(
-            f"CUDA out of memory: injected at histogram iteration {key[0]} attempt {key[1]}")
-
-
-_FAULT: Optional[DeviceOomFault] = None
-
-
-@contextlib.contextmanager
-def inject_device_oom(fault: DeviceOomFault):
-    """Install ``fault`` for the fits run inside the block."""
-    global _FAULT
-    saved, _FAULT = _FAULT, fault
-    try:
-        yield fault
-    finally:
-        _FAULT = saved
-
-
 def _packed_pass(bins_t, u, u_spec, grad, hess, count, key, num_nodes, num_bins, tree_stats):
     """One histogram pass and its per-node totals (column 0 covers every
     row of a node), before dequantization and bundle expansion: the
@@ -683,8 +645,6 @@ def _packed_pass(bins_t, u, u_spec, grad, hess, count, key, num_nodes, num_bins,
     group (3 * num_nodes <= 128); a wider one (a deep depthwise level)
     takes the compare-built pass on the exact stats, as the reference's
     ``_hist_fn`` does."""
-    if _FAULT is not None:
-        _FAULT.on_histogram()
     if u is None or 3 * num_nodes > 128:
         h = histogram.build_histograms(bins_t, grad, hess, count, key, num_nodes, num_bins)
     elif u_spec.chunk_rows:
@@ -1521,7 +1481,10 @@ def train(
     mapper is the one source of truth, as in the reference); one with a
     bundle spec takes the packed bins of ``apply_bins``/``bin_dataset``.
 
-    On the U path a device out-of-memory error in an iteration walks the
+    On the U path a device out-of-memory error in an iteration (a card's
+    ``torch.cuda.OutOfMemoryError``, or the injected one of
+    ``FaultPlan.oom_task(i, kind="device")`` from an ambient
+    :func:`~mmlspark_tpu_torch.runtime.faults.inject_faults`) walks the
     reference's ladder: halve the U budget (down to 1 MiB), re-plan the
     chunked passes, rebuild their bins layout and retry the same iteration
     with the same bag, feature mask and learning rate, at most
@@ -1612,6 +1575,7 @@ def train(
 
     stats = FitStats()
     stats.upload_seconds = upload_seconds
+    faults = current_faults()  # injected device OOMs, keyed (iteration, retry)
     u_spec, quant = _histogram_path(opts, n, f, num_bins, mapper)
     stats.u_budget = uh.u_budget() if u_spec is not None else 0
     stats.quantized = quant
@@ -1735,13 +1699,15 @@ def train(
             margins_in = margins - c_d
         retries = 0
         while True:
-            if _FAULT is not None:
-                _FAULT.arm(it, retries)
             failed = None
             try:
+                if faults is not None:
+                    faults.apply_on_histogram(it, retries)
                 tree, new_margins = step(bins_t, y_dev, w_dev, margins_in, edges_dev, bag_dev,
                                          fm_dev, it, lr_it)
-            except torch.cuda.OutOfMemoryError as err:
+            except (MemoryError, RuntimeError) as err:
+                if not is_oom_error(err):
+                    raise
                 failed = err
             if failed is None:
                 break

@@ -30,6 +30,7 @@ from mmlspark_tpu_torch.lightgbm import train as ttrain
 from mmlspark_tpu_torch.lightgbm.booster import Booster
 from mmlspark_tpu_torch.lightgbm.convert import booster_from_jax
 from mmlspark_tpu_torch.ops import hopper_histogram as hh
+from mmlspark_tpu_torch.runtime.faults import FaultPlan, inject_faults
 
 
 def _import_reference():
@@ -364,10 +365,13 @@ def test_dart_oom_retry_reuses_the_drop_set(ref):
     opts = ttrain.TrainOptions(**_opts(2, boosting_type="dart", drop_rate=0.5,
                                        histogram_method="u", use_quantized_grad=True))
     clean = ttrain.train(bt, y, opts, w=w, mapper=mt, device="cpu")
-    fault = ttrain.DeviceOomFault((2, 0), (3, 0), (3, 1))
-    with ttrain.inject_device_oom(fault):
+    fault = FaultPlan()
+    for it, attempt in ((2, 0), (3, 0), (3, 1)):
+        fault.oom_task(it, kind="device", attempt=attempt)
+    with inject_faults(fault):
         degraded = ttrain.train(bt, y, opts, w=w, mapper=mt, device="cpu")
-    assert fault.fired == [(2, 0), (3, 0), (3, 1)] and degraded.stats.oom_retries == 3
+    assert fault.fired == [("oom_device", 2, 0), ("oom_device", 3, 0), ("oom_device", 3, 1)]
+    assert degraded.stats.oom_retries == 3
     assert degraded.stats.dart_drops == clean.stats.dart_drops
     assert any(degraded.stats.dart_drops[2:4])
     assert degraded.booster.model_to_string() == clean.booster.model_to_string()

@@ -279,5 +279,5 @@ def test_unported_options_raise(option):
 def test_unported_estimator_params_raise():
     X, logit = _higgs_like(100, 4)
     with pytest.raises(NotImplementedError):
-        LightGBMClassifier(device="cpu", numBatches=2).fit(
+        LightGBMClassifier(device="cpu", numProcesses=2).fit(
             Table({"features": X, "label": (logit > 0).astype(float)}))

@@ -254,16 +254,12 @@ def test_all_corrupt_and_inconsistent_shards_raise(shards, tmp_path):
 
 def test_deferred_options_raise_not_implemented(shards, tmp_path):
     paths = shards[0]
-    with pytest.raises(NotImplementedError, match="numExecutors"):
-        fit_gbdt_sharded(LightGBMClassifier(numExecutors=2, **PARAMS), ShardedDataset(paths),
+    with pytest.raises(NotImplementedError, match="numProcesses"):
+        fit_gbdt_sharded(LightGBMClassifier(numProcesses=2, **PARAMS), ShardedDataset(paths),
                          device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         fit_gbdt_sharded(LightGBMClassifier(**PARAMS), ShardedDataset(paths), mesh=object(),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="scheduler"):
-        ShardedDataset(paths).bin_to_memmap(None, policy=object())
-    with pytest.raises(NotImplementedError, match="scheduler"):
-        ShardedDataset(paths).bin_to_memmap(None, rows_per_task=100)
     parquet = str(tmp_path / "s.parquet")
     open(parquet, "wb").close()
     for mode in ("failfast", "permissive"):

@@ -24,6 +24,7 @@ from mmlspark_tpu_torch.lightgbm import callbacks as tcb
 from mmlspark_tpu_torch.lightgbm import objectives as tobj
 from mmlspark_tpu_torch.lightgbm import train as ttrain
 from mmlspark_tpu_torch.lightgbm.booster import Booster
+from mmlspark_tpu_torch.runtime.faults import FaultPlan, inject_faults
 
 
 def _import_reference():
@@ -423,10 +424,13 @@ def test_oom_retry_reuses_the_iterations_bag_and_mask(ref):
                                   "use_quantized_grad": True, "bagging_fraction": 0.6,
                                   "bagging_freq": 1, "feature_fraction": 0.6})
     clean = ttrain.train(b["bt"], y, opts, mapper=b["mt"], device="cpu")
-    fault = ttrain.DeviceOomFault((2, 0), (2, 1), (4, 0))
-    with ttrain.inject_device_oom(fault):
+    fault = FaultPlan()
+    for it, attempt in ((2, 0), (2, 1), (4, 0)):
+        fault.oom_task(it, kind="device", attempt=attempt)
+    with inject_faults(fault):
         degraded = ttrain.train(b["bt"], y, opts, mapper=b["mt"], device="cpu")
-    assert fault.fired == [(2, 0), (2, 1), (4, 0)] and degraded.stats.oom_retries == 3
+    assert fault.fired == [("oom_device", 2, 0), ("oom_device", 2, 1), ("oom_device", 4, 0)]
+    assert degraded.stats.oom_retries == 3
     assert degraded.stats.histogram_path == "u_chunked"
     assert degraded.booster.model_to_string() == clean.booster.model_to_string()
     jb = ref["train"].train(b["bj"], y, ref["train"].TrainOptions(**dataclasses.asdict(opts)),

@@ -32,6 +32,7 @@ from mmlspark_tpu_torch.lightgbm import binning as tbinning
 from mmlspark_tpu_torch.lightgbm import train as ttrain
 from mmlspark_tpu_torch.ops import hopper_histogram as hh
 from mmlspark_tpu_torch.ops import u_histogram as tu
+from mmlspark_tpu_torch.runtime.faults import DeviceOomError, FaultPlan, inject_faults
 
 
 def _import_reference():
@@ -817,13 +818,25 @@ def test_estimator_with_quantized_grad_warns_and_trains_exact(caplog):
 # -- the out-of-memory ladder --------------------------------------------------
 
 
+def _device_ooms(*keys):
+    """A fault plan with a device OOM at each (iteration, retry) key."""
+    plan = FaultPlan()
+    for it, attempt in keys:
+        plan.oom_task(it, kind="device", attempt=attempt)
+    return plan
+
+
+def _fired(plan):
+    return [(it, attempt) for kind, it, attempt in plan.fired if kind == "oom_device"]
+
+
 def _oom_fit(X, y, fault=None, bundling=False, cats=None, **kw):
     bt, mt = tbinning.bin_dataset(X, max_bin=63, feature_bundling=bundling,
                                   categorical_features=cats)
     opts = ttrain.TrainOptions(**{**FIT, "histogram_method": "u", **kw})
     if fault is None:
         return ttrain.train(bt, y, opts, mapper=mt, device="cpu")
-    with ttrain.inject_device_oom(fault):
+    with inject_faults(fault):
         return ttrain.train(bt, y, opts, mapper=mt, device="cpu")
 
 
@@ -838,9 +851,9 @@ def test_oom_ladder_degrades_to_identical_model_text(monkeypatch, quant, subtrac
     X, y = _fit_case(seed=41)
     kw = dict(use_quantized_grad=quant, histogram_subtraction=subtraction)
     clean = _oom_fit(X, y, **kw)
-    fault = ttrain.DeviceOomFault((0, 0))
+    fault = _device_ooms((0, 0))
     hit = _oom_fit(X, y, fault, **kw)
-    assert fault.fired == [(0, 0)]
+    assert _fired(fault) == [(0, 0)]
     assert clean.stats.histogram_path == "u" and clean.stats.oom_retries == 0
     assert hit.stats.histogram_path == "u_chunked" and hit.stats.oom_retries == 1
     assert hit.stats.u_budget == clean.stats.u_budget // 2
@@ -860,7 +873,7 @@ def test_oom_ladder_on_categorical_and_bundled_fits(monkeypatch, data):
         X = np.hstack([X, np.eye(5)[hot]])
         kw["bundling"] = True
     clean = _oom_fit(X, y, **kw)
-    hit = _oom_fit(X, y, ttrain.DeviceOomFault((0, 0)), **kw)
+    hit = _oom_fit(X, y, _device_ooms((0, 0)), **kw)
     assert hit.stats.histogram_path == "u_chunked" and hit.stats.oom_retries == 1
     assert hit.booster.model_to_string() == clean.booster.model_to_string()
 
@@ -872,34 +885,34 @@ def test_oom_ladder_walks_down_per_fault(monkeypatch, keys, retries):
     monkeypatch.delenv("MMLSPARK_TPU_U_BUDGET", raising=False)
     X, y = _fit_case(seed=43)
     clean = _oom_fit(X, y, use_quantized_grad=True)
-    fault = ttrain.DeviceOomFault(*keys)
+    fault = _device_ooms(*keys)
     hit = _oom_fit(X, y, fault, use_quantized_grad=True)
-    assert fault.fired == keys and hit.stats.oom_retries == retries
+    assert _fired(fault) == keys and hit.stats.oom_retries == retries
     assert hit.stats.u_budget == clean.stats.u_budget >> retries
     assert hit.booster.model_to_string() == clean.booster.model_to_string()
 
 
 def test_oom_off_the_u_path_is_raised():
     X, y = _fit_case(seed=44)
-    with pytest.raises(torch.cuda.OutOfMemoryError):
-        _oom_fit(X, y, ttrain.DeviceOomFault((0, 0)), histogram_method=None)
+    with pytest.raises(DeviceOomError):
+        _oom_fit(X, y, _device_ooms((0, 0)), histogram_method=None)
 
 
 def test_oom_at_the_budget_floor_is_raised(monkeypatch):
     """Chunked from the start at the 1 MiB floor: nothing left to shrink."""
     monkeypatch.setenv("MMLSPARK_TPU_U_BUDGET", str(ttrain.OOM_MIN_BUDGET))
     X, y = _fit_case(seed=45, n=3000)
-    with pytest.raises(torch.cuda.OutOfMemoryError):
-        _oom_fit(X, y, ttrain.DeviceOomFault((0, 0)))
+    with pytest.raises(DeviceOomError):
+        _oom_fit(X, y, _device_ooms((0, 0)))
 
 
 def test_oom_ladder_stops_after_its_retry_cap(monkeypatch):
     monkeypatch.delenv("MMLSPARK_TPU_U_BUDGET", raising=False)
     X, y = _fit_case(seed=46)
-    fault = ttrain.DeviceOomFault(*[(0, a) for a in range(ttrain.OOM_RETRY_CAP + 1)])
-    with pytest.raises(torch.cuda.OutOfMemoryError):
+    fault = _device_ooms(*[(0, a) for a in range(ttrain.OOM_RETRY_CAP + 1)])
+    with pytest.raises(DeviceOomError):
         _oom_fit(X, y, fault)
-    assert len(fault.fired) == ttrain.OOM_RETRY_CAP + 1
+    assert len(_fired(fault)) == ttrain.OOM_RETRY_CAP + 1
 
 
 # -- on the card ---------------------------------------------------------------
