@@ -190,9 +190,27 @@ non-zero and prints no result):
    250,000 rows): the sequential pass's bytes, bin seconds, host RSS growth
    below the same limit; a memory-pressure WARN run on 4 shards halves each
    shard's task; sample_hbm against torch.cuda.mem_get_info.
-25. One JSON line with every kernel (the grouped wide-level launches and
-   phases 22, 23 and 24's cases among them), then the card line, then the
-   result line. Each phase prints its wall time; TF32 matmuls must be
+25. Persistence and the pipeline on phase 5's 11,000,000 rows: 11,000
+   rows get a NaN feature and 1,100 others label -1; Pipeline(stages=
+   [LightGBMClassifier(phase 5's params, numExecutors=8, so that binning
+   opens the reference's lightgbm.binning span)], invalidDataPolicy=
+   "drop") fits on the card under MMLSPARK_TPU_EVENT_LOG: 12,100 rows
+   dropped, the model text byte for byte a plain fit's on the clean
+   complement, histogram.cu 50 + 20 launches, the event log replays with
+   the Pipeline's four events, the tracer holds fit:LightGBMClassifier and
+   lightgbm.binning; the guard's scan and row filter timed on their own;
+   binary g and h on the card are the CPU's bits, and the gradient's time
+   against the same function written with torch.sigmoid (medians of 20,
+   in turns). Then
+   PipelineModel save, load and transform of 500,000 rows (output columns
+   bit-equal; save and load seconds, bytes on disk); save_native_model and
+   load_native_model, from_model_string (margins within 1e-6 of their
+   largest magnitude), the
+   booster's JSON dump (margins bit-equal), get_feature_importances (split
+   and gain); histogram.cu on the fit's bins and iteration-0 stats.
+26. One JSON line with every kernel (the grouped wide-level launches and
+   phases 22, 23, 24 and 25's cases among them), then the card line, then
+   the result line. Each phase prints its wall time; TF32 matmuls must be
    off.
 """
 
@@ -2909,6 +2927,216 @@ def phase_runtime(torch, uh, hh, runtime, binning, base, sharded, Table, LightGB
     return rec
 
 
+N_DIRTY_FEATURE = 11_000  # phase 25's rows with a NaN feature
+N_DIRTY_LABEL = 1_100  # phase 25's other rows with label -1
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def _sigmoid_grad_hess(torch, margins, y, w):
+    """Binary g and h written with ``torch.sigmoid``: the same function
+    as the objective's, not its bits (timed against it)."""
+    p = torch.sigmoid(margins[:, 0])
+    return ((p - y) * w)[:, None], (torch.clamp(p * (1.0 - p), min=1e-16) * w)[:, None]
+
+
+def _grad_times(torch, objective, y):
+    """Median ms of the binary objective's g and h against the
+    ``torch.sigmoid`` form at its init score, 20 runs each in turns."""
+    dev = torch.device("cuda")
+    yd = torch.as_tensor(np.asarray(y, np.float32), device=dev)
+    wd = torch.ones_like(yd)
+    init = objective.init_score(np.asarray(y, np.float32), 1, np.ones(len(y), np.float32))
+    m = torch.as_tensor(init, device=dev)[None, :].expand(len(y), 1).contiguous()
+    fns = {"objective": lambda: objective.grad_hess(m, yd, wd),
+           "torch_sigmoid": lambda: _sigmoid_grad_hess(torch, m, yd, wd)}
+    times = {k: [] for k in fns}
+    for fn in fns.values():
+        fn()
+    for _ in range(10):
+        for name in ("objective", "torch_sigmoid", "torch_sigmoid", "objective"):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[name]()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {f"{k}_ms": statistics.median(v) for k, v in times.items()}
+
+
+def phase_persistence(torch, uh, hh, rates, base, objectives, train, Table, LightGBMClassifier,
+                      LightGBMClassificationModel, Booster, pipeline, guards, events, tracing,
+                      higgs):
+    """Persistence and the pipeline on phase 5's rows (see the module
+    docstring, phase 25). Returns the record, with histogram.cu's entries
+    on the fit's bins and iteration-0 stats under "kernels"."""
+    X, y = higgs["X"], higgs["y"]
+    n = len(y)
+    rng = np.random.default_rng(25)
+    dirty = rng.choice(n, N_DIRTY_FEATURE + N_DIRTY_LABEL, replace=False)
+    nan_rows, label_rows = dirty[:N_DIRTY_FEATURE], dirty[N_DIRTY_FEATURE:]
+    Xd, yd = X.copy(), y.copy()
+    Xd[nan_rows, rng.integers(0, N_FEATURES, N_DIRTY_FEATURE)] = np.nan
+    yd[label_rows] = -1.0
+    keep = np.ones(n, dtype=bool)
+    keep[dirty] = False
+    params = dict(HIGGS_PARAMS, numExecutors=RT_WORKERS)
+    work = os.path.join(DATA_DIR, "persistence")
+    shutil.rmtree(work, ignore_errors=True)  # the event log appends
+    os.makedirs(work)
+    log_path = os.path.join(work, "events.jsonl")
+    tracer = tracing.get_tracer()
+    tracer.clear()
+    binned = []
+    bin_partitioned = base.bin_dataset_partitioned
+
+    def keep_bins(*a, **kw):
+        out = bin_partitioned(*a, **kw)
+        binned.append(out)
+        return out
+
+    guard_s = []
+    guard_table = guards.guard_table
+
+    def timed_guard(*a, **kw):
+        t = time.perf_counter()
+        out = guard_table(*a, **kw)
+        guard_s.append(time.perf_counter() - t)
+        return out
+
+    rec = {}
+    base.bin_dataset_partitioned = keep_bins
+    guards.guard_table = timed_guard
+    saved_log = os.environ.get("MMLSPARK_TPU_EVENT_LOG")
+    os.environ["MMLSPARK_TPU_EVENT_LOG"] = log_path
+    try:
+        est = LightGBMClassifier(**params)
+        pipe = pipeline.Pipeline(stages=[est], invalidDataPolicy="drop")
+        _zero_counts(uh, hh)
+        t0 = time.perf_counter()
+        pm = pipe.fit(Table({"features": Xd, "label": yd}))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = _counts(uh, hh)
+    finally:
+        base.bin_dataset_partitioned = bin_partitioned
+        guards.guard_table = guard_table
+        if saved_log is None:
+            os.environ.pop("MMLSPARK_TPU_EVENT_LOG", None)
+        else:
+            os.environ["MMLSPARK_TPU_EVENT_LOG"] = saved_log
+        events.get_bus()  # detaches (or re-points) the log sink
+    _need(counts, ["hist_panel", "hist_combined"], "persistence pipeline fit")
+    if (counts["hist_panel"], counts["hist_combined"]) != (50, 20):
+        raise AssertionError(f"persistence: histogram.cu launches {counts}, expected 50 + 20")
+    model = pm.getStages()[0]
+    st = model.fit_stats
+    replayed = events.replay(log_path)
+    by_type = {}
+    for ev in replayed:
+        by_type.setdefault(type(ev).__name__, []).append(ev)
+    dead = by_type.get("RecordsDeadLettered", [])
+    started = [e for e in by_type.get("StageStarted", []) if e.name == "LightGBMClassifier"]
+    completed = [e for e in by_type.get("StageCompleted", [])
+                 if e.name == "LightGBMClassifier" and e.status == "ok"]
+    committed = [e for e in by_type.get("ModelCommitted", []) if e.model == "PipelineModel"]
+    if not (len(dead) == 1 and dead[0].count == N_DIRTY_FEATURE + N_DIRTY_LABEL
+            and len(started) == 1 and len(completed) == 1 and len(committed) == 1):
+        raise AssertionError(f"persistence: event log {sorted((k, len(v)) for k, v in by_type.items())}")
+    spans = {s["name"] for s in tracer.export()}
+    if not {"fit:LightGBMClassifier", "lightgbm.binning"} <= spans:
+        raise AssertionError(f"persistence: tracer spans {sorted(spans)}")
+    text = model.get_model_string()
+    t0 = time.perf_counter()
+    plain = LightGBMClassifier(**HIGGS_PARAMS).fit(Table({"features": X[keep], "label": y[keep]}))
+    plain_fit_s = time.perf_counter() - t0
+    if plain.get_model_string() != text:
+        raise AssertionError("persistence: the pipeline's model text differs from a plain fit "
+                             "of the clean complement")
+    del Xd, yd, plain
+    if len(guard_s) != 1:
+        raise AssertionError(f"persistence: the guard ran {len(guard_s)} times, expected once")
+    rec["fit"] = dict(rows=n, rows_dropped=int(dead[0].count), fit_s=fit_s,
+                      guard_s=guard_s[0], binning_s=st.binning_seconds, boosting_s=st.boost_seconds,
+                      plain_fit_s=plain_fit_s, text_equals_plain_fit=True, launches=counts,
+                      events=sorted((k, len(v)) for k, v in by_type.items()),
+                      spans=sorted(spans))
+    print("persistence pipeline fit: " + json.dumps(rec["fit"]), flush=True)
+
+    # binary g and h at iteration 0: the card's are the CPU's bits
+    y_keep = y[keep]
+    obj = objectives.get_objective("binary")
+    g, h = _iteration0(torch, obj, y_keep, None, torch.device("cuda"))
+    g_cpu, h_cpu = _iteration0(torch, obj, y_keep, None, torch.device("cpu"))
+    if not (torch.equal(g.cpu(), g_cpu) and torch.equal(h.cpu(), h_cpu)):
+        raise AssertionError("persistence: binary g and h on the card differ from the CPU's")
+    del g_cpu, h_cpu
+    rec["gradient"] = dict(rows=len(y_keep), **_grad_times(torch, obj, y_keep))
+    print("persistence gradient: " + json.dumps(rec["gradient"]), flush=True)
+    bins, mapper = binned[0]
+    bins_t = train.upload_bins(bins, torch.device("cuda"))
+    rec["kernels"] = _path_kernels(torch, hh, rates, "pipeline fit bins", bins_t, g, h,
+                                   NUM_BINS)
+    del bins_t, g, h, bins, binned
+
+    # PipelineModel save, load, transform
+    test_t = Table({"features": higgs["X_test"]})
+    path = os.path.join(work, "pipeline_model")
+    t0 = time.perf_counter()
+    pm.save(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = pipeline.PipelineModel.load(path)
+    load_s = time.perf_counter() - t0
+    if loaded.getStages()[0].getDevice() != "cuda":
+        raise AssertionError("persistence: a loaded model must predict on the card")
+    t0 = time.perf_counter()
+    out_loaded = loaded.transform(test_t)
+    transform_s = time.perf_counter() - t0
+    out = pm.transform(test_t)
+    cols = ("rawPrediction", "probability", "prediction")
+    if any(out[c].tobytes() != out_loaded[c].tobytes() for c in cols):
+        raise AssertionError("persistence: the loaded pipeline's output columns differ")
+    # native model text, the JSON dump, importances
+    booster = model.booster
+    margins = booster.raw_margin(higgs["X_test"])
+    native = os.path.join(work, "model.txt")
+    model.save_native_model(native)
+    # model text folds the init score into tree 0's leaves in float64, so a
+    # margin moves by float32 rounding of the leaf sums: held within 1e-6 of
+    # the margins' scale (a margin near 0 has no relative accuracy to keep)
+    scale = float(np.abs(margins).max())
+    text_err = {}
+    for label, m in (("load_native_model",
+                      LightGBMClassificationModel.load_native_model(native)),
+                     ("from_model_string",
+                      LightGBMClassificationModel.from_model_string(text))):
+        err = float(np.abs(m.booster.raw_margin(higgs["X_test"]) - margins).max())
+        text_err[label] = err
+        if not err <= 1e-6 * scale:
+            raise AssertionError(f"persistence: {label} margins off by {err} "
+                                 f"(scale {scale})")
+    from_json = Booster.from_string(booster.to_json_string())
+    if from_json.raw_margin(higgs["X_test"]).tobytes() != margins.tobytes():
+        raise AssertionError("persistence: margins through the JSON dump differ")
+    for kind in ("split", "gain"):
+        if not np.array_equal(model.get_feature_importances(kind),
+                              booster.feature_importances(kind)):
+            raise AssertionError(f"persistence: {kind} importances differ")
+    rec["persist"] = dict(save_s=save_s, load_s=load_s, bytes_on_disk=_dir_bytes(path),
+                          native_text_bytes=os.path.getsize(native),
+                          transform_rows=len(higgs["X_test"]), transform_s=transform_s,
+                          columns_bit_equal=True, margin_scale=scale,
+                          text_margin_max_abs_err=text_err,
+                          json_margins_bit_equal=True, importances_equal=True)
+    print("persistence save/load: " + json.dumps(rec["persist"]), flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
 def main():
     import torch
 
@@ -2940,6 +3168,9 @@ def main():
     )
     from mmlspark_tpu_torch.lightgbm.booster import Booster
     from mmlspark_tpu_torch.lightgbm.objectives import auc
+    from mmlspark_tpu_torch.core import pipeline
+    from mmlspark_tpu_torch.dataguard import guards
+    from mmlspark_tpu_torch.observability import events, tracing
     from mmlspark_tpu_torch.ops import histogram
     from mmlspark_tpu_torch.ops import hopper_histogram as hh
     from mmlspark_tpu_torch.ops import u_histogram as uh
@@ -3015,6 +3246,9 @@ def main():
                              train, sharded, PartitionLostError, Table, LightGBMClassifier, auc)
         timed("runtime", phase_runtime, torch, uh, hh, runtime, binning, base, sharded, Table,
               LightGBMClassifier, auc, higgs, fit["held_out_auc"], ooc)
+        persist = timed("persistence", phase_persistence, torch, uh, hh, rates, base, objectives,
+                        train, Table, LightGBMClassifier, LightGBMClassificationModel, Booster,
+                        pipeline, guards, events, tracing, higgs)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
     del higgs
@@ -3048,6 +3282,11 @@ def main():
          ooc_fit["launches"]["hist_panel"], ooc_fit["kernels"][8]),
         ("hist_combined_out_of_core", "histogram.cu", "mmlspark_tpu/ops/pallas_histogram.py:177",
          ooc_fit["launches"]["hist_combined"], ooc_fit["kernels"][1]),
+        # the persistence phase's Pipeline fit, on its bins and iteration-0 stats
+        ("hist_panel_pipeline", "histogram.cu", "mmlspark_tpu/ops/pallas_histogram.py:86",
+         persist["fit"]["launches"]["hist_panel"], persist["kernels"][8]),
+        ("hist_combined_pipeline", "histogram.cu", "mmlspark_tpu/ops/pallas_histogram.py:177",
+         persist["fit"]["launches"]["hist_combined"], persist["kernels"][1]),
     ):
         if launches == 0:
             raise AssertionError(f"{name} was not launched on its path")

@@ -1,14 +1,16 @@
-"""Columnar, immutable Table — the port's minimal copy of
+"""Columnar, immutable Table — the port's copy of
 ``mmlspark_tpu/data/table.py``: named columns of equal length, each a 1-D
 numpy array, a 2-D fixed-width "vector" column, an object column (of per-row
 ``(indices, values)`` sparse tuples, say) or a
 :class:`~mmlspark_tpu_torch.data.sparse.SparseRows` column, which row
-selection and :meth:`Table.concat` keep sparse.
+selection and :meth:`Table.concat` keep sparse. Per-column metadata and the
+``num_partitions`` hint ride along every derived table, as in the
+reference, and a saved table keeps both.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -44,9 +46,10 @@ def _as_column(values):
 class Table:
     """An immutable, ordered collection of named numpy columns of equal length."""
 
-    __slots__ = ("_columns", "_num_rows")
+    __slots__ = ("_columns", "_num_rows", "_metadata", "num_partitions")
 
-    def __init__(self, columns: Mapping[str, np.ndarray]):
+    def __init__(self, columns: Mapping[str, np.ndarray],
+                 metadata: Optional[Dict[str, Dict[str, Any]]] = None, num_partitions: int = 1):
         cols: Dict[str, np.ndarray] = {}
         n = None
         for name, values in columns.items():
@@ -58,6 +61,19 @@ class Table:
             cols[name] = arr
         self._columns = cols
         self._num_rows = n or 0
+        self._metadata = dict(metadata or {})
+        self.num_partitions = max(1, int(num_partitions))
+
+    def _derive(self, columns: Dict[str, np.ndarray],
+                metadata: Optional[Dict[str, Dict[str, Any]]] = None) -> "Table":
+        """A table of ``columns`` that keeps this one's metadata (unless
+        given) and partition hint."""
+        t = Table.__new__(Table)
+        t._columns = columns
+        t._num_rows = len(next(iter(columns.values()))) if columns else 0
+        t._metadata = dict(self._metadata) if metadata is None else metadata
+        t.num_partitions = self.num_partitions
+        return t
 
     @property
     def columns(self) -> List[str]:
@@ -81,18 +97,31 @@ class Table:
             raise KeyError(f"no column {name!r}; available: {sorted(self._columns)}")
         return self._columns[name]
 
-    def with_column(self, name: str, values) -> "Table":
+    def metadata(self, name: str) -> Dict[str, Any]:
+        return self._metadata.get(name, {})
+
+    def with_column(self, name: str, values, metadata: Optional[Dict[str, Any]] = None
+                    ) -> "Table":
         arr = _as_column(values)
         if self._columns and len(arr) != self._num_rows:
             raise ValueError(
                 f"column {name!r} has length {len(arr)}, expected {self._num_rows}"
             )
-        return Table({**self._columns, name: arr})
+        meta = dict(self._metadata)
+        if metadata is not None:
+            meta[name] = metadata
+        return self._derive({**self._columns, name: arr}, meta)
+
+    def with_columns(self, updates: Mapping[str, Any]) -> "Table":
+        out = self
+        for k, v in updates.items():
+            out = out.with_column(k, v)
+        return out
 
     def filter(self, mask) -> "Table":
         """The rows where ``mask`` is true, in order."""
         mask = np.asarray(mask, dtype=bool)
-        return Table({k: v[mask] for k, v in self._columns.items()})
+        return self._derive({k: v[mask] for k, v in self._columns.items()})
 
     def sort_by(self, name: str, ascending: bool = True) -> "Table":
         """Stable sort by one column (ties keep row order, both directions)."""
@@ -104,7 +133,7 @@ class Table:
             # to the original rows, then reversed
             n = len(col)
             order = (n - 1 - np.argsort(col[::-1], kind="stable"))[::-1]
-        return Table({k: v[order] for k, v in self._columns.items()})
+        return self._derive({k: v[order] for k, v in self._columns.items()})
 
     @staticmethod
     def concat(tables: Sequence["Table"]) -> "Table":
@@ -130,11 +159,15 @@ class Table:
                 cols[name] = merged
             else:
                 cols[name] = np.concatenate(parts)
-        return Table(cols)
+        return Table(cols, metadata=dict(tables[0]._metadata),
+                     num_partitions=tables[0].num_partitions)
+
+    def to_dict(self) -> Dict[str, np.ndarray]:
+        return dict(self._columns)
 
     def __repr__(self) -> str:
         parts = ", ".join(
             f"{k}: {v.dtype}{list(v.shape[1:]) if v.ndim > 1 else ''}"
             for k, v in self._columns.items()
         )
-        return f"Table[{self._num_rows} rows]({parts})"
+        return f"Table[{self._num_rows} rows, {self.num_partitions} partitions]({parts})"

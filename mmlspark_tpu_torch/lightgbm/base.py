@@ -6,10 +6,13 @@ select a path the port has not taken over raise ``NotImplementedError`` when
 set away from their defaults, instead of being ignored.
 
 ``numExecutors`` (or an ambient ``runtime.policy()``) bins on the
-fault-tolerant scheduler; under ``MMLSPARK_TPU_CHECKPOINT_DIR`` that binning
-is journaled and the fitted model committed to a ``ModelStore``, in the
-reference's layout; ``numBatches`` chains boosters over row batches
-(``LightGBMBase.scala:26-48``).
+fault-tolerant scheduler, inside a ``lightgbm.binning`` tracer span; under
+``MMLSPARK_TPU_CHECKPOINT_DIR`` that binning is journaled and the fitted
+model committed to a ``ModelStore``, in the reference's layout;
+``numBatches`` chains boosters over row batches
+(``LightGBMBase.scala:26-48``). A finished fit publishes ``ModelCommitted``
+on the event bus. Models save and load as stages, and as LightGBM model
+text (``save_native_model``, ``load_native_model``, ``from_model_string``).
 """
 
 from __future__ import annotations
@@ -58,6 +61,8 @@ from mmlspark_tpu_torch.lightgbm.train import (
     _route_binned,
     train,
 )
+from mmlspark_tpu_torch.observability.events import ModelCommitted, get_bus
+from mmlspark_tpu_torch.observability.tracing import get_tracer
 
 #: FitStats fields that add up over the batches of a numBatches fit
 _SUMMED_STATS = ("trees", "passes", "syncs", "boost_seconds", "u_build_seconds", "oom_retries",
@@ -138,7 +143,7 @@ class LightGBMParams(HasFeaturesCol, HasLabelCol, HasPredictionCol, HasWeightCol
     numExecutors = Param("Partitioned binning executors (0 = inline)", default=0, converter=to_int, validator=ge(0))
     numProcesses = Param("Process-parallel fit (0/1 = in-process)", default=0, converter=to_int, validator=ge(0))
     device = Param("Torch device the fit and predict run on: 'cuda' (default) or 'cpu'",
-                   default="cuda", converter=to_str)
+                   default="cuda", converter=to_str, port_only=True)
 
     #: Params of paths the port has not taken over, with the values it takes.
     _PORTED_VALUES = {"numProcesses": (0, 1), "parallelism": ("data_parallel", "serial")}
@@ -313,10 +318,17 @@ class LightGBMBase(LightGBMParams, Estimator):
         # durable model commit: a versioned atomic write under the
         # checkpoint root, so a restarting server's recovery scan
         # (ModelStore.latest) never reads a torn model file
+        version = None
         ckpt_root = runtime.default_checkpoint_dir()
         if ckpt_root is not None:
-            runtime.ModelStore(os.path.join(ckpt_root, "models")).commit(
+            version = runtime.ModelStore(os.path.join(ckpt_root, "models")).commit(
                 model.get_model_string(), name=type(model).__name__.lower())
+        bus = get_bus()
+        if bus.active:
+            detail = f"{result.booster.num_trees} trees"
+            if version is not None:
+                detail = f"{detail} v{version}"
+            bus.publish(ModelCommitted(model=type(model).__name__, detail=detail))
         return model
 
     def _bin_dataset(self, X, opts: TrainOptions, cat_slots):
@@ -347,9 +359,10 @@ class LightGBMBase(LightGBMParams, Estimator):
             journal_root = os.path.join(ckpt_root, "binning")
             journal_key = self._checkpoint_key(X, kwargs)
         self._runtime_metrics = runtime.RuntimeMetrics()
-        bins, mapper = bin_dataset_partitioned(
-            X, policy=pol, metrics=self._runtime_metrics, journal_root=journal_root,
-            journal_key=journal_key, **kwargs)
+        with get_tracer().span("lightgbm.binning", rows=int(X.shape[0])):
+            bins, mapper = bin_dataset_partitioned(
+                X, policy=pol, metrics=self._runtime_metrics, journal_root=journal_root,
+                journal_key=journal_key, **kwargs)
         self._runtime_metrics.log(prefix="binning: ")
         return bins, mapper
 
@@ -489,8 +502,12 @@ def _merge_boosters(boosters: List[Booster]) -> Booster:
 
 
 class LightGBMModelBase(HasFeaturesCol, HasPredictionCol, Model):
-    """Shared model surface: booster access, native-model text, and the
-    leaf-index and SHAP output columns."""
+    """Shared model surface: booster access, native-model text, feature
+    importances, and the leaf-index and SHAP output columns. A model saves
+    and loads as a stage (``save``/``load``: the booster dict under the
+    ``pickle`` tag, ``device`` not written), or as LightGBM model text;
+    either way a loaded model predicts on the card unless ``device`` is set
+    to ``'cpu'``."""
 
     boosterData = Param("Fitted booster state", is_complex=True)
     leafPredictionCol = Param("Output column for leaf indices ('' = off)", default="",
@@ -498,14 +515,39 @@ class LightGBMModelBase(HasFeaturesCol, HasPredictionCol, Model):
     featuresShapCol = Param("Output column for SHAP values ('' = off)", default="",
                             converter=to_str)
     device = Param("Torch device predict runs on: 'cuda' (default) or 'cpu'",
-                   default="cuda", converter=to_str)
+                   default="cuda", converter=to_str, port_only=True)
 
     @property
     def booster(self) -> Booster:
         return Booster.from_dict(self.getBoosterData())
 
+    def set_booster(self, booster: Booster) -> None:
+        self.set("boosterData", booster.to_dict())
+
     def get_model_string(self) -> str:
         return self.booster.model_to_string()
+
+    def save_native_model(self, path: str) -> None:
+        """``saveNativeModel``: the booster as LightGBM model text."""
+        with open(path, "w") as f:
+            f.write(self.get_model_string())
+
+    @classmethod
+    def from_model_string(cls, text: str, **kwargs) -> "LightGBMModelBase":
+        """A model of ``text``, LightGBM model text or the booster's JSON
+        dump (:meth:`Booster.to_json_string`); ``kwargs`` are its params."""
+        m = cls(**kwargs)
+        m.set_booster(Booster.from_string(text))
+        return m
+
+    @classmethod
+    def load_native_model(cls, path: str, **kwargs) -> "LightGBMModelBase":
+        with open(path) as f:
+            return cls.from_model_string(f.read(), **kwargs)
+
+    def get_feature_importances(self, importance_type: str = "split") -> np.ndarray:
+        """Split-count or total-gain importance per feature."""
+        return self.booster.feature_importances(importance_type)
 
     def _with_leaf_col(self, table: Table, X, booster: Booster) -> Table:
         """``table`` with the leaf slots per tree (``leafPredictionCol``) and

@@ -24,6 +24,7 @@ import numpy as np
 from mmlspark_tpu_torch import runtime
 from mmlspark_tpu_torch.data.sparse import CSRMatrix
 from mmlspark_tpu_torch.lightgbm.bundling import BundleSpec, fit_feature_bundles, pack_bundles
+from mmlspark_tpu_torch.observability import events
 
 MISSING_BIN = 0
 
@@ -213,7 +214,8 @@ def fit_bundles_inplace(
     """Fit Exclusive Feature Bundling over a seeded row sample of the
     original-space bins and attach the spec to the mapper. It stays None
     when no bundle gains a second member, and then every consumer is
-    bit-identical to an unbundled fit."""
+    bit-identical to an unbundled fit. A fitted plan publishes
+    ``FeatureBundled`` on the event bus, as the reference does."""
     rows = _bundle_sample_rows(raw_bins.shape[0], sample_cnt, seed)
     sample = raw_bins if rows is None else raw_bins[rows]
     spec = fit_feature_bundles(
@@ -223,6 +225,17 @@ def fit_bundles_inplace(
         categorical_slots=mapper.categorical_features,
     )
     mapper.bundles = spec
+    if spec is not None:
+        bus = events.get_bus()
+        if bus.active:
+            bus.publish(events.FeatureBundled(
+                num_features=spec.num_features,
+                num_columns=spec.num_columns,
+                k_before=int(sum(int(x) for x in mapper.num_bins)),
+                k_after=spec.k_packed,
+                conflicts=spec.conflict_count,
+                sample_rows=spec.sample_rows,
+            ))
     return spec
 
 

@@ -28,6 +28,7 @@ densified at the trained width in row chunks of at most 256 MB.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -285,12 +286,31 @@ class Booster:
 
         return to_lightgbm_text(self)
 
+    def to_json_string(self) -> str:
+        """Lossless JSON dump, the reference's: every field with its dtype
+        and shape (split bins, bin edges and the init score exactly)."""
+        d = self.to_dict()
+        for k, v in d.items():
+            if isinstance(v, np.ndarray):
+                d[k] = {"__nd__": v.tolist(), "dtype": str(v.dtype), "shape": v.shape}
+        if d.get("cat_values") is not None:
+            d["cat_values"] = {str(k): np.asarray(v).tolist() for k, v in d["cat_values"].items()}
+        return json.dumps(d)
+
     @staticmethod
     def from_string(s: str) -> "Booster":
-        """Parse LightGBM model text."""
-        from mmlspark_tpu_torch.lightgbm.model_text import from_lightgbm_text
+        """Parse either format: LightGBM model text (starts with ``tree``)
+        or the JSON dump of :meth:`to_json_string`, written by either
+        package."""
+        if s.lstrip()[:16].startswith("tree"):
+            from mmlspark_tpu_torch.lightgbm.model_text import from_lightgbm_text
 
-        return from_lightgbm_text(s)
+            return from_lightgbm_text(s)
+        d = json.loads(s)
+        for k, v in list(d.items()):
+            if isinstance(v, dict) and "__nd__" in v:
+                d[k] = np.asarray(v["__nd__"], dtype=v["dtype"]).reshape(v["shape"])
+        return Booster.from_dict(d)
 
     def feature_importances(self, importance_type: str = "split") -> np.ndarray:
         """Split-count or total-gain importance per feature."""

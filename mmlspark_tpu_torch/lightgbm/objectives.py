@@ -31,8 +31,10 @@ class Objective:
 
 
 def _binary_grad_hess(margins, y, w, **kw):
-    p = torch.sigmoid(margins[:, 0])
-    g = (p - y) * w
+    # the reference's compiled sigmoid, 1 / (1 + exp(-x)) with XLA's exp,
+    # so that g and h are its bits (they feed the quantized stats)
+    p = _flush(1.0 / (1.0 + xla_exp(-margins[:, 0])))
+    g = _flush((p - y) * w)
     h = torch.clamp(p * (1.0 - p), min=1e-16) * w
     return g[:, None], h[:, None]
 

@@ -83,6 +83,7 @@ from mmlspark_tpu_torch.lightgbm.objectives import (
 from mmlspark_tpu_torch.ops import histogram
 from mmlspark_tpu_torch.ops import hopper_histogram as hh
 from mmlspark_tpu_torch.ops import u_histogram as uh
+from mmlspark_tpu_torch.observability import events
 from mmlspark_tpu_torch.runtime.faults import current_faults, is_oom_error
 
 _log = logging.getLogger("mmlspark_tpu_torch.lightgbm")
@@ -723,12 +724,9 @@ def _build_tree_leafwise(
     num_leaves = opts.num_leaves
     m = 2 * num_leaves - 1
     max_depth = opts.max_depth if (opts.max_depth and opts.max_depth > 0) else m
-    acc_bytes = uh.histogram_acc_dtype(n, u is not None and noise is not None).itemsize
-    use_sub = (
-        opts.histogram_subtraction
-        and max(1, opts.num_class) * m * c_cols * b_pack * 3 * acc_bytes
-        <= SUBTRACTION_CACHE_BYTES
-    )
+    use_sub = _subtraction_cache_bytes(
+        opts, c_cols, b_pack, uh.histogram_acc_dtype(n, u is not None and noise is not None)
+    ) is not None
     k = max(1, min(opts.leaf_batch, num_leaves - 1, 42 if use_sub else 21))
     tree_stats = _tree_stats(grad, hess, count, noise) if u is not None else None
     quant = noise is not None
@@ -1378,6 +1376,53 @@ def _histogram_path(opts: TrainOptions, n: int, f: int, num_bins: int,
     return u_spec, quant
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype by its numpy name (``int16``), the events' spelling."""
+    return str(dtype).replace("torch.", "")
+
+
+def _subtraction_cache_bytes(opts: TrainOptions, cols: int, bins: int,
+                             acc_dtype: torch.dtype) -> Optional[int]:
+    """Bytes of the leafwise grower's sibling-subtraction cache (one
+    histogram of ``cols`` x ``bins`` x 3 per node of every class's tree),
+    or None when the grower keeps none: subtraction is off, or the cache
+    would exceed ``SUBTRACTION_CACHE_BYTES``."""
+    cache = (max(1, opts.num_class) * (2 * opts.num_leaves - 1) * cols * bins * 3
+             * acc_dtype.itemsize)
+    if not opts.histogram_subtraction or cache > SUBTRACTION_CACHE_BYTES:
+        return None
+    return cache
+
+
+def _publish_plan_events(bus, opts: TrainOptions, n: int, f: int, num_bins: int, bundle,
+                         u_spec, quant: bool) -> None:
+    """The histogram plan's events, with the reference's fields:
+    ``HistogramChunked`` when the U pass streams row chunks, then
+    ``HistogramSubtracted`` when the leafwise grower keeps the
+    sibling-subtraction cache."""
+    if u_spec is not None and u_spec.chunk_rows:
+        dt = uh.histogram_acc_dtype(n, quant)
+        leaf_batch = max(1, min(opts.leaf_batch, opts.num_leaves - 1))
+        bus.publish(events.HistogramChunked(
+            rows=n, k_packed=u_spec.k_pad, chunk_rows=u_spec.chunk_rows,
+            num_chunks=uh.num_u_chunks(n, u_spec), budget_bytes=uh.u_budget(),
+            acc_dtype=_dtype_name(dt),
+            bytes_saved=u_spec.k_pad * 3 * leaf_batch * (4 - dt.itemsize),
+        ))
+    if opts.growth != "leafwise":
+        return
+    cols = len(bundle.widths) if bundle is not None else f
+    bins = bundle.num_bins if bundle is not None else num_bins
+    dt = uh.histogram_acc_dtype(n, quant and u_spec is not None)
+    cache = _subtraction_cache_bytes(opts, cols, bins, dt)
+    if cache is not None:
+        bus.publish(events.HistogramSubtracted(
+            rows=n, num_leaves=opts.num_leaves, packed_columns=cols, packed_bins=bins,
+            acc_dtype=_dtype_name(dt), cache_bytes=cache,
+            bytes_saved_per_tree=(opts.num_leaves - 1) * cols * bins * 3 * dt.itemsize,
+        ))
+
+
 def _cat_u_rows(u, u_spec, bundle, cat_slots):
     """The resident U's categorical rows for the membership product (bf16,
     cut once per fit) and their feature and local-bin maps; None off the
@@ -1578,6 +1623,9 @@ def train(
     faults = current_faults()  # injected device OOMs, keyed (iteration, retry)
     u_spec, quant = _histogram_path(opts, n, f, num_bins, mapper)
     stats.u_budget = uh.u_budget() if u_spec is not None else 0
+    bus = events.get_bus()
+    if bus.active:
+        _publish_plan_events(bus, opts, n, f, num_bins, bundle, u_spec, quant)
     stats.quantized = quant
     if quant and opts.growth == "depthwise" and opts.depth >= 7:
         _log.warning(
@@ -1619,6 +1667,14 @@ def train(
             "histogram pass ran out of device memory at iteration %d (%s); degrading: U "
             "budget -> %d bytes, chunk_rows -> %d, retry %d", it, str(err)[:120],
             new_budget, u_spec.chunk_rows, retries)
+        bus = events.get_bus()
+        if bus.active:
+            bus.publish(events.MemoryPressure(
+                source="device", level="critical", used_bytes=0.0, limit_bytes=0.0,
+                detail=str(err)[:200]))
+            bus.publish(events.HistogramDegraded(
+                rows=n, budget_bytes=new_budget, chunk_rows=u_spec.chunk_rows, stage="loop",
+                iteration=int(it), retries=int(retries)))
         return True
 
     valid_state = []

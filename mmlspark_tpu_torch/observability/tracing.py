@@ -1,0 +1,343 @@
+"""Request/stage tracing — the port's copy of
+``mmlspark_tpu/observability/tracing.py``: Dapper-style spans with
+``contextvars`` propagation.
+
+Spark's UI reconstructs "what ran inside what" from listener events; a
+serving stack needs the stronger form: a trace id minted at the request
+edge that survives thread hops (HTTP handler -> micro-batch loop ->
+model apply) so one request's full span tree can be read back. This
+module is that layer:
+
+- :class:`Span` — name, ids, monotonic start/end, tags, status;
+- :class:`Tracer` — ``with tracer.span("stage"):`` opens a child of the
+  ambient span (a ``contextvars.ContextVar``, so nesting follows the
+  call stack and is async/thread-correct); ``start_span``/``finish``
+  are the manual form for spans that cross threads (the scheduler's
+  attempts, the serving batch loop);
+- ids are **deterministic**: process-wide counters, not random — two
+  identical single-threaded runs produce identical span ids, which is
+  what replay-based tests want;
+- :class:`TraceContext` carries a trace across the **wire**
+  (``X-Trace-Id`` / ``X-Parent-Span-Id`` headers, or a plain dict in a
+  process-group epoch spec); ``start_span(..., context=ctx)`` opens a
+  span whose trace id came from another process. Wire parent ids are
+  qualified ``<process>:<span_id>`` so the merged fleet log can resolve
+  parents unambiguously even though every process mints span ids from
+  its own counter;
+- every span entered through the context manager is bridged into
+  :func:`mmlspark_tpu_torch.core.profiling.annotate`, so an active
+  ``torch.profiler`` trace (and NVTX on a card) shows the same names as
+  the exported span tree.
+
+Finished spans accumulate in a bounded ring (default 4096) and export
+to JSON via :meth:`Tracer.export`. When the event bus has listeners
+(``MMLSPARK_TPU_EVENT_LOG`` set), every finished span is also published
+as a :class:`~mmlspark_tpu_torch.observability.events.SpanRecorded` event, so
+the per-process event-log segments carry the span stream the history
+server's cross-process waterfall is rebuilt from.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import contextvars
+import dataclasses
+import json
+import threading
+import time
+from typing import Any, Dict, Iterator, List, Optional
+
+
+@dataclasses.dataclass
+class Span:
+    name: str
+    trace_id: str
+    span_id: str
+    parent_id: Optional[str]
+    start: float
+    end: Optional[float] = None
+    status: str = "ok"
+    tags: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def duration(self) -> Optional[float]:
+        return None if self.end is None else self.end - self.start
+
+    def to_record(self) -> Dict[str, Any]:
+        return {
+            "name": self.name,
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+            "parent_id": self.parent_id,
+            "start": self.start,
+            "end": self.end,
+            "duration": self.duration,
+            "status": self.status,
+            "tags": dict(self.tags),
+        }
+
+
+#: wire headers a :class:`TraceContext` rides in (HTTP hop or epoch spec)
+TRACE_HEADER = "X-Trace-Id"
+PARENT_HEADER = "X-Parent-Span-Id"
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceContext:
+    """A trace's identity off the wire: enough to parent a local span
+    under a span minted in another process.
+
+    ``parent_span_id`` is **qualified** as ``<process>:<span_id>`` when it
+    crosses a process boundary (see :meth:`from_span`) — span-id counters
+    are per-process, so the bare id alone is ambiguous in a merged fleet
+    log. In-process parent ids stay bare; the history server resolves a
+    bare id within the owning process first.
+    """
+
+    trace_id: str
+    parent_span_id: str = ""
+
+    def to_headers(self) -> Dict[str, str]:
+        """The HTTP carrier: ``X-Trace-Id`` (+ ``X-Parent-Span-Id``)."""
+        headers = {TRACE_HEADER: self.trace_id}
+        if self.parent_span_id:
+            headers[PARENT_HEADER] = self.parent_span_id
+        return headers
+
+    @classmethod
+    def from_headers(cls, headers: Any) -> Optional["TraceContext"]:
+        """Parse the carrier headers (any ``.get``-able mapping, e.g.
+        ``BaseHTTPRequestHandler.headers``); None when no trace rode in."""
+        if headers is None:
+            return None
+        trace_id = headers.get(TRACE_HEADER)
+        if not trace_id:
+            return None
+        return cls(
+            trace_id=str(trace_id),
+            parent_span_id=str(headers.get(PARENT_HEADER) or ""),
+        )
+
+    @classmethod
+    def from_span(cls, span: Span) -> "TraceContext":
+        """The context to ship when ``span`` is the remote parent; the
+        parent id is qualified with this process's event-log label."""
+        from mmlspark_tpu_torch.observability.events import process_label
+
+        return cls(
+            trace_id=span.trace_id,
+            parent_span_id=f"{process_label()}:{span.span_id}",
+        )
+
+    def to_dict(self) -> Dict[str, str]:
+        """JSON-able form for non-HTTP carriers (epoch specs)."""
+        return {"trace_id": self.trace_id, "parent_span_id": self.parent_span_id}
+
+    @classmethod
+    def from_dict(cls, rec: Optional[Dict[str, Any]]) -> Optional["TraceContext"]:
+        if not rec or not rec.get("trace_id"):
+            return None
+        return cls(
+            trace_id=str(rec["trace_id"]),
+            parent_span_id=str(rec.get("parent_span_id") or ""),
+        )
+
+
+class Tracer:
+    """Span factory + ambient-span propagation + finished-span ring.
+
+    ``xprof=True`` (the default; the reference's name) mirrors
+    context-managed spans into ``core.profiling.annotate``, so
+    ``torch.profiler`` traces (and NVTX on a card) carry the same names.
+    """
+
+    def __init__(self, max_spans: int = 4096, xprof: bool = True):
+        self._lock = threading.Lock()
+        self._trace_seq = 0
+        self._span_seq = 0
+        self._finished: "collections.deque[Span]" = collections.deque(
+            maxlen=max_spans
+        )
+        self._current: "contextvars.ContextVar[Optional[Span]]" = (
+            contextvars.ContextVar("mmlspark_tpu_span", default=None)
+        )
+        self._xprof = xprof
+
+    # -- ids (deterministic: counters, not random) ---------------------------
+
+    def _next_ids(self, parent: Optional[Span]) -> tuple:
+        with self._lock:
+            self._span_seq += 1
+            span_id = f"{self._span_seq:08x}"
+            if parent is not None:
+                return parent.trace_id, span_id
+            self._trace_seq += 1
+            return f"t{self._trace_seq:08x}", span_id
+
+    # -- ambient span --------------------------------------------------------
+
+    def current(self) -> Optional[Span]:
+        return self._current.get()
+
+    @contextlib.contextmanager
+    def attach(self, span: Optional[Span]) -> Iterator[None]:
+        """Make ``span`` ambient for the body — how a worker thread joins
+        a trace started elsewhere (pass the parent captured at submit)."""
+        token = self._current.set(span)
+        try:
+            yield
+        finally:
+            self._current.reset(token)
+
+    # -- manual spans (cross-thread lifecycles) ------------------------------
+
+    def start_span(
+        self,
+        name: str,
+        parent: Optional[Span] = None,
+        context: Optional[TraceContext] = None,
+        **tags: Any,
+    ) -> Span:
+        """Open a span without making it ambient. ``parent=None`` uses the
+        ambient span; a detached root needs an explicit ``parent`` of a
+        fresh trace (or no ambient span). ``context`` adopts a trace that
+        arrived over the wire: the span joins the remote trace id with the
+        (qualified) remote span as its parent — a local ``parent`` wins
+        when both are given."""
+        parent = parent if parent is not None else self.current()
+        if parent is None and context is not None:
+            with self._lock:
+                self._span_seq += 1
+                span_id = f"{self._span_seq:08x}"
+            return Span(
+                name=name,
+                trace_id=context.trace_id,
+                span_id=span_id,
+                parent_id=context.parent_span_id or None,
+                start=time.monotonic(),
+                tags=dict(tags),
+            )
+        trace_id, span_id = self._next_ids(parent)
+        return Span(
+            name=name,
+            trace_id=trace_id,
+            span_id=span_id,
+            parent_id=parent.span_id if parent is not None else None,
+            start=time.monotonic(),
+            tags=dict(tags),
+        )
+
+    def finish(self, span: Span, status: str = "ok", **tags: Any) -> Span:
+        span.end = time.monotonic()
+        span.status = status
+        if tags:
+            span.tags.update(tags)
+        with self._lock:
+            self._finished.append(span)
+        self._publish(span)
+        return span
+
+    def _publish(self, span: Span) -> None:
+        """Mirror a finished span onto the event bus (SpanRecorded) so the
+        per-process event-log segments carry the span stream; free when
+        nobody listens."""
+        from mmlspark_tpu_torch.observability import events as _events
+
+        bus = _events.get_bus()
+        if not bus.active:
+            return
+        duration = span.duration or 0.0
+        bus.publish(_events.SpanRecorded(
+            name=span.name,
+            trace_id=span.trace_id,
+            span_id=span.span_id,
+            parent_id=span.parent_id or "",
+            start=span.start,
+            duration=duration,
+            wall_start=time.time() - duration,
+            status=span.status,
+            tags={
+                k: v for k, v in span.tags.items()
+                if isinstance(v, (str, int, float, bool))
+            },
+        ))
+
+    # -- context-managed spans (the common form) -----------------------------
+
+    @contextlib.contextmanager
+    def span(
+        self,
+        name: str,
+        parent: Optional[Span] = None,
+        context: Optional[TraceContext] = None,
+        **tags: Any,
+    ) -> Iterator[Span]:
+        """Open a span as a child of ``parent`` (default: the ambient
+        span; ``context`` joins a wire-propagated trace), make it ambient
+        for the body, finish it on exit (status = exception class name on
+        error), and mirror the name into any active profiler trace."""
+        sp = self.start_span(name, parent=parent, context=context, **tags)
+        token = self._current.set(sp)
+        try:
+            with self._annotate(name):
+                yield sp
+        except BaseException as e:
+            self.finish(sp, status=type(e).__name__)
+            raise
+        else:
+            self.finish(sp)
+        finally:
+            self._current.reset(token)
+
+    @contextlib.contextmanager
+    def _annotate(self, name: str) -> Iterator[None]:
+        if not self._xprof:
+            yield
+            return
+        from mmlspark_tpu_torch.core.profiling import annotate
+
+        with annotate(name):
+            yield
+
+    # -- export --------------------------------------------------------------
+
+    def export(self, trace_id: Optional[str] = None) -> List[Dict[str, Any]]:
+        """Finished spans as JSON-able records, oldest first; optionally
+        filtered to one trace."""
+        with self._lock:
+            spans = list(self._finished)
+        return [
+            s.to_record()
+            for s in spans
+            if trace_id is None or s.trace_id == trace_id
+        ]
+
+    def to_json(self, trace_id: Optional[str] = None) -> str:
+        return json.dumps(self.export(trace_id), indent=2)
+
+    def span_tree(self, trace_id: str) -> Dict[str, Any]:
+        """One trace as a nested dict (children under "children"), the
+        shape the acceptance check reads: request -> batch -> apply."""
+        records = self.export(trace_id)
+        by_id = {r["span_id"]: dict(r, children=[]) for r in records}
+        roots = []
+        for r in by_id.values():
+            parent = by_id.get(r["parent_id"])
+            if parent is not None:
+                parent["children"].append(r)
+            else:
+                roots.append(r)
+        return {"trace_id": trace_id, "roots": roots}
+
+    def clear(self) -> None:
+        with self._lock:
+            self._finished.clear()
+
+
+_TRACER = Tracer()
+
+
+def get_tracer() -> Tracer:
+    """The process-global tracer every instrumented layer shares."""
+    return _TRACER

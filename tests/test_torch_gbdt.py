@@ -108,6 +108,46 @@ def test_objective_matches_jax(ref, name):
     np.testing.assert_allclose(to.init_score(y, 1, w), jo.init_score(y, 1, w), atol=1e-6)
 
 
+def _binary_case(kind, n=2_000_000):
+    """Float32 margins (N(0, 1), or U(-120, 120) where exp and the sigmoid
+    reach their clamps and subnormals), Bernoulli(0.5) labels and U(0.5, 2)
+    weights from ``default_rng(1)``."""
+    rng = np.random.default_rng(1)
+    if kind == "normal":
+        m = rng.standard_normal(n).astype(np.float32)
+    else:
+        m = rng.uniform(-120, 120, n).astype(np.float32)
+    y = (rng.random(n) < 0.5).astype(np.float32)
+    w = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    return m[:, None], y, w
+
+
+@pytest.mark.parametrize("kind", ["normal", "wide"])
+def test_binary_gradients_are_the_compiled_references_bits(ref, kind):
+    """The reference's sigmoid compiles to 1 / (1 + exp(-x)) with XLA's CPU
+    exp and flush-to-zero; g and h feed the quantized stats, so they must
+    be its bits."""
+    import jax
+
+    m, y, w = _binary_case(kind)
+    jg, jh = jax.jit(ref["obj"]._binary_grad_hess)(m, y, w)
+    tg, th = tobj._binary_grad_hess(torch.from_numpy(m), torch.from_numpy(y), torch.from_numpy(w))
+    assert tg.numpy().tobytes() == np.asarray(jg).tobytes()
+    assert th.numpy().tobytes() == np.asarray(jh).tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["normal", "wide"])
+def test_binary_gradients_on_the_card_are_the_cpus_bits(kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    m, y, w = (torch.from_numpy(a) for a in _binary_case(kind))
+    cpu = tobj._binary_grad_hess(m, y, w)
+    card = tobj._binary_grad_hess(m.cuda(), y.cuda(), w.cuda())
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
 def test_metrics_match_jax(ref):
     rng = np.random.default_rng(2)
     y = (rng.uniform(size=5000) > 0.5).astype(np.float64)
@@ -231,7 +271,11 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "mmlspark_tpu_torch.lightgbm.convert, mmlspark_tpu_torch.lightgbm.bundling, "
         "mmlspark_tpu_torch.lightgbm.train, mmlspark_tpu_torch.ops.histogram, "
         "mmlspark_tpu_torch.ops.hopper_histogram, mmlspark_tpu_torch.ops.u_histogram, "
-        "mmlspark_tpu_torch.kernels.build\n"
+        "mmlspark_tpu_torch.kernels.build, mmlspark_tpu_torch.core.serialize, "
+        "mmlspark_tpu_torch.core.pipeline, mmlspark_tpu_torch.core.profiling, "
+        "mmlspark_tpu_torch.core.utils, mmlspark_tpu_torch.dataguard.guards, "
+        "mmlspark_tpu_torch.observability.events, mmlspark_tpu_torch.observability.tracing, "
+        "mmlspark_tpu_torch.observability.registry\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mmlspark_tpu.'))"
         " or m == 'mmlspark_tpu']\n"
         "assert not bad, bad\n"

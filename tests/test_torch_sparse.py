@@ -433,17 +433,19 @@ def test_sparse_bins_through_histogram_cu_equal_the_plain_version():
     assert card.get_model_string() == LightGBMClassifier(device="cuda", **params).fit(
         Table({"features": dense32, "label": y[:20_000]})).get_model_string()
     # against the CPU: exact on the quantized path, and on the default path the
-    # same splits above float32 rounding, and margins within it. The card's
-    # sigmoid rounds some gradients an ulp apart from the CPU's, so the exact
-    # integer histogram sums differ in their last bits; the label is a
-    # function of two features, so once they are split the leaves' best
-    # gains are rounding residue (a few ulps of the parent's score) and those
-    # last bits rank them.
+    # same splits above float32 rounding, and margins within it. The binary
+    # gradients are the CPU's bits, and so are the integer histogram sums;
+    # the float32 prefix over the bins (float64-accumulated by the CPU's
+    # torch.cumsum, one float32 chain on the card) and each node's total (a
+    # sum over the bins in each device's reduction order) round apart. The
+    # label is a function of two features, so once they are split the
+    # leaves' best gains are rounding residue (a few ulps of the parent's
+    # score) and those last bits rank them.
     obj = objectives.get_objective("binary")
     m = torch.from_numpy(np.random.default_rng(1).normal(size=(20_000, 1)).astype(np.float32))
     yw = (torch.from_numpy(y[:20_000].astype(np.float32)), torch.ones(20_000))
     for a, b in zip(obj.grad_hess(m.cuda(), *(v.cuda() for v in yw)), obj.grad_hess(m, *yw)):
-        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2.0 ** -22)
+        assert torch.equal(a.cpu(), b)
     cpu = LightGBMClassifier(device="cpu", **params).fit(sparse_t)
     _same_signal_trees(card.booster, cpu.booster)
     np.testing.assert_allclose(card.booster.raw_margin(dense32, device="cpu"),
