@@ -30,7 +30,10 @@ non-zero and prints no result):
    version forced in: identical trees, margins within 1e-4.
 5. The default path: LightGBMClassifier.fit on 11,000,000 x 28 rows (maxBin
    255, 31 leaves, leafBatch 8, 10 iterations) on cuda, then transform of
-   500,000 held-out rows; the kernel launch counts of this run.
+   500,000 held-out rows; the kernel launch counts of this run. Then the
+   first 200,000 of its rows fitted on the card and on the CPU port: the
+   same model text, byte for byte (the default path's float32 reductions
+   are one chain in the same order on both devices).
 6. U pass kernel (u_histogram.cu) at 1,000,000 x 28 x 256 (U of 7.2 GB),
    for 1, 8 and 42 nodes, quantized and bf16 stats: bit-equal to its plain
    version, two launches bit-identical; times of the kernel, the plain
@@ -189,7 +192,8 @@ non-zero and prints no result):
    through the scheduler path of bin_to_memmap (8 executors, tasks of
    250,000 rows): the sequential pass's bytes, bin seconds, host RSS growth
    below the same limit; a memory-pressure WARN run on 4 shards halves each
-   shard's task; sample_hbm against torch.cuda.mem_get_info.
+   shard's task; sample_hbm against torch.cuda.memory_allocated() and
+   mem_get_info's total.
 25. Persistence and the pipeline on phase 5's 11,000,000 rows: 11,000
    rows get a NaN feature and 1,100 others label -1; Pipeline(stages=
    [LightGBMClassifier(phase 5's params, numExecutors=8, so that binning
@@ -208,7 +212,34 @@ non-zero and prints no result):
    largest magnitude), the
    booster's JSON dump (margins bit-equal), get_feature_importances (split
    and gain); histogram.cu on the fit's bins and iteration-0 stats.
-26. One JSON line with every kernel (the grouped wide-level launches and
+26. Observability: phase 5's fit on its bins, unprofiled and then under
+   the device profiler (observability.profiler, enabled) and
+   core.profiling.profile_trace: equal model text, both boosting times,
+   histogram.cu's 50 + 20 launches; from key_averages() and the Chrome
+   trace the device time by kernel (top 10), histogram.cu's trace time per
+   launch against phase 5's CUDA-event time, boosting split into the
+   step's regions (gradient, histogram, subtraction, split search, sync,
+   routing, tree update, margin update; a kernel belongs to the region open
+   on the host when it launched), the device-busy share of the step
+   windows and the five longest idle gaps with the host region at each
+   (with no device time in the trace: the regions timed by CUDA events and
+   the idle share null); host syncs per tree; histogram.cu's two entries
+   through DeviceProfiler.wrap with their costs, and the snapshot's
+   roofline rows against the card's peaks. Then phase 24's numExecutors=8
+   fit with one killed executor under an event log: the timeline's
+   dispatched, retried and failed counts equal RuntimeMetrics.summary(),
+   the failed attempt's span carries its status, format_timeline printed.
+   Then phase 25's Pipeline fit on its first 2,000,000 rows (cut for the
+   phase's budget) under MMLSPARK_TPU_QUALITY_STORE and
+   MMLSPARK_TPU_INCIDENT_DIR: the reference profile committed and read back
+   through its CRC; a transform of phase 5's 500,000 held-out rows drifts
+   nowhere, the same rows with feature 0 shifted by one standard deviation
+   drift on features[0] (and on no other input) and the incident recorder
+   writes its bundle; transform times with the monitor on and off, outputs
+   bit-equal. Then ResourceWatchdog.poll(): the profiler's device-memory
+   gauges within 1 MiB of torch.cuda.memory_allocated() and
+   max_memory_allocated().
+27. One JSON line with every kernel (the grouped wide-level launches and
    phases 22, 23, 24 and 25's cases among them), then the card line, then
    the result line. Each phase prints its wall time; TF32 matmuls must be
    off.
@@ -232,6 +263,7 @@ N_KERNEL_ODD = 11_000_003  # feature rows of the bins off the 32-bit boundary
 N_FEATURES = 28  # HIGGS's width
 NUM_BINS = 256
 N_PARITY = 1_000_000
+N_CPU_TEXT = 200_000  # phase 5's rows fitted on the card and the CPU port: equal text
 N_FIT = 11_000_000
 N_TEST = 500_000
 FIT_ITERS = 10
@@ -243,14 +275,6 @@ WIDE_LEVELS = (64, 128)  # depthwise levels 6 and 7: node-grouped histogram.cu l
 HIGGS_PARAMS = dict(numIterations=FIT_ITERS, numLeaves=31, maxBin=NUM_BINS - 1, leafBatch=8,
                     learningRate=0.1, device="cuda")
 
-# Card memory rate (bytes/s) and float32 peak outside the tensor cores
-# (ops/s), by name: NVIDIA's data sheets at the full power limit.
-CARDS = (
-    ("H200", 4.8e12, 67e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100", 3.35e12, 67e12),
-)
 
 
 def _make_data(n, f, seed=0):
@@ -270,11 +294,13 @@ def _card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def _rates(name):
-    for key, bw, flops in CARDS:
-        if key in name:
-            return bw, flops
-    raise RuntimeError(f"no memory rate known for card {name!r}")
+def _rates(profiler, name):
+    """The card's peaks from the package's table
+    (``observability.profiler.device_peaks``: NVIDIA's data sheets)."""
+    peaks = profiler.device_peaks(name)
+    if not peaks.known:
+        raise RuntimeError(f"no memory rate known for card {name!r}")
+    return peaks
 
 
 def _time_ms(torch, fn, reps):
@@ -388,7 +414,7 @@ def _hist_record(torch, hh, rates, entry, bins_t, grad, hess, count, node, k, b,
     n_in = int(rows.numel())
     del ids, data, acc, rows
     torch.cuda.empty_cache()
-    bound_ms, bound_by = _bound(hh.bytes_needed(n, f, n_in, k, b), hh.adds_needed(f, n_in), rates)
+    bound_ms, bound_by = rates.bound_ms(hh.bytes_needed(n, f, n_in, k, b), hh.adds_needed(f, n_in))
     rec.update(rows_in_range=n_in, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
     return rec
@@ -431,8 +457,7 @@ def _wide_level_case(torch, hh, rates, bins_t, grad, hess, count, k, b, gen):
     library_ms = _time_ms(torch, lambda: acc.index_add_(0, ids, data), 3)
     n_in = int(rows.numel())
     del ids, data, acc, rows
-    bound_ms, bound_by = _bound(hh.bytes_needed(n, f, n_in, k, b), hh.adds_needed(f, n_in),
-                                rates)
+    bound_ms, bound_by = rates.bound_ms(hh.bytes_needed(n, f, n_in, k, b), hh.adds_needed(f, n_in))
     rec = dict(k=k, groups=[list(g) for g in groups], launches_per_pass=launched,
                rows_in_range=n_in, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
@@ -607,15 +632,23 @@ def phase_fit(torch, hh, histogram, base, Table, LightGBMClassifier, auc, rows):
         held_out_auc=test_auc, launches=launches,
     )
     print("fit: " + json.dumps(rec), flush=True)
+    # the default path is device-independent: the card's text on N_CPU_TEXT
+    # of these rows is the CPU port's byte for byte
+    small = Table({"features": X[:N_CPU_TEXT], "label": y[:N_CPU_TEXT]})
+    t1 = time.perf_counter()
+    card_text = LightGBMClassifier(**HIGGS_PARAMS).fit(small).get_model_string()
+    t2 = time.perf_counter()
+    cpu_text = LightGBMClassifier(**dict(HIGGS_PARAMS, device="cpu")).fit(small).get_model_string()
+    t3 = time.perf_counter()
+    if card_text != cpu_text:
+        raise AssertionError(f"fit: the card's model text on {N_CPU_TEXT} rows differs from "
+                             "the CPU port's")
+    rec["cpu_text"] = dict(rows=N_CPU_TEXT, text_equal=True, card_fit_s=t2 - t1,
+                           cpu_fit_s=t3 - t2)
+    print("fit card against CPU: " + json.dumps(rec["cpu_text"]), flush=True)
     bins, mapper = binned[0]
     return rec, dict(bins=bins, mapper=mapper, X=X[:rows], y=y[:rows], X_test=X[rows:],
                      y_test=y[rows:], booster=model.booster)
-
-
-def _bound(bytes_, ops, rates):
-    bw, flops = rates
-    byte_ms, op_ms = bytes_ / bw * 1e3, ops / flops * 1e3
-    return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
 
 
 def _packed_cases(torch, uh, g, h, c, gen):
@@ -715,9 +748,9 @@ def phase_packed_kernels(torch, uh, hh, rates):
                 library_ms = _time_ms(torch, lambda: torch.mm(u_bf16, panel), 5)
             del panel, panel_t
             n_in = int((node_u < k).sum())
-            bound_ms, bound_by = _bound(
+            bound_ms, bound_by = rates.bound_ms(
                 uh.panel_dot_bytes(spec.k_pad, n_pad, N_U, k, quant),
-                hh.adds_needed(f, n_in), rates)
+                hh.adds_needed(f, n_in))
             rec = dict(kernel="u_panel_dot", k=k, path=path, rows=N_U, rows_in_range=n_in,
                        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bound_ms, bound_by=bound_by)
@@ -789,8 +822,8 @@ def _scatter_case(torch, hh, rates, label, bins, flat_bins, stats, node, k, spec
     library_ms = _time_ms(torch, lambda: acc.index_add_(0, ids, data), 3)
     n_in = int(rows.numel())
     del ids, data, acc, rows
-    bound_ms, bound_by = _bound(hh.bin_scatter_bytes(n, f, n_in, spec.k_pad, k, quant),
-                                hh.adds_needed(f, n_in), rates)
+    bound_ms, bound_by = rates.bound_ms(hh.bin_scatter_bytes(n, f, n_in, spec.k_pad, k, quant),
+                                        hh.adds_needed(f, n_in))
     rec = dict(kernel=label, k=k, path=path, rows=n, rows_in_range=n_in, max_abs_err=max_err,
                ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                bound_by=bound_by)
@@ -2747,7 +2780,7 @@ def phase_runtime(torch, uh, hh, runtime, binning, base, sharded, Table, LightGB
     AUC, _ensemble_margin against the merged booster's raw_margin); the
     44,000,000-row ingest through the scheduler path (the sequential
     pass's bytes, bin seconds, host RSS growth) and a memory-pressure WARN
-    run (task count doubled); sample_hbm against torch.cuda.mem_get_info."""
+    run (task count doubled); sample_hbm against torch.cuda's allocator."""
     import filecmp
 
     X, y = higgs["X"], higgs["y"]
@@ -2914,15 +2947,17 @@ def phase_runtime(torch, uh, hh, runtime, binning, base, sharded, Table, LightGB
                   tasks=warn.summary()["tasks_done"], bin_s=warn_s, bytes_equal=True))
     print("runtime scheduled ingest: " + json.dumps(rec["scheduled_ingest"]), flush=True)
 
-    # the card gauge against torch.cuda.mem_get_info
+    # the card gauge (the profiler's sample_memory: torch.cuda's allocator)
+    # against torch.cuda.memory_allocated and mem_get_info's total
     torch.cuda.synchronize()
     free, total = torch.cuda.mem_get_info(0)
+    allocated = torch.cuda.memory_allocated(0)
     (dev_name, used, limit), = runtime.sample_hbm()
-    if dev_name != "cuda:0" or limit != total or abs(used - (total - free)) > (64 << 20):
-        raise AssertionError(f"sample_hbm {dev_name, used, limit} against mem_get_info "
-                             f"{free, total}")
+    if dev_name != "cuda:0" or limit != total or abs(used - allocated) > (1 << 20):
+        raise AssertionError(f"sample_hbm {dev_name, used, limit} against memory_allocated "
+                             f"{allocated} and mem_get_info {free, total}")
     rec["sample_hbm"] = dict(device=dev_name, bytes_in_use=used, bytes_limit=limit,
-                             mem_get_info_used=total - free)
+                             memory_allocated=allocated, mem_get_info_used=total - free)
     print("runtime sample_hbm: " + json.dumps(rec["sample_hbm"]), flush=True)
     return rec
 
@@ -2967,13 +3002,10 @@ def _grad_times(torch, objective, y):
     return {f"{k}_ms": statistics.median(v) for k, v in times.items()}
 
 
-def phase_persistence(torch, uh, hh, rates, base, objectives, train, Table, LightGBMClassifier,
-                      LightGBMClassificationModel, Booster, pipeline, guards, events, tracing,
-                      higgs):
-    """Persistence and the pipeline on phase 5's rows (see the module
-    docstring, phase 25). Returns the record, with histogram.cu's entries
-    on the fit's bins and iteration-0 stats under "kernels"."""
-    X, y = higgs["X"], higgs["y"]
+def _dirty(X, y):
+    """Phase 25's corrupted copy of (X, y): N_DIRTY_FEATURE seeded rows
+    get a NaN feature, N_DIRTY_LABEL others label -1; and the clean rows'
+    mask."""
     n = len(y)
     rng = np.random.default_rng(25)
     dirty = rng.choice(n, N_DIRTY_FEATURE + N_DIRTY_LABEL, replace=False)
@@ -2983,6 +3015,18 @@ def phase_persistence(torch, uh, hh, rates, base, objectives, train, Table, Ligh
     yd[label_rows] = -1.0
     keep = np.ones(n, dtype=bool)
     keep[dirty] = False
+    return Xd, yd, keep
+
+
+def phase_persistence(torch, uh, hh, rates, base, objectives, train, Table, LightGBMClassifier,
+                      LightGBMClassificationModel, Booster, pipeline, guards, events, tracing,
+                      higgs):
+    """Persistence and the pipeline on phase 5's rows (see the module
+    docstring, phase 25). Returns the record, with histogram.cu's entries
+    on the fit's bins and iteration-0 stats under "kernels"."""
+    X, y = higgs["X"], higgs["y"]
+    n = len(y)
+    Xd, yd, keep = _dirty(X, y)
     params = dict(HIGGS_PARAMS, numExecutors=RT_WORKERS)
     work = os.path.join(DATA_DIR, "persistence")
     shutil.rmtree(work, ignore_errors=True)  # the event log appends
@@ -3137,6 +3181,405 @@ def phase_persistence(torch, uh, hh, rates, base, objectives, train, Table, Ligh
     return rec
 
 
+# -- phase 26: observability ---------------------------------------------------
+
+#: the boosting step's regions (``train._region``) phase 26 splits time by
+STEP_REGIONS = ("gbdt.gradient", "gbdt.histogram", "gbdt.subtraction", "gbdt.split_search",
+                "gbdt.sync", "gbdt.routing", "gbdt.tree_update", "gbdt.margin_update")
+N_QUALITY = 2_000_000  # the quality-plane Pipeline fit's rows: phase 25's, cut for the budget
+QUALITY_SHIFT_SIGMA = 1.0  # feature 0's shift, in its standard deviations
+ROOFLINE_REPS = 10  # profiled histogram.cu calls per entry
+
+
+def _union(intervals):
+    """Merged (start, end) intervals, sorted."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _trace_breakdown(path):
+    """From a Chrome trace of a profiled fit: device time by kernel name,
+    device time and host time by step region (a kernel belongs to the
+    innermost region open on the host when it was launched), the device's
+    busy share of the ``gbdt.step`` windows and their five longest idle
+    gaps with the host region at each gap's middle. None when the trace
+    holds no device activity."""
+    import bisect
+
+    with open(path, encoding="utf-8") as fh:
+        trace = json.load(fh)
+    evs = [e for e in (trace["traceEvents"] if isinstance(trace, dict) else trace)
+           if e.get("ph") == "X"]
+    dev = [e for e in evs if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        return None
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in evs
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    ann = [e for e in evs if e.get("cat") == "user_annotation"
+           and e.get("name", "").startswith("gbdt.")]
+    steps = sorted((e["ts"], e["ts"] + e["dur"]) for e in ann if e["name"] == "gbdt.step")
+    inner = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in ann
+                   if e["name"] in STEP_REGIONS)
+    starts = [r[0] for r in inner]
+
+    def region_at(t):
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t < inner[i][1]:
+            return inner[i][2]
+        j = bisect.bisect_right([w[0] for w in steps], t) - 1
+        return "gbdt.step (other)" if j >= 0 and t < steps[j][1] else "outside the step"
+
+    by_kernel, by_region = {}, {}
+    busy = []
+    for e in dev:
+        k = by_kernel.setdefault(e["name"][:90], [0, 0.0])
+        k[0] += 1
+        k[1] += e["dur"]
+        t = launch_ts.get(e.get("args", {}).get("correlation"))
+        region = region_at(t) if t is not None else "unattributed"
+        r = by_region.setdefault(region, {"device_ms": 0.0, "kernels": 0, "host_ms": 0.0})
+        r["device_ms"] += e["dur"] / 1e3
+        r["kernels"] += 1
+        busy.append((e["ts"], e["ts"] + e["dur"]))
+    for a, b, name in inner:
+        by_region.setdefault(name, {"device_ms": 0.0, "kernels": 0, "host_ms": 0.0})
+        by_region[name]["host_ms"] += (b - a) / 1e3
+    window = sum(b - a for a, b in steps)
+    merged = _union(busy)
+    busy_us, gaps = 0.0, []
+    for a, b in steps:
+        cur = a
+        for x, y in merged:
+            if y <= a or x >= b:
+                continue
+            x, y = max(x, a), min(y, b)
+            if x > cur:
+                gaps.append((x - cur, cur, x))
+            busy_us += y - x
+            cur = max(cur, y)
+        if b > cur:
+            gaps.append((b - cur, cur, b))
+    gaps.sort(reverse=True)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:10]
+    return dict(
+        window_ms=window / 1e3, steps=len(steps),
+        device_busy_share=busy_us / window if window else None,
+        idle_share=1.0 - busy_us / window if window else None,
+        top_kernels=[dict(name=n, launches=c, device_ms=us / 1e3) for n, (c, us) in top],
+        regions={k: dict(v) for k, v in sorted(by_region.items())},
+        idle_gaps=[dict(ms=d / 1e3, host_region=region_at((a + b) / 2)) for d, a, b in gaps[:5]],
+        hist_kernel=[by_kernel.get(n, [0, 0.0]) for n in by_kernel if "hist_kernel" in n],
+        hist_finalize=[by_kernel.get(n, [0, 0.0]) for n in by_kernel if "hist_finalize" in n],
+    )
+
+
+def _event_regions(torch, train):
+    """Replace the step's regions with CUDA-event pairs (the fallback when
+    the profiler's trace has no device activity); returns the booked
+    (name, start, end) list and the function that restores the regions."""
+    booked, original = [], train._region
+
+    class _Timed:
+        def __init__(self, name):
+            self.name = name
+
+        def __enter__(self):
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+
+        def __exit__(self, *exc):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            booked.append((self.name, self.start, end))
+
+    train._region = lambda on, name: _Timed(name) if on else original(on, name)
+    return booked, lambda: setattr(train, "_region", original)
+
+
+def _profile_fit(torch, uh, hh, train, profiler, profiling, rates, higgs, fit_rec, work):
+    """Phase 5's fit on its bins, unprofiled and profiled, with the trace's
+    breakdown; then histogram.cu's entries through DeviceProfiler.wrap for
+    its roofline rows."""
+    bins, mapper, y = higgs["bins"], higgs["mapper"], higgs["y"]
+    opts = train.TrainOptions(objective="binary", num_iterations=FIT_ITERS, num_leaves=31,
+                              learning_rate=0.1, max_bin=NUM_BINS - 1, leaf_batch=8)
+    prof = profiler.get_profiler()
+    prof.disable()
+    prof.clear()
+    quiet = train.train(bins, y, opts, mapper=mapper, device="cuda")
+    torch.cuda.synchronize()
+    _zero_counts(uh, hh)
+    trace_dir = os.path.join(work, "trace")
+    prof.enable()
+    try:
+        with profiling.profile_trace(trace_dir) as tp:
+            loud = train.train(bins, y, opts, mapper=mapper, device="cuda")
+            torch.cuda.synchronize()
+    finally:
+        prof.disable()
+    counts = _counts(uh, hh)
+    if (counts["hist_panel"], counts["hist_combined"]) != (50, 20):
+        raise AssertionError(f"observability: profiled fit launches {counts}, expected 50 + 20")
+    if loud.booster.model_to_string() != quiet.booster.model_to_string():
+        raise AssertionError("observability: the profiled fit's model text differs")
+    # device time by name from key_averages(), kernels and ops only (the
+    # gbdt.* rows are the regions' device-side spans)
+    key_dev = sorted(((e.key[:90], e.count, e.self_device_time_total / 1e3)
+                      for e in tp.key_averages()
+                      if e.self_device_time_total > 0 and not e.key.startswith("gbdt.")),
+                     key=lambda r: -r[2])
+    trace_file = max((os.path.join(trace_dir, f) for f in os.listdir(trace_dir)),
+                     key=os.path.getmtime)
+    breakdown = _trace_breakdown(trace_file) if key_dev else None
+    st, lst = quiet.stats, loud.stats
+    rec = dict(rows=len(y), quiet_boosting_s=st.boost_seconds, profiled_boosting_s=lst.boost_seconds,
+               text_equal=True, launches=counts, host_syncs_per_tree=st.syncs / st.trees,
+               trace_mb=os.path.getsize(trace_file) / 1e6,
+               key_averages_top10=[dict(name=n, calls=c, device_ms=ms)
+                                   for n, c, ms in key_dev[:10]])
+    phase5_per_launch = fit_rec["hist_ms"] / (50 + 20)
+    if breakdown is not None:
+        n_hist = sum(c for c, _ in breakdown["hist_kernel"])
+        hist_us = sum(us for _, us in breakdown["hist_kernel"] + breakdown["hist_finalize"])
+        if n_hist != 70:
+            raise AssertionError(f"observability: the trace holds {n_hist} hist_kernel launches")
+        rec.update(device_time_source="torch.profiler", **{
+            k: breakdown[k] for k in ("window_ms", "steps", "device_busy_share", "idle_share",
+                                      "top_kernels", "regions", "idle_gaps")})
+        rec["histogram_cu"] = dict(launches=n_hist, device_ms=hist_us / 1e3,
+                                   ms_per_launch=hist_us / 1e3 / n_hist,
+                                   phase5_cuda_event_ms_per_launch=phase5_per_launch)
+    else:
+        # no device activity in the trace: time the regions with CUDA events
+        booked, restore = _event_regions(torch, train)
+        prof.enable()
+        try:
+            train.train(bins, y, opts, mapper=mapper, device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            prof.disable()
+            restore()
+        regions = {}
+        for name, a, b in booked:
+            r = regions.setdefault(name, {"device_ms": 0.0, "calls": 0})
+            r["device_ms"] += a.elapsed_time(b)
+            r["calls"] += 1
+        rec.update(device_time_source="cuda_events", idle_share=None,
+                   idle_share_reason="key_averages() showed no device time", regions=regions,
+                   histogram_cu=dict(launches=70, phase5_cuda_event_ms_per_launch=phase5_per_launch))
+    print("observability profiled fit: " + json.dumps(rec), flush=True)
+
+    # histogram.cu's entries through DeviceProfiler.wrap: roofline rows
+    dev = torch.device("cuda")
+    bins_t = train.upload_bins(bins, dev)
+    g, h = _iteration0(torch, train.get_objective("binary"), y, None, dev)
+    count = torch.ones_like(g)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    node8 = torch.randint(0, 8, (len(y),), device=dev, dtype=torch.int32, generator=gen)
+    prof.enable()
+    try:
+        for name, fn, node, k in (
+                ("histogram.cu panel k=8", hh.build_histograms_cuda, node8, 8),
+                ("histogram.cu combined k=1", hh.build_histograms_combined_cuda,
+                 torch.zeros_like(node8), 1)):
+            wrapped = prof.wrap(fn, name=name, cost=hh.histogram_cost)
+            for _ in range(ROOFLINE_REPS + 1):
+                wrapped(bins_t, g, h, count, node, k, NUM_BINS)
+        snap = prof.snapshot()
+    finally:
+        prof.disable()
+    del bins_t, g, h, count, node8
+    torch.cuda.empty_cache()
+    rows = [r for r in snap["roofline"] if r["name"].startswith("histogram.cu")]
+    if len(rows) != 2 or not all(r["bound"] == "memory" for r in rows):
+        raise AssertionError(f"observability: roofline rows {rows}")
+    roof = dict(platform=snap["platform"], peak_flops_per_s=snap["peak_flops_per_s"],
+                peak_hbm_bytes_per_s=snap["peak_hbm_bytes_per_s"], device=snap["device"],
+                rows=snap["roofline"])
+    print("observability roofline: " + json.dumps(roof), flush=True)
+    rec["roofline"] = roof
+    return rec
+
+
+def _scheduler_events(torch, runtime, events, tracing, Table, LightGBMClassifier, higgs, work):
+    """Phase 24's numExecutors=8 fit with one killed executor under an
+    event log: the timeline's task counts equal RuntimeMetrics.summary(),
+    the failed attempt's span carries its status."""
+    log_path = os.path.join(work, "events.jsonl")
+    tracer = tracing.get_tracer()
+    tracer.clear()
+    plan = runtime.FaultPlan(seed=RT_FAULT_SEED).kill_random_task(RT_WORKERS)
+    est = LightGBMClassifier(numExecutors=RT_WORKERS, **HIGGS_PARAMS)
+    saved_log = os.environ.get("MMLSPARK_TPU_EVENT_LOG")
+    os.environ["MMLSPARK_TPU_EVENT_LOG"] = log_path
+    try:
+        t0 = time.perf_counter()
+        with runtime.inject_faults(plan):
+            model = est.fit(Table({"features": higgs["X"], "label": higgs["y"]}))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        if saved_log is None:
+            os.environ.pop("MMLSPARK_TPU_EVENT_LOG", None)
+        else:
+            os.environ["MMLSPARK_TPU_EVENT_LOG"] = saved_log
+        events.get_bus()  # detaches (or re-points) the log sink
+    if model.get_model_string() != higgs["booster"].model_to_string():
+        raise AssertionError("observability: the killed-executor fit's text differs from phase 5's")
+    summary = est._runtime_metrics.summary()
+    tl = events.timeline(events.replay(log_path))
+    tasks = tl["tasks"]
+    got = (tasks["dispatched"], tasks["retried"], tasks["failed"])
+    want = (summary["dispatches"], summary["retries_total"], summary["failures_total"])
+    if got != want or [k for k, _, _ in plan.fired] != ["kill"] or want[1] != 1:
+        raise AssertionError(f"observability: timeline tasks {got} against metrics {want}, "
+                             f"fired {plan.fired}")
+    failed = [(tid, a["reason"]) for tid, atts in tasks["attempts"].items() for a in atts]
+    spans = [sp for sp in tracer.export() if sp["name"].startswith("task-")]
+    span_status = sorted({sp["status"] for sp in spans})
+    if len(failed) != 1 or failed[0][1] not in span_status:
+        raise AssertionError(f"observability: failed attempts {failed}, span statuses {span_status}")
+    text = events.format_timeline(tl)
+    print("observability timeline:\n" + text, flush=True)
+    rec = dict(fit_s=fit_s, dispatched=got[0], retried=got[1], failed=got[2],
+               failed_attempt=dict(task=failed[0][0], reason=failed[0][1]),
+               attempt_spans=len(spans), span_statuses=span_status,
+               job_spans=sum(sp["name"] == "scheduler.job" for sp in tracer.export()))
+    print("observability scheduler: " + json.dumps(rec), flush=True)
+    return rec
+
+
+def _quality_plane(torch, pipeline, quality, runtime, events, Table, LightGBMClassifier, higgs,
+                   work):
+    """Phase 25's Pipeline fit on N_QUALITY rows under a quality store: the
+    reference profile committed and read back through its CRC; 500,000
+    held-out rows drift nowhere, the same rows with feature 0 shifted do
+    (and the incident recorder writes its bundle); outputs bit-equal with
+    the monitor off."""
+    X, y = higgs["X"][:N_QUALITY], higgs["y"][:N_QUALITY]
+    Xd, yd, _ = _dirty(X, y)
+    store_dir = os.path.join(work, "quality")
+    incident_dir = os.path.join(work, "incidents")
+    saved = {k: os.environ.get(k) for k in ("MMLSPARK_TPU_QUALITY_STORE",
+                                           "MMLSPARK_TPU_INCIDENT_DIR")}
+    os.environ["MMLSPARK_TPU_QUALITY_STORE"] = store_dir
+    os.environ["MMLSPARK_TPU_INCIDENT_DIR"] = incident_dir
+    seen = []
+    bus = events.get_bus()
+    bus.add_listener(seen.append)
+    try:
+        pipe = pipeline.Pipeline(stages=[LightGBMClassifier(numExecutors=RT_WORKERS,
+                                                            **HIGGS_PARAMS)],
+                                 invalidDataPolicy="drop")
+        t0 = time.perf_counter()
+        pm = pipe.fit(Table({"features": Xd, "label": yd}))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        store = runtime.ModelStore(store_dir)
+        artifacts = sorted(f for f in os.listdir(store_dir) if f.endswith(".quality.json"))
+        if len(artifacts) != 1 or not os.path.exists(os.path.join(store_dir,
+                                                                   artifacts[0] + ".crc32")):
+            raise AssertionError(f"observability: quality store holds {artifacts}")
+        version = int(artifacts[0].split("-")[1].split(".")[0])
+        profile = quality.load_profile(store, "model", version)
+        if profile is None:
+            raise AssertionError("observability: the reference profile failed its CRC read")
+        monitor = quality.get_monitor()
+        if monitor is None or monitor.version != version:
+            raise AssertionError("observability: no monitor on the committed profile")
+        Xte = higgs["X_test"]
+        shifted = Xte.copy()
+        shifted[:, 0] += QUALITY_SHIFT_SIGMA * float(X[:, 0].std())
+        drift = {}
+        outs = {}
+        for label, rows in (("unshifted", Xte), ("shifted", shifted)):
+            seen.clear()
+            t0 = time.perf_counter()
+            outs[label] = pm.transform(Table({"features": rows}))
+            drift[label] = dict(
+                transform_s=time.perf_counter() - t0,
+                detected=sorted(e.feature for e in seen if type(e).__name__ == "DriftDetected"),
+                incidents=[e.path for e in seen if type(e).__name__ == "IncidentRecorded"])
+        if drift["unshifted"]["detected"] or "features[0]" not in drift["shifted"]["detected"]:
+            raise AssertionError(f"observability: drift {drift}")
+        inputs = [f for f in drift["shifted"]["detected"] if f.startswith("features[")]
+        if inputs != ["features[0]"] or len(drift["shifted"]["incidents"]) != 1:
+            raise AssertionError(f"observability: drift {drift}")
+        bundle = drift["shifted"]["incidents"][0]
+        with open(os.path.join(bundle, "manifest.json"), encoding="utf-8") as fh:
+            manifest = json.load(fh)
+        if manifest["trigger"] != "drift_detected":
+            raise AssertionError(f"observability: incident manifest {manifest}")
+    finally:
+        bus.remove_listener(seen.append)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        quality.install_monitor(None)
+        from mmlspark_tpu_torch.observability import incidents
+
+        incidents.get_recorder()  # uninstalls the recorder
+    cols = ("rawPrediction", "probability", "prediction")
+    for label, rows in (("unshifted", Xte), ("shifted", shifted)):
+        t0 = time.perf_counter()
+        off = pm.transform(Table({"features": rows}))
+        drift[label]["transform_off_s"] = time.perf_counter() - t0
+        if any(off[c].tobytes() != outs[label][c].tobytes() for c in cols):
+            raise AssertionError("observability: the monitored transform's outputs differ")
+    rec = dict(rows=N_QUALITY, fit_s=fit_s, profile_version=version,
+               profile_features=len(profile.features), artifact=artifacts[0],
+               transform_rows=len(Xte), drift=drift, incident_files=sorted(os.listdir(bundle)),
+               outputs_bit_equal=True)
+    print("observability quality: " + json.dumps(rec), flush=True)
+    return rec
+
+
+def _watchdog_memory(torch, runtime, registry):
+    """ResourceWatchdog.poll() on the card: the profiler's device-memory
+    gauges against torch.cuda's allocator counts."""
+    ballast = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")  # a known allocation
+    runtime.ResourceWatchdog(checkpoint_dir=None, eventlog_dir=None).poll()
+    reg = registry.get_registry()
+    in_use = reg.get("profiler_hbm_bytes_in_use").labels(device="cuda:0").value
+    peak = reg.get("profiler_hbm_bytes_peak").labels(device="cuda:0").value
+    want = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())
+    del ballast
+    rec = dict(hbm_bytes_in_use=in_use, memory_allocated=want[0], hbm_bytes_peak=peak,
+               max_memory_allocated=want[1])
+    if abs(in_use - want[0]) > (1 << 20) or abs(peak - want[1]) > (1 << 20):
+        raise AssertionError(f"observability: watchdog gauges {rec}")
+    print("observability watchdog: " + json.dumps(rec), flush=True)
+    return rec
+
+
+def phase_observability(torch, uh, hh, train, runtime, pipeline, events, tracing, Table,
+                        LightGBMClassifier, rates, higgs, fit_rec):
+    """Phase 26 (see the module docstring)."""
+    from mmlspark_tpu_torch.core import profiling
+    from mmlspark_tpu_torch.observability import profiler, quality, registry
+
+    work = os.path.join(DATA_DIR, "observability")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rec = dict(
+        fit=_profile_fit(torch, uh, hh, train, profiler, profiling, rates, higgs, fit_rec, work),
+        scheduler=_scheduler_events(torch, runtime, events, tracing, Table, LightGBMClassifier,
+                                    higgs, work),
+        quality=_quality_plane(torch, pipeline, quality, runtime, events, Table,
+                               LightGBMClassifier, higgs, work),
+        watchdog=_watchdog_memory(torch, runtime, registry))
+    shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
 def main():
     import torch
 
@@ -3170,7 +3613,7 @@ def main():
     from mmlspark_tpu_torch.lightgbm.objectives import auc
     from mmlspark_tpu_torch.core import pipeline
     from mmlspark_tpu_torch.dataguard import guards
-    from mmlspark_tpu_torch.observability import events, tracing
+    from mmlspark_tpu_torch.observability import events, profiler, tracing
     from mmlspark_tpu_torch.ops import histogram
     from mmlspark_tpu_torch.ops import hopper_histogram as hh
     from mmlspark_tpu_torch.ops import u_histogram as uh
@@ -3180,7 +3623,7 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}",
           flush=True)
-    rates = _rates(kind)
+    rates = _rates(profiler, kind)
 
     t0 = time.perf_counter()
     histogram_extension()
@@ -3229,7 +3672,7 @@ def main():
     types = timed("boosting_types", phase_boosting_types, torch, uh, hh, train, auc, higgs)
     explain_boosters = [("higgs", higgs["booster"], higgs["X_test"]),
                         ("covertype", cover["booster"], cover["X_test"])]
-    del higgs["bins"], cover
+    del cover
     timed("regression", phase_regression, torch, uh, hh, binning, train, objectives, Table,
           LightGBMRegressor)
     timed("insurance", phase_insurance, torch, uh, hh, binning, objectives, Table,
@@ -3249,6 +3692,8 @@ def main():
         persist = timed("persistence", phase_persistence, torch, uh, hh, rates, base, objectives,
                         train, Table, LightGBMClassifier, LightGBMClassificationModel, Booster,
                         pipeline, guards, events, tracing, higgs)
+        timed("observability", phase_observability, torch, uh, hh, train, runtime, pipeline,
+              events, tracing, Table, LightGBMClassifier, rates, higgs, fit)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
     del higgs

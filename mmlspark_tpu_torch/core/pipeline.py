@@ -8,9 +8,10 @@ package loads in the other. ``Pipeline.fit`` publishes ``StageStarted``,
 ``StageCompleted``, ``ModelCommitted`` and ``RecordsDeadLettered`` on the
 event bus and opens a ``fit:<stage>`` span per stage; ``PipelineModel``
 opens ``transform:<stage>`` spans inside an ambient one, as the reference
-does. The reference's quality-monitor hooks need its quality plane, which
-the port does not have yet: with ``MMLSPARK_TPU_QUALITY_STORE`` set, fit
-and transform raise instead of skipping them.
+does. With ``MMLSPARK_TPU_QUALITY_STORE`` set, ``Pipeline.fit`` commits a
+reference profile of the training columns and scores next to the model
+version, and ``PipelineModel.transform`` feeds the drift monitor
+(:mod:`~mmlspark_tpu_torch.observability.quality`).
 """
 
 from __future__ import annotations
@@ -49,14 +50,19 @@ def _tracer():
     return _TRACER
 
 
-def _refuse_quality_store() -> None:
-    """The reference profiles fits and transforms into its quality plane
-    when ``MMLSPARK_TPU_QUALITY_STORE`` is set; the port has no quality
-    plane yet, and says so rather than skip it."""
-    if os.environ.get("MMLSPARK_TPU_QUALITY_STORE"):
-        raise NotImplementedError(
-            "MMLSPARK_TPU_QUALITY_STORE is set, but the quality monitor "
-            "(observability/quality.py) is not ported yet; it comes with serving")
+_GET_QMONITOR = None
+
+
+def _quality_monitor():
+    # same ambient-gate pattern as _tracer: the accessor is cached so an
+    # unconfigured transform pays one env lookup, and the quality plane
+    # only materializes when MMLSPARK_TPU_QUALITY_STORE is set
+    global _GET_QMONITOR
+    if _GET_QMONITOR is None:
+        from mmlspark_tpu_torch.observability.quality import get_monitor
+
+        _GET_QMONITOR = get_monitor
+    return _GET_QMONITOR()
 
 
 class PipelineStage(Params):
@@ -157,7 +163,6 @@ class Pipeline(Estimator):
             ModelCommitted, StageCompleted, StageStarted, get_bus,
         )
 
-        _refuse_quality_store()
         self.validate(table)
         bus, tracer = get_bus(), _tracer()
         fit_id = _next_fit_id()
@@ -214,6 +219,13 @@ class Pipeline(Estimator):
             bus.publish(ModelCommitted(
                 model=type(model).__name__, version=fit_id, detail=f"{len(fitted)} stages",
             ))
+        # quality plane (env-gated): profile the training columns + the
+        # fitted scores and commit the reference artifact next to the
+        # model version, so live scoring has something to drift against
+        if os.environ.get("MMLSPARK_TPU_QUALITY_STORE"):
+            from mmlspark_tpu_torch.observability.quality import capture_pipeline_reference
+
+            capture_pipeline_reference(model, table, version_hint=fit_id)
         return model
 
 
@@ -223,8 +235,13 @@ class PipelineModel(Model):
     def transform(self, table: Table) -> Table:
         # stage spans open only when an ambient span exists to join (a fit
         # span, an explicit tracer.span(...) around the call): a bare
-        # untraced transform pays one contextvar read
-        _refuse_quality_store()
+        # untraced transform pays one contextvar read. The quality gate is
+        # the same posture: one env lookup when unconfigured.
+        monitor = _quality_monitor()
+        observe = monitor is not None and not monitor.transform_suppressed
+        if observe:
+            in_cols = set(table.columns)
+            monitor.observe_columns({c: table.column(c) for c in in_cols})
         tracer = _tracer()
         if tracer.current() is None:
             for stage in self.getStages():
@@ -233,6 +250,10 @@ class PipelineModel(Model):
             for i, stage in enumerate(self.getStages()):
                 with tracer.span(f"transform:{type(stage).__name__}", stage=i):
                     table = stage.transform(table)
+        if observe:
+            monitor.observe_columns({
+                c: table.column(c) for c in table.columns if c not in in_cols
+            })
         return table
 
     def transform_schema(self, schema: Dict[str, Any]) -> Dict[str, Any]:

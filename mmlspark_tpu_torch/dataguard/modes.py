@@ -19,7 +19,7 @@ byte for byte.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, List, Sequence
 
 #: the three Spark read modes, normalized lowercase
 PERMISSIVE = "permissive"
@@ -77,3 +77,19 @@ def summarize_reasons(records: Sequence[CorruptRecord]) -> str:
     for rec in records:
         counts[rec.reason] = counts.get(rec.reason, 0) + 1
     return ",".join(f"{k}={v}" for k, v in sorted(counts.items()))
+
+
+def as_corrupt_records(items: Sequence[Any]) -> List[CorruptRecord]:
+    """Coerce a mixed list (CorruptRecord or plain dicts) into records."""
+    out: List[CorruptRecord] = []
+    for item in items:
+        if isinstance(item, CorruptRecord):
+            out.append(item)
+        else:
+            out.append(CorruptRecord(
+                source=str(item.get("source", "?")),
+                index=int(item.get("index", -1)),
+                reason=str(item.get("reason", "unknown")),
+                detail=str(item.get("detail", "")),
+            ))
+    return out

@@ -68,6 +68,7 @@ import numpy as np
 import torch
 
 from mmlspark_tpu_torch import random as threefry
+from mmlspark_tpu_torch.core.profiling import annotate
 from mmlspark_tpu_torch.device import DeviceLike, resolve_device
 from mmlspark_tpu_torch.lightgbm.binning import BinMapper
 from mmlspark_tpu_torch.lightgbm.booster import Booster
@@ -84,6 +85,7 @@ from mmlspark_tpu_torch.ops import histogram
 from mmlspark_tpu_torch.ops import hopper_histogram as hh
 from mmlspark_tpu_torch.ops import u_histogram as uh
 from mmlspark_tpu_torch.observability import events
+from mmlspark_tpu_torch.observability.profiler import _signature, get_profiler
 from mmlspark_tpu_torch.runtime.faults import current_faults, is_oom_error
 
 _log = logging.getLogger("mmlspark_tpu_torch.lightgbm")
@@ -302,6 +304,16 @@ class SplitSearch(NamedTuple):
     value_cat: torch.Tensor  # (k,) own leaf value under l2 + cat_l2
 
 
+_NO_REGION = contextlib.nullcontext()
+
+
+def _region(on: bool, name: str):
+    """A named region of the boosting step (``core.profiling.annotate``)
+    while the device profiler is active, else a reusable no-op: a quiet fit
+    pays one branch per site."""
+    return annotate(name) if on else _NO_REGION
+
+
 def _soft_threshold(g: torch.Tensor, l1: float) -> torch.Tensor:
     if l1 == 0.0:
         return g
@@ -346,23 +358,40 @@ def _lane_prefix(h: np.ndarray, lanes: int) -> np.ndarray:
     return out
 
 
+def _chain_prefix(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive float32 prefix sums over ``dim`` as one chain in index
+    order, the same bits on both devices: numpy's float32 ``cumsum`` on the
+    CPU (``torch.cumsum`` there accumulates in float64) and ``torch.cumsum``
+    on the card, which over a dimension that is not the innermost runs one
+    sequential float32 loop per column (``chip_smoke.py`` checks it)."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.cumsum(x.numpy(), axis=dim, dtype=np.float32))
+    return torch.cumsum(x, dim=dim)
+
+
+def _bin_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over the bin axis ``dim``: exact on integer (quantized) sums,
+    else the last of :func:`_chain_prefix`, so the default path's node
+    totals and bundle residuals do not depend on the device's reduction
+    order."""
+    if not x.is_floating_point():
+        return x.sum(dim=dim)
+    return _chain_prefix(x, dim).select(dim, -1)
+
+
 def _bin_prefix(hist: torch.Tensor, in_bin_order: bool) -> torch.Tensor:
     """Left stats at "<= bin": inclusive prefix sums over the bin axis (dim
-    2 of (k, F, B, 3)). ``in_bin_order``: float32 sums in the order of the
-    reference's HIGHEST-precision triangular matmul on the CPU: bin order
-    at 49-64 bins and 113-128, 241-256, interleaved lanes at other widths
-    (:func:`_prefix_lanes`). The quantized path asks for it: its
-    histograms are the reference's bit for bit, and so then are its gains.
-    On the card ``torch.cumsum`` over a dimension that is not the innermost
-    runs one sequential float32 loop per column (``chip_smoke.py`` checks
-    it); on the CPU it accumulates in float64, which the float histograms
-    keep (they differ from the reference's in rounding already) and the
-    quantized path replaces by numpy's float32 sums in the reference's
-    order."""
+    2 of (k, F, B, 3)), in float32 on both devices. ``in_bin_order``:
+    float32 sums in the order of the reference's HIGHEST-precision
+    triangular matmul on the CPU: bin order at 49-64 bins and 113-128,
+    241-256, interleaved lanes at other widths (:func:`_prefix_lanes`). The
+    quantized path asks for it: its histograms are the reference's bit for
+    bit, and so then are its gains. Otherwise one chain in bin order
+    (:func:`_chain_prefix`), which the card computes too."""
     if in_bin_order and hist.device.type == "cpu":
         lanes = _prefix_lanes(hist.shape[2])
         return torch.from_numpy(_lane_prefix(hist.numpy(), lanes))
-    return torch.cumsum(hist, dim=2)
+    return _chain_prefix(hist, 2)
 
 
 @functools.lru_cache(maxsize=64)
@@ -632,7 +661,7 @@ def _expand_bundled(h, totals, bundle, num_bins: int):
     k = h.shape[0]
     dense = h.reshape(k, -1, 3)[:, cidx].reshape(k, bundle.num_features, num_bins, 3)
     dense = dense * gmask.to(h.dtype)[None, :, :, None]
-    resid = totals[:, None, :] - dense.sum(dim=2)
+    resid = totals[:, None, :] - _bin_sum(dense, 2)
     return dense + dmask.to(resid.dtype)[None, :, :, None] * resid[:, :, None, :]
 
 
@@ -654,7 +683,7 @@ def _packed_pass(bins_t, u, u_spec, grad, hess, count, key, num_nodes, num_bins,
     else:
         h = uh.build_histograms_u(u, grad, hess, count, key, num_nodes, u_spec,
                                   stats=tree_stats, dequant=False)
-    return h, h[:, 0].sum(dim=1)
+    return h, _bin_sum(h[:, 0], 1)
 
 
 def _expand(h, totals, tree_stats, bundle=None, num_bins: int = 0):
@@ -697,6 +726,7 @@ def _build_tree_leafwise(
     bundle=None,
     cat_u: Optional[tuple] = None,  # categorical rows of U and their maps
     lr: Optional[float] = None,
+    regions: bool = False,  # profiler regions (:func:`_region`)
 ) -> TreeArrays:
     """Best-first growth, ``leaf_batch`` frontier leaves per histogram pass,
     with the reference's semantics: the top-k frontier leaves by cached gain
@@ -734,23 +764,27 @@ def _build_tree_leafwise(
 
     def packed(key, num_nodes):
         stats.passes += 1
-        return _packed_pass(bins_t, u, u_spec, grad, hess, count, key, num_nodes, b_pack,
-                            tree_stats)
+        with _region(regions, "gbdt.histogram"):
+            return _packed_pass(bins_t, u, u_spec, grad, hess, count, key, num_nodes, b_pack,
+                                tree_stats)
 
     def expand(h, totals):
-        return _expand(h, totals, tree_stats, bundle, b)
+        with _region(regions, "gbdt.histogram"):
+            return _expand(h, totals, tree_stats, bundle, b)
 
     def searchk(histk, totalsk, depthk):
         """Candidate searches for fresh children: depth-capped, NaN gains
         set to -inf so they can neither halt growth nor win."""
-        s = _split_search(histk, totalsk, edges, feature_mask, opts, lr, quant)
-        capped = torch.where(depthk >= max_depth, torch.full_like(s.gain, -math.inf), s.gain)
-        capped = torch.where(torch.isnan(capped), torch.full_like(capped, -math.inf), capped)
-        return s._replace(gain=capped)
+        with _region(regions, "gbdt.split_search"):
+            s = _split_search(histk, totalsk, edges, feature_mask, opts, lr, quant)
+            capped = torch.where(depthk >= max_depth, torch.full_like(s.gain, -math.inf), s.gain)
+            capped = torch.where(torch.isnan(capped), torch.full_like(capped, -math.inf), capped)
+            return s._replace(gain=capped)
 
     root_p, root_tp = packed(torch.zeros(n, dtype=torch.int32, device=dev), 1)
     root_hist, root_tot = expand(root_p, root_tp)
-    root = _split_search(root_hist, root_tot, edges, feature_mask, opts, lr, quant)
+    with _region(regions, "gbdt.split_search"):
+        root = _split_search(root_hist, root_tot, edges, feature_mask, opts, lr, quant)
 
     zi = torch.zeros(m, dtype=torch.int64, device=dev)
     zf = torch.zeros(m, dtype=torch.float32, device=dev)
@@ -803,7 +837,8 @@ def _build_tree_leafwise(
     while n_splits < num_leaves - 1:
         # The pass's one sync: the frontier's cached gains, ordered
         # descending with ties by lower slot (stable sort), as lax.top_k.
-        c_gain = st["c_gain"].cpu().numpy()
+        with _region(regions, "gbdt.sync"):
+            c_gain = st["c_gain"].cpu().numpy()
         stats.syncs += 1
         order = np.argsort(-c_gain, kind="stable")[:k]
         top_g = c_gain[order]
@@ -814,55 +849,57 @@ def _build_tree_leafwise(
         if opts.leaf_batch_ratio > 0.0:
             can &= (j == 0) | (top_g >= opts.leaf_batch_ratio * top_g[0])
         ka = int(np.argmin(can)) if not can.all() else k  # `can` is monotone in j
-        top_l = torch.as_tensor(order[:ka], dtype=torch.int64, device=dev)
-        lslot = torch.as_tensor(2 * (n_splits + np.arange(ka)) + 1, dtype=torch.int64,
-                                device=dev)
-        rslot = lslot + 1
-        lanes = torch.arange(ka, dtype=torch.int64, device=dev)
+        with _region(regions, "gbdt.routing"):
+            top_l = torch.as_tensor(order[:ka], dtype=torch.int64, device=dev)
+            lslot = torch.as_tensor(2 * (n_splits + np.arange(ka)) + 1, dtype=torch.int64,
+                                    device=dev)
+            rslot = lslot + 1
+            lanes = torch.arange(ka, dtype=torch.int64, device=dev)
 
-        sf, sb, sthr = st["c_feat"][top_l], st["c_bin"][top_l], st["c_thr"][top_l]
+            sf, sb, sthr = st["c_feat"][top_l], st["c_bin"][top_l], st["c_thr"][top_l]
 
-        # Route the splitting leaves' rows and key the pass: one lookup from
-        # a row's slot to its lane replaces the reference's unrolled per-lane
-        # sweep (leaves are distinct, so a row has at most one lane).
-        lane_of[top_l] = lanes
-        node = st["node"]
-        lane = lane_of[node.long()]
-        lane_of[top_l] = -1
-        active = lane >= 0
-        lc = lane.clamp(min=0)
-        feat_r = sf[lc]  # each row's split feature (original id)
-        if rconsts is not None:
-            col = _orig_bins(bins_t[rconsts[0][feat_r], rows], feat_r, rconsts)
-        else:
-            col = bins_t[feat_r, rows].long()
-        right = col > sb[lc]
-        if has_cat:
-            sic = st["c_iscat"][top_l]
-            scm = st["c_catmask"][top_l]  # (ka, B)
-            if cat_u is not None:
-                u_rows, feat_of_row, local_of_row = cat_u
-                in_set = uh.membership_matmul(u_rows, feat_of_row, local_of_row, sf, scm, n)
-                left_cat = in_set[lc, rows]
+            # Route the splitting leaves' rows and key the pass: one lookup from
+            # a row's slot to its lane replaces the reference's unrolled per-lane
+            # sweep (leaves are distinct, so a row has at most one lane).
+            lane_of[top_l] = lanes
+            node = st["node"]
+            lane = lane_of[node.long()]
+            lane_of[top_l] = -1
+            active = lane >= 0
+            lc = lane.clamp(min=0)
+            feat_r = sf[lc]  # each row's split feature (original id)
+            if rconsts is not None:
+                col = _orig_bins(bins_t[rconsts[0][feat_r], rows], feat_r, rconsts)
             else:
-                left_cat = scm[lc, col]
-            right = torch.where(sic[lc], ~left_cat, right)
-        new_node = torch.where(
-            active, torch.where(right, rslot[lc], lslot[lc]), node.long()
-        ).to(torch.int32)
-        out_of_range = torch.full_like(lane, 2 * k)
+                col = bins_t[feat_r, rows].long()
+            right = col > sb[lc]
+            if has_cat:
+                sic = st["c_iscat"][top_l]
+                scm = st["c_catmask"][top_l]  # (ka, B)
+                if cat_u is not None:
+                    u_rows, feat_of_row, local_of_row = cat_u
+                    in_set = uh.membership_matmul(u_rows, feat_of_row, local_of_row, sf, scm, n)
+                    left_cat = in_set[lc, rows]
+                else:
+                    left_cat = scm[lc, col]
+                right = torch.where(sic[lc], ~left_cat, right)
+            new_node = torch.where(
+                active, torch.where(right, rslot[lc], lslot[lc]), node.long()
+            ).to(torch.int32)
+            out_of_range = torch.full_like(lane, 2 * k)
 
         if use_sub:
             small_r = st["c_subR"][top_l]  # (ka,) smaller child is RIGHT
             key = torch.where(active & (right == small_r[lc]), lane, out_of_range)
             hist_s, tot_s = packed(key.to(torch.int32), ka)
-            hist_o = st["leaf_hist"][top_l] - hist_s
-            tot_o = st["leaf_tot"][top_l] - tot_s
-            sel = small_r[:, None, None, None]
-            hist_lr = torch.cat([torch.where(sel, hist_o, hist_s),
-                                 torch.where(sel, hist_s, hist_o)])
-            tot_lr = torch.cat([torch.where(small_r[:, None], tot_o, tot_s),
-                                torch.where(small_r[:, None], tot_s, tot_o)])
+            with _region(regions, "gbdt.subtraction"):
+                hist_o = st["leaf_hist"][top_l] - hist_s
+                tot_o = st["leaf_tot"][top_l] - tot_s
+                sel = small_r[:, None, None, None]
+                hist_lr = torch.cat([torch.where(sel, hist_o, hist_s),
+                                     torch.where(sel, hist_s, hist_o)])
+                tot_lr = torch.cat([torch.where(small_r[:, None], tot_o, tot_s),
+                                    torch.where(small_r[:, None], tot_s, tot_o)])
             hist_x, tot_x = expand(hist_lr, tot_lr)
         else:
             key = torch.where(active, 2 * lane + right.long(), out_of_range)
@@ -876,38 +913,39 @@ def _build_tree_leafwise(
         cs = searchk(hist_x, tot_x, torch.cat([child_depth, child_depth]))
         # (2ka,) fields: [left children | right children]
 
-        both = torch.cat([lslot, rslot])
-        if use_sub:
-            st["leaf_hist"][both] = hist_lr
-            st["leaf_tot"][both] = tot_lr
-            st["c_subR"][both] = cs.rcov < cs.lcov
-        # A leaf's value comes from the split that made it: children of a
-        # categorical split take the l2 + cat_l2 output.
-        values = cs.value
-        if has_cat:
-            values = torch.where(torch.cat([sic, sic]), cs.value_cat, cs.value)
-        st["node"] = new_node
-        st["feat"][top_l] = sf
-        st["bin"][top_l] = sb
-        st["thr"][top_l] = sthr
-        st["left"][top_l] = lslot
-        st["right"][top_l] = rslot
-        st["is_leaf"][top_l] = False
-        st["is_leaf"][both] = True
-        st["leaf_val"][both] = values
-        st["cover"][both] = cs.cover
-        st["gain"][top_l] = torch.as_tensor(top_g[:ka], dtype=torch.float32, device=dev)
-        st["depth"][both] = torch.cat([child_depth, child_depth])
-        st["c_gain"][top_l] = -math.inf
-        st["c_gain"][both] = cs.gain
-        st["c_feat"][both] = cs.feat
-        st["c_bin"][both] = cs.bin
-        st["c_thr"][both] = cs.thr
-        if has_cat:
-            st["cat_node"][top_l] = sic
-            st["cat_mask"][top_l] = scm
-            st["c_iscat"][both] = cs.is_cat
-            st["c_catmask"][both] = cs.cat_mask
+        with _region(regions, "gbdt.tree_update"):
+            both = torch.cat([lslot, rslot])
+            if use_sub:
+                st["leaf_hist"][both] = hist_lr
+                st["leaf_tot"][both] = tot_lr
+                st["c_subR"][both] = cs.rcov < cs.lcov
+            # A leaf's value comes from the split that made it: children of a
+            # categorical split take the l2 + cat_l2 output.
+            values = cs.value
+            if has_cat:
+                values = torch.where(torch.cat([sic, sic]), cs.value_cat, cs.value)
+            st["node"] = new_node
+            st["feat"][top_l] = sf
+            st["bin"][top_l] = sb
+            st["thr"][top_l] = sthr
+            st["left"][top_l] = lslot
+            st["right"][top_l] = rslot
+            st["is_leaf"][top_l] = False
+            st["is_leaf"][both] = True
+            st["leaf_val"][both] = values
+            st["cover"][both] = cs.cover
+            st["gain"][top_l] = torch.as_tensor(top_g[:ka], dtype=torch.float32, device=dev)
+            st["depth"][both] = torch.cat([child_depth, child_depth])
+            st["c_gain"][top_l] = -math.inf
+            st["c_gain"][both] = cs.gain
+            st["c_feat"][both] = cs.feat
+            st["c_bin"][both] = cs.bin
+            st["c_thr"][both] = cs.thr
+            if has_cat:
+                st["cat_node"][top_l] = sic
+                st["cat_mask"][top_l] = scm
+                st["c_iscat"][both] = cs.is_cat
+                st["c_catmask"][both] = cs.cat_mask
         n_splits += ka
 
     return TreeArrays(
@@ -949,6 +987,7 @@ def _build_tree_depthwise(
     noise: Optional[torch.Tensor] = None,  # (2, N) uniforms: quantized stats
     bundle=None,
     lr: Optional[float] = None,
+    regions: bool = False,  # profiler regions (:func:`_region`)
 ) -> TreeArrays:
     """Level-wise growth to ``opts.depth``, one histogram pass per level,
     with the reference's semantics: level d keys every row by its heap
@@ -988,18 +1027,20 @@ def _build_tree_depthwise(
         k = 1 << d
         local = node - (k - 1)
         launched = _kernel_launches()
-        h, tot = _packed_pass(bins_t, u, u_spec, grad, hess, count, local.to(torch.int32), k,
-                              b_pack, tree_stats)
-        stats.passes += 1
-        stats.level_launches[d] += _kernel_launches() - launched
-        hist, totals = _expand(h, tot, tree_stats, bundle, b)
+        with _region(regions, "gbdt.histogram"):
+            h, tot = _packed_pass(bins_t, u, u_spec, grad, hess, count, local.to(torch.int32),
+                                  k, b_pack, tree_stats)
+            stats.passes += 1
+            stats.level_launches[d] += _kernel_launches() - launched
+            hist, totals = _expand(h, tot, tree_stats, bundle, b)
         quant = not h.is_floating_point()
         # XLA fuses the dequantizing multiply into the right child's
         # subtraction except in a one-level program, where the root's own
         # value reads the same product and keeps it apart
         fused = quant and depth > 1
-        s = _split_search(hist, totals, edges, feature_mask, opts, lr, in_bin_order=quant,
-                          quant_totals=(tot, tree_stats[1]) if fused else None)
+        with _region(regions, "gbdt.split_search"):
+            s = _split_search(hist, totals, edges, feature_mask, opts, lr, in_bin_order=quant,
+                              quant_totals=(tot, tree_stats[1]) if fused else None)
 
         can_split = alive & torch.isfinite(s.gain) & (s.gain > opts.min_gain_to_split)
         # A node's value if it ends here is what its parent's split gave it
@@ -1014,19 +1055,20 @@ def _build_tree_depthwise(
         lv["cover"].append(cover_here)
         lv["gain"].append(torch.where(can_split, s.gain, torch.zeros_like(s.gain)))
 
-        row_f = feat[local]
-        if rconsts is not None:
-            x_bin = _orig_bins(bins_t[rconsts[0][row_f], rows], row_f, rconsts)
-        else:
-            x_bin = bins_t[row_f, rows].long()
-        go_right = x_bin > binthr[local]
-        if has_cat:
-            iscat = can_split & s.is_cat
-            catmask = s.cat_mask & can_split[:, None]
-            lv["iscat"].append(iscat)
-            lv["catmask"].append(catmask)
-            go_right = torch.where(iscat[local], ~catmask[local, x_bin], go_right)
-        node = 2 * node + 1 + go_right.long()
+        with _region(regions, "gbdt.routing"):
+            row_f = feat[local]
+            if rconsts is not None:
+                x_bin = _orig_bins(bins_t[rconsts[0][row_f], rows], row_f, rconsts)
+            else:
+                x_bin = bins_t[row_f, rows].long()
+            go_right = x_bin > binthr[local]
+            if has_cat:
+                iscat = can_split & s.is_cat
+                catmask = s.cat_mask & can_split[:, None]
+                lv["iscat"].append(iscat)
+                lv["catmask"].append(catmask)
+                go_right = torch.where(iscat[local], ~catmask[local, x_bin], go_right)
+            node = 2 * node + 1 + go_right.long()
 
         inherited = torch.stack([torch.where(can_split, s.lval, value_cur),
                                  torch.where(can_split, s.rval, value_cur)], dim=1).reshape(2 * k)
@@ -1174,33 +1216,38 @@ def _stack_trees(trees: List[TreeArrays]) -> TreeArrays:
 
 
 def _make_step(opts: TrainOptions, objective: Objective, num_bins: int, stats: FitStats, u=None,
-               u_spec=None, quant: bool = False, bundle=None, cat_u=None):
+               u_spec=None, quant: bool = False, bundle=None, cat_u=None,
+               regions: bool = False):
     """One boosting iteration: gradients (N, C) (bagged-out rows zeroed,
     GOSS weights applied), one tree per margin column in column order, the
     percentile leaf renewal of l1 and quantile, the margin update (none
-    under rf, whose trees all fit the init score)."""
+    under rf, whose trees all fit the init score). ``regions``: name the
+    step's parts for the device profiler (:func:`_region`)."""
     # depthwise routing gathers a categorical split's set, as the reference's
     build = (functools.partial(_build_tree_leafwise, cat_u=cat_u) if opts.growth == "leafwise"
              else _build_tree_depthwise)
+    build = functools.partial(build, regions=regions)
     obj_kwargs = dict(alpha=opts.alpha, tweedie_variance_power=opts.tweedie_variance_power)
     renew_pct = None
     if objective.name in RENEWED_OBJECTIVES:
         renew_pct = opts.alpha if objective.name == "quantile" else 0.5
 
     def step(bins_t, y, w, margins, edges, bag, feature_mask, it, lr):
-        grad, hess = objective.grad_hess(margins, y, w, **obj_kwargs)  # (N, C)
-        n = y.shape[0]
-        if opts.boosting_type == "goss":
-            bag = _goss_weights(grad, bag, opts, it)
-        if bag is None:
-            count = torch.ones_like(y)
-        else:
-            grad, hess = grad * bag[:, None], hess * bag[:, None]
-            count = (bag > 0).to(grad.dtype)
+        with _region(regions, "gbdt.gradient"):
+            grad, hess = objective.grad_hess(margins, y, w, **obj_kwargs)  # (N, C)
+            n = y.shape[0]
+            if opts.boosting_type == "goss":
+                bag = _goss_weights(grad, bag, opts, it)
+            if bag is None:
+                count = torch.ones_like(y)
+            else:
+                grad, hess = grad * bag[:, None], hess * bag[:, None]
+                count = (bag > 0).to(grad.dtype)
         trees = []
         for c in range(grad.shape[1]):
             # one stochastic-rounding draw per (iteration, margin column)
-            noise = quant_noise(opts.seed, it, c, n, y.device) if quant else None
+            with _region(regions, "gbdt.gradient"):
+                noise = quant_noise(opts.seed, it, c, n, y.device) if quant else None
             trees.append(build(
                 bins_t, grad[:, c].contiguous(), hess[:, c].contiguous(), count, edges,
                 feature_mask, num_bins=num_bins, opts=opts, stats=stats, u=u, u_spec=u_spec,
@@ -1218,7 +1265,8 @@ def _make_step(opts: TrainOptions, objective: Objective, num_bins: int, stats: F
             stats.renewal_seconds += time.perf_counter() - t_r
         if opts.boosting_type == "rf":
             return tree, margins
-        return tree, margins + tree.leaf_val.gather(1, tree.row_leaf.long()).t()
+        with _region(regions, "gbdt.margin_update"):
+            return tree, margins + tree.leaf_val.gather(1, tree.row_leaf.long()).t()
 
     return step
 
@@ -1623,6 +1671,8 @@ def train(
     faults = current_faults()  # injected device OOMs, keyed (iteration, retry)
     u_spec, quant = _histogram_path(opts, n, f, num_bins, mapper)
     stats.u_budget = uh.u_budget() if u_spec is not None else 0
+    prof = get_profiler()
+    prof_on = prof.active  # the profiler's sites below cost this one read when quiet
     bus = events.get_bus()
     if bus.active:
         _publish_plan_events(bus, opts, n, f, num_bins, bundle, u_spec, quant)
@@ -1650,7 +1700,7 @@ def train(
             stats.u_chunks = uh.num_u_chunks(n, u_spec)
         cat_u = _cat_u_rows(u, u_spec, bundle, opts.categorical_slots)
         return _make_step(opts, objective, num_bins, stats, u=u, u_spec=u_spec, quant=quant,
-                          bundle=bundle, cat_u=cat_u)
+                          bundle=bundle, cat_u=cat_u, regions=prof_on)
 
     def degrade(err, it, retries) -> bool:
         """One rung down the out-of-memory ladder; True when the caller may
@@ -1723,6 +1773,7 @@ def train(
     stale = 0
     bag_dev = None
     step = build_u_path()
+    step_fresh = True
     trees = []
     dart_rng = np.random.default_rng(opts.seed + 7919) if opts.boosting_type == "dart" else None
     bins_rows = bins_t.t()  # (N, columns) view for routing the training rows
@@ -1753,53 +1804,67 @@ def train(
         if dropped:
             c_d = _dropped_contrib(trees, dropped, bins_rows, opts.routing_steps, bundle)
             margins_in = margins - c_d
-        retries = 0
-        while True:
-            failed = None
-            try:
-                if faults is not None:
-                    faults.apply_on_histogram(it, retries)
-                tree, new_margins = step(bins_t, y_dev, w_dev, margins_in, edges_dev, bag_dev,
-                                         fm_dev, it, lr_it)
-            except (MemoryError, RuntimeError) as err:
-                if not is_oom_error(err):
-                    raise
-                failed = err
-            if failed is None:
-                break
-            if retries >= OOM_RETRY_CAP or not degrade(failed, it, retries + 1):
-                raise failed
-            # Outside the handler, so that the failed step's frames are gone:
-            # free U, return the cached blocks, then lay out the new plan.
-            # The retry reuses this iteration's bag, feature mask and rate.
-            retries += 1
-            stats.oom_retries += 1
-            failed = step = None
-            u = None
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
-            step = build_u_path()
-        valid_done = False
-        if dropped:
-            # DART's rescale: the new trees x 1/(k+1), the dropped ones
-            # x k/(k+1), in the reference's order of operations; the valid
-            # sets take the same delta from the dropped trees before rescaling.
-            scale_new = float(np.float32(1.0 / (len(dropped) + 1)))
-            scale_drop = float(np.float32(len(dropped) / (len(dropped) + 1)))
-            c_new = tree.leaf_val.gather(1, tree.row_leaf.long()).t()
-            for vs in valid_state:
-                c_dv = _dropped_contrib(trees, dropped, vs["bins"], opts.routing_steps, bundle)
-                c_newv = _tree_contrib(vs["bins"], tree, opts.routing_steps, bundle)
-                vs["margins"] = vs["margins"] - c_dv * scale_new + c_newv * scale_new
-            valid_done = True
-            tree = tree._replace(leaf_val=tree.leaf_val * scale_new)
-            for di in dropped:
-                trees[di] = trees[di]._replace(leaf_val=trees[di].leaf_val * scale_drop)
-            margins = margins - c_d * scale_new + c_new * scale_new
-        else:
-            margins = new_margins
-        _sync(dev)
+        # the step's device window: dispatch through the sync below
+        with _region(prof_on, "gbdt.step"):
+            retries = 0
+            while True:
+                failed = None
+                try:
+                    if faults is not None:
+                        faults.apply_on_histogram(it, retries)
+                    tree, new_margins = step(bins_t, y_dev, w_dev, margins_in, edges_dev, bag_dev,
+                                             fm_dev, it, lr_it)
+                except (MemoryError, RuntimeError) as err:
+                    if not is_oom_error(err):
+                        raise
+                    failed = err
+                if failed is None:
+                    break
+                if retries >= OOM_RETRY_CAP or not degrade(failed, it, retries + 1):
+                    raise failed
+                # Outside the handler, so that the failed step's frames are gone:
+                # free U, return the cached blocks, then lay out the new plan.
+                # The retry reuses this iteration's bag, feature mask and rate.
+                retries += 1
+                stats.oom_retries += 1
+                failed = step = None
+                u = None
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+                step = build_u_path()
+                step_fresh = True
+            valid_done = False
+            if dropped:
+                # DART's rescale: the new trees x 1/(k+1), the dropped ones
+                # x k/(k+1), in the reference's order of operations; the valid
+                # sets take the same delta from the dropped trees before rescaling.
+                scale_new = float(np.float32(1.0 / (len(dropped) + 1)))
+                scale_drop = float(np.float32(len(dropped) / (len(dropped) + 1)))
+                c_new = tree.leaf_val.gather(1, tree.row_leaf.long()).t()
+                for vs in valid_state:
+                    c_dv = _dropped_contrib(trees, dropped, vs["bins"], opts.routing_steps, bundle)
+                    c_newv = _tree_contrib(vs["bins"], tree, opts.routing_steps, bundle)
+                    vs["margins"] = vs["margins"] - c_dv * scale_new + c_newv * scale_new
+                valid_done = True
+                tree = tree._replace(leaf_val=tree.leaf_val * scale_new)
+                for di in dropped:
+                    trees[di] = trees[di]._replace(leaf_val=trees[di].leaf_val * scale_drop)
+                margins = margins - c_d * scale_new + c_new * scale_new
+            else:
+                margins = new_margins
+            _sync(dev)
         t_step = time.perf_counter()
+        if prof_on:
+            # one iteration at a time: the step's first call (a fit's
+            # first iteration, or the first after an OOM rebuild) books as
+            # its first-call miss, the rest as hits
+            if step_fresh:
+                prof.note_compile("gbdt.step", t_step - t_up, signature=_signature(
+                    (bins_t, y_dev, w_dev, margins_in, edges_dev, bag_dev, fm_dev), {}))
+            else:
+                prof.note_cache_hit("gbdt.step")
+            prof.note_execute("gbdt.step", t_step - t_up)
+            step_fresh = False
         for vs in valid_state if not valid_done else ():
             vs["margins"] = vs["margins"] + _tree_contrib(vs["bins"], tree, opts.routing_steps,
                                                           bundle)

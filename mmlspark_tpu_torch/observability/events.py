@@ -1,5 +1,5 @@
 """Typed event bus — the port's copy of
-``mmlspark_tpu/observability/events.py`` up to :func:`replay`.
+``mmlspark_tpu/observability/events.py``.
 
 Every subsystem posts typed events (:class:`StageStarted` ..
 :class:`PoisonClientReleased`, the reference's classes with the same
@@ -9,8 +9,11 @@ that raises is logged, never propagated); :class:`EventLogSink` appends
 each event as one JSON line, and ``MMLSPARK_TPU_EVENT_LOG=/path`` attaches
 it to the process-global bus (``MMLSPARK_TPU_EVENT_LOG_PROCESS`` names a
 child process's sibling log); :func:`replay` reads a log, rotated segments
-first, back into events. The reference's fleet federation (``collect``,
-``merge``) and ``timeline`` are not ported yet.
+first, back into events; :func:`collect`, :func:`merge` and
+:func:`write_merged` fold a driver's log and its children's siblings into
+one stream (byte for byte the reference's merge of the same segments), and
+:func:`timeline` / :func:`format_timeline` summarize a stream as the
+reference's history view does.
 
 Publishing is near-free when nobody listens: call sites guard on
 ``bus.active``, so a quiet run does not even build the event.
@@ -22,7 +25,7 @@ import dataclasses
 import json
 import threading
 import time
-from typing import Any, Callable, Dict, IO, List, Optional, Type
+from typing import Any, Callable, Dict, IO, Iterable, List, Optional, Type
 
 from mmlspark_tpu_torch.core.profiling import get_logger
 
@@ -420,12 +423,12 @@ class ModelSwapped(Event):
 
 @_event
 class ProfileCompiled(Event):
-    """The reference's ``DeviceProfiler``
-    saw a wrapped function compile a new executable (an executable-cache
-    miss). ``seconds`` is the host wall time of the compiling call
-    (trace + XLA compile + first execution); ``flops``/``bytes_accessed``
-    are the XLA ``cost_analysis()`` estimates for one execution of the
-    program, 0.0 when the backend declines to say."""
+    """The :class:`~mmlspark_tpu_torch.observability.profiler.DeviceProfiler`
+    saw a wrapped function called with an unseen shape/dtype signature
+    (the reference's executable-cache miss; a kernel's first launch also
+    builds or loads it). ``seconds`` is the host wall time of that call;
+    ``flops``/``bytes_accessed`` are the caller-supplied cost of one call
+    (the reference's XLA ``cost_analysis()``), 0.0 when none was given."""
 
     name: str
     seconds: float
@@ -1028,3 +1031,503 @@ def replay(path: str) -> List[Event]:
     return out
 
 
+# -- fleet federation --------------------------------------------------------
+
+
+def collect(path: str) -> Dict[str, List[str]]:
+    """Discover every process's segments of a federated event log rooted
+    at ``path``: the driver's own (possibly rotated) log plus every
+    per-process sibling ``<path>@<label>`` written by child processes.
+    Returns ``{label: [segment, ...]}`` in write order per process."""
+    import glob
+    import os
+
+    out: Dict[str, List[str]] = {}
+    if os.path.exists(path) or _numbered_segments(path):
+        out["driver"] = log_segments(path)
+    labels = set()
+    for p in glob.glob(glob.escape(path) + _PROCESS_SEP + "*"):
+        suffix = p[len(path) + 1:]
+        # strip a rotation suffix (".<digits>") back off the live name
+        stem, dot, tail = suffix.rpartition(".")
+        if dot and tail.isdigit():
+            suffix = stem
+        if suffix:
+            labels.add(suffix)
+    for label in sorted(labels):
+        out[label] = log_segments(process_log_path(path, label))
+    return out
+
+
+def _merged_records(path: str) -> List[Dict[str, Any]]:
+    """Every process's records folded into one timestamp-ordered stream.
+    Order is deterministic for a fixed set of files: sorted by the
+    wall-clock stamp, ties broken by (process label, in-process order) —
+    re-merging the same segments is byte-identical."""
+    keyed: List[tuple] = []
+    for process, segments in collect(path).items():
+        idx = 0
+        for segment in segments:
+            with open(segment, "r", encoding="utf-8") as fh:
+                for line in fh:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    rec = json.loads(line)
+                    rec.setdefault("process", process)
+                    keyed.append(
+                        (float(rec.get("wt") or 0.0), process, idx, rec)
+                    )
+                    idx += 1
+    keyed.sort(key=lambda item: item[:3])
+    return [rec for _, _, _, rec in keyed]
+
+
+def merge(path: str) -> List[Event]:
+    """The federated replay: fold every process's segments (see
+    :func:`collect`) into one timestamp-ordered, process-tagged event
+    stream. Each event carries ``.process`` and ``.wt`` attributes;
+    :func:`timeline`, the reference's SLO report
+    and history server consume the stream unchanged."""
+    return [
+        _stamp(from_record(rec), rec, process=rec.get("process", ""))
+        for rec in _merged_records(path)
+    ]
+
+
+def write_merged(path: str, out_path: str) -> int:
+    """Materialize the merged fleet stream as one JSON-lines file (the
+    artifact CI validates and the history server renders); returns the
+    record count. The write is atomic (tmp + ``os.replace``)."""
+    import os
+
+    records = _merged_records(path)
+    tmp = f"{out_path}.tmp-{os.getpid()}"
+    with open(tmp, "w", encoding="utf-8") as fh:
+        for rec in records:
+            fh.write(json.dumps(rec) + "\n")
+    os.replace(tmp, out_path)
+    return len(records)
+
+
+def timeline(events: Iterable[Event]) -> Dict[str, Any]:
+    """Fold an event stream into the summary the Spark UI would draw:
+    per-stage wall times, task dispatch/retry/failure counts, serving
+    batch/request stats, committed models."""
+    stages: Dict[Any, Dict[str, Any]] = {}
+    tasks = {
+        "dispatched": 0, "retried": 0, "failed": 0, "failed_permanent": 0,
+        "speculated": 0, "recovered": 0,
+    }
+    retry_reasons: Dict[str, int] = {}
+    #: per-task structured attempt history folded from TaskFailed events
+    attempts: Dict[int, List[Dict[str, Any]]] = {}
+    quarantines: Dict[int, int] = {}
+    paroles = 0
+    processes = {"started": 0, "lost": 0, "reformed": 0}
+    loss_reasons: Dict[str, int] = {}
+    batches = {"count": 0, "rows": 0}
+    latencies: List[float] = []
+    statuses: Dict[int, int] = {}
+    models: List[str] = []
+    shed = 0
+    breaker_trips: Dict[str, int] = {}
+    streaming = {"epochs": 0, "rows": 0, "source_units": 0}
+    stream_epochs: Dict[str, List[int]] = {}
+    swaps: List[Dict[str, Any]] = []
+    fleet: List[Dict[str, Any]] = []
+    routing = {"count": 0, "hops": 0, "failovers": 0}
+    routed_statuses: Dict[int, int] = {}
+    routed_by_replica: Dict[str, int] = {}
+    #: per-function compile/execute fold from Profile* events
+    profiler: Dict[str, Dict[str, Any]] = {}
+    incidents: List[Dict[str, Any]] = []
+    incidents_skipped = 0
+    pressure: List[Dict[str, Any]] = []
+    degradations: List[Dict[str, Any]] = []
+    #: PLANNED histogram-engine optimizations (subtraction / chunking) —
+    #: kept separate from `degradations` so incident bundles distinguish
+    #: a configured byte-saving path from an emergency pressure response
+    hist_optimizations: List[Dict[str, Any]] = []
+    #: drift onsets/clears per feature (the model-quality plane)
+    quality = {"detected": 0, "cleared": 0}
+    drift_features: Dict[str, Dict[str, int]] = {}
+    #: burn-rate alert history, in stream order
+    alerts = {"fired": 0, "resolved": 0}
+    alert_history: List[Dict[str, Any]] = []
+    #: events per federation process label ("" = untagged single-process log)
+    by_process: Dict[str, int] = {}
+    for ev in events:
+        proc = getattr(ev, "process", "")
+        if proc:
+            by_process[proc] = by_process.get(proc, 0) + 1
+        if isinstance(ev, StageStarted):
+            stages.setdefault(
+                (ev.job_id, ev.stage_id, ev.phase),
+                {"name": ev.name, "phase": ev.phase, "start": ev.t},
+            )
+        elif isinstance(ev, StageCompleted):
+            rec = stages.setdefault(
+                (ev.job_id, ev.stage_id, ev.phase),
+                {"name": ev.name, "phase": ev.phase, "start": ev.t - ev.duration},
+            )
+            rec["duration"] = ev.duration
+            rec["status"] = ev.status
+        elif isinstance(ev, TaskDispatched):
+            tasks["dispatched"] += 1
+        elif isinstance(ev, TaskRetried):
+            tasks["retried"] += 1
+            retry_reasons[ev.reason] = retry_reasons.get(ev.reason, 0) + 1
+        elif isinstance(ev, TaskFailed):
+            tasks["failed"] += 1
+            if ev.permanent:
+                tasks["failed_permanent"] += 1
+            attempts.setdefault(ev.task_id, []).append({
+                "attempt": ev.attempt, "worker": ev.worker,
+                "reason": ev.reason, "duration": ev.duration,
+                "speculative": ev.speculative, "permanent": ev.permanent,
+            })
+        elif isinstance(ev, TaskSpeculated):
+            tasks["speculated"] += 1
+        elif isinstance(ev, TaskRecovered):
+            tasks["recovered"] += 1
+        elif isinstance(ev, WorkerQuarantined):
+            quarantines[ev.worker] = quarantines.get(ev.worker, 0) + 1
+        elif isinstance(ev, WorkerParoled):
+            paroles += 1
+        elif isinstance(ev, ProcessStarted):
+            processes["started"] += 1
+        elif isinstance(ev, ProcessLost):
+            processes["lost"] += 1
+            loss_reasons[ev.reason] = loss_reasons.get(ev.reason, 0) + 1
+        elif isinstance(ev, GroupReformed):
+            processes["reformed"] += 1
+        elif isinstance(ev, BatchFormed):
+            batches["count"] += 1
+            batches["rows"] += ev.size
+        elif isinstance(ev, RequestServed):
+            latencies.append(ev.latency)
+            statuses[ev.status] = statuses.get(ev.status, 0) + 1
+        elif isinstance(ev, ModelCommitted):
+            models.append(ev.model)
+        elif isinstance(ev, StreamSourceAdvanced):
+            streaming["source_units"] += ev.units
+        elif isinstance(ev, StreamEpochCommitted):
+            streaming["epochs"] += 1
+            streaming["rows"] += ev.rows
+            stream_epochs.setdefault(ev.query, []).append(ev.epoch)
+        elif isinstance(ev, ModelSwapped):
+            swaps.append({"name": ev.name, "version": ev.version,
+                          "server": ev.server})
+        elif isinstance(ev, FleetScaled):
+            fleet.append({"direction": ev.direction, "replicas": ev.replicas,
+                          "replica": ev.replica, "reason": ev.reason,
+                          "t": ev.t})
+        elif isinstance(ev, RequestRouted):
+            routing["count"] += 1
+            routing["hops"] += ev.hops
+            if ev.hops > 1:
+                routing["failovers"] += 1
+            routed_statuses[ev.status] = routed_statuses.get(ev.status, 0) + 1
+            routed_by_replica[ev.replica] = (
+                routed_by_replica.get(ev.replica, 0) + 1
+            )
+        elif isinstance(ev, RequestShed):
+            shed += 1
+        elif isinstance(ev, BreakerTripped):
+            breaker_trips[ev.breaker] = breaker_trips.get(ev.breaker, 0) + 1
+        elif isinstance(ev, IncidentRecorded):
+            incidents.append({
+                "incident_id": ev.incident_id, "trigger": ev.trigger,
+                "path": ev.path, "trace_id": ev.trace_id,
+            })
+        elif isinstance(ev, IncidentSkipped):
+            incidents_skipped += 1
+        elif isinstance(ev, MemoryPressure):
+            pressure.append({
+                "kind": "memory", "source": ev.source, "level": ev.level,
+                "t": ev.t,
+            })
+        elif isinstance(ev, DiskPressure):
+            pressure.append({
+                "kind": "disk", "source": ev.path, "level": ev.level,
+                "t": ev.t,
+            })
+        elif isinstance(ev, HistogramDegraded):
+            degradations.append({
+                "iteration": ev.iteration, "stage": ev.stage,
+                "budget_bytes": ev.budget_bytes, "chunk_rows": ev.chunk_rows,
+                "retries": ev.retries,
+            })
+        elif isinstance(ev, HistogramSubtracted):
+            hist_optimizations.append({
+                "kind": "subtraction", "rows": ev.rows,
+                "num_leaves": ev.num_leaves, "acc_dtype": ev.acc_dtype,
+                "cache_bytes": ev.cache_bytes,
+                "bytes_saved_per_tree": ev.bytes_saved_per_tree,
+            })
+        elif isinstance(ev, HistogramChunked):
+            hist_optimizations.append({
+                "kind": "chunked", "rows": ev.rows,
+                "chunk_rows": ev.chunk_rows, "num_chunks": ev.num_chunks,
+                "acc_dtype": ev.acc_dtype, "bytes_saved": ev.bytes_saved,
+            })
+        elif isinstance(ev, (DriftDetected, DriftCleared)):
+            detected = isinstance(ev, DriftDetected)
+            quality["detected" if detected else "cleared"] += 1
+            rec = drift_features.setdefault(
+                ev.feature, {"detected": 0, "cleared": 0}
+            )
+            rec["detected" if detected else "cleared"] += 1
+        elif isinstance(ev, (AlertFired, AlertResolved)):
+            fired = isinstance(ev, AlertFired)
+            alerts["fired" if fired else "resolved"] += 1
+            alert_history.append({
+                "alert": ev.alert, "slo": ev.slo,
+                "state": "fired" if fired else "resolved",
+                "burn_short": ev.burn_short, "burn_long": ev.burn_long,
+                "t": ev.t,
+            })
+        elif isinstance(ev, (ProfileCompiled, ProfileExecuted)):
+            rec = profiler.setdefault(ev.name, {
+                "compiles": 0, "compile_seconds": 0.0,
+                "executions": 0, "device_seconds": 0.0,
+                "flops": 0.0, "bytes_accessed": 0.0,
+            })
+            if isinstance(ev, ProfileCompiled):
+                rec["compiles"] += 1
+                rec["compile_seconds"] += ev.seconds
+                if ev.flops:
+                    rec["flops"] = ev.flops
+                if ev.bytes_accessed:
+                    rec["bytes_accessed"] = ev.bytes_accessed
+            else:
+                rec["executions"] += 1
+                rec["device_seconds"] += ev.seconds
+    requests: Dict[str, Any] = {
+        "count": len(latencies), "statuses": statuses, "shed": shed,
+    }
+    if latencies:
+        ordered = sorted(latencies)
+        requests["latency_p50"] = ordered[len(ordered) // 2]
+        requests["latency_max"] = ordered[-1]
+    return {
+        "stages": [stages[k] for k in sorted(stages)],
+        "tasks": dict(tasks, retry_reasons=retry_reasons, attempts=attempts),
+        "batches": batches,
+        "requests": requests,
+        "models": models,
+        "streaming": dict(streaming, queries=stream_epochs),
+        "swaps": swaps,
+        "fleet": fleet,
+        "routing": dict(
+            routing, statuses=routed_statuses, by_replica=routed_by_replica,
+        ),
+        "breaker_trips": breaker_trips,
+        "quarantines": quarantines,
+        "paroles": paroles,
+        "processes": dict(processes, loss_reasons=loss_reasons),
+        "profiler": profiler,
+        "incidents": incidents,
+        "incidents_skipped": incidents_skipped,
+        "pressure": pressure,
+        "degradations": degradations,
+        "hist_optimizations": hist_optimizations,
+        "quality": dict(quality, features=drift_features),
+        "alerts": dict(alerts, history=alert_history),
+        "by_process": by_process,
+    }
+
+
+def format_timeline(summary: Dict[str, Any]) -> str:
+    """Render a :func:`timeline` summary as the one-screen text report."""
+    lines = ["== stages =="]
+    for s in summary["stages"]:
+        dur = s.get("duration")
+        lines.append(
+            f"  [{s['phase']}] {s['name']}: "
+            + (f"{dur:.4f}s" if dur is not None else "unfinished")
+            + (f" ({s['status']})" if s.get("status", "ok") != "ok" else "")
+        )
+    t = summary["tasks"]
+    lines.append(
+        f"== tasks == dispatched={t['dispatched']} retried={t['retried']} "
+        f"failed={t['failed']} permanent={t['failed_permanent']}"
+        + (f" speculated={t['speculated']}" if t.get("speculated") else "")
+        + (f" recovered={t['recovered']}" if t.get("recovered") else "")
+    )
+    # structured per-task attempt history (worker / reason / duration /
+    # speculative flag) — the JobFailedError post-mortem view
+    for task_id in sorted(t.get("attempts") or {}):
+        parts = []
+        for a in t["attempts"][task_id]:
+            parts.append(
+                f"attempt {a['attempt']}"
+                + (" (spec)" if a.get("speculative") else "")
+                + f" on w{a['worker']} {a['reason']} {a['duration']:.3f}s"
+                + (" PERMANENT" if a.get("permanent") else "")
+            )
+        lines.append(f"   task {task_id}: " + "; ".join(parts))
+    procs = summary.get("processes") or {}
+    if procs.get("started") or procs.get("lost"):
+        line = (
+            f"== processes == started={procs.get('started', 0)} "
+            f"lost={procs.get('lost', 0)} reformed={procs.get('reformed', 0)}"
+        )
+        reasons = procs.get("loss_reasons") or {}
+        if reasons:
+            line += " (" + ", ".join(
+                f"{reason} x{n}" for reason, n in sorted(reasons.items())
+            ) + ")"
+        lines.append(line)
+    quarantines = summary.get("quarantines") or {}
+    if quarantines:
+        lines.append("== quarantine == " + ", ".join(
+            f"w{wid} x{n}" for wid, n in sorted(quarantines.items())
+        ) + f" paroled={summary.get('paroles', 0)}")
+    streaming = summary.get("streaming") or {}
+    if streaming.get("epochs"):
+        line = (
+            f"== streaming == epochs={streaming['epochs']} "
+            f"rows={streaming['rows']} "
+            f"source_units={streaming.get('source_units', 0)}"
+        )
+        queries = streaming.get("queries") or {}
+        if queries:
+            line += " (" + ", ".join(
+                f"{q}: epochs {min(eps)}..{max(eps)}"
+                for q, eps in sorted(queries.items())
+            ) + ")"
+        lines.append(line)
+    b, r = summary["batches"], summary["requests"]
+    lines.append(f"== serving == batches={b['count']} rows={b['rows']} "
+                 f"requests={r['count']} shed={r.get('shed', 0)}")
+    routing = summary.get("routing") or {}
+    if routing.get("count"):
+        avg_hops = routing["hops"] / routing["count"]
+        lines.append(
+            f"== routing == requests={routing['count']} "
+            f"failovers={routing['failovers']} avg_hops={avg_hops:.2f}"
+            + (" (" + ", ".join(
+                f"{name} x{n}"
+                for name, n in sorted((routing.get("by_replica") or {}).items())
+            ) + ")" if routing.get("by_replica") else "")
+        )
+    fleet = summary.get("fleet") or []
+    if fleet:
+        lines.append("== fleet == " + ", ".join(
+            f"{f['direction']}->{f['replicas']}"
+            + (f" ({f['reason']})" if f.get("reason") else "")
+            for f in fleet
+        ))
+    trips = summary.get("breaker_trips") or {}
+    if trips:
+        lines.append("== breakers == " + ", ".join(
+            f"{name} tripped x{n}" for name, n in sorted(trips.items())
+        ))
+    incidents = summary.get("incidents") or []
+    if incidents:
+        lines.append("== incidents == " + ", ".join(
+            f"{i['trigger']} ({i['incident_id']})" for i in incidents
+        ) + (
+            f" skipped={summary['incidents_skipped']}"
+            if summary.get("incidents_skipped") else ""
+        ))
+    pressure = summary.get("pressure") or []
+    degradations = summary.get("degradations") or []
+    if pressure or degradations:
+        onsets = [p for p in pressure if p["level"] != "ok"]
+        recoveries = [p for p in pressure if p["level"] == "ok"]
+        line = (
+            f"== pressure == onsets={len(onsets)} "
+            f"recoveries={len(recoveries)} degradations={len(degradations)}"
+        )
+        if onsets:
+            line += " (" + ", ".join(
+                f"{p['kind']}:{p['source']} {p['level']}" for p in onsets
+            ) + ")"
+        lines.append(line)
+        for d in degradations:
+            lines.append(
+                f"   iter {d['iteration']} [{d['stage']}] -> "
+                f"budget={d['budget_bytes']} chunk_rows={d['chunk_rows']} "
+                f"retry {d['retries']}"
+            )
+    hist_opts = summary.get("hist_optimizations") or []
+    if hist_opts:
+        # planned byte-saving paths — NOT the pressure ladder above
+        lines.append("== histogram optimizations ==")
+        for o in hist_opts:
+            if o["kind"] == "subtraction":
+                lines.append(
+                    f"   subtraction: leaves={o['num_leaves']} "
+                    f"acc={o['acc_dtype']} cache={o['cache_bytes']}B "
+                    f"saves={o['bytes_saved_per_tree']}B/tree"
+                )
+            else:
+                lines.append(
+                    f"   chunked: chunks={o['num_chunks']}x"
+                    f"{o['chunk_rows']} acc={o['acc_dtype']} "
+                    f"saves={o['bytes_saved']}B"
+                )
+    quality = summary.get("quality") or {}
+    if quality.get("detected") or quality.get("cleared"):
+        lines.append(
+            f"== quality == drift detected={quality['detected']} "
+            f"cleared={quality['cleared']}"
+            + (" (" + ", ".join(
+                f"{feat} x{c['detected']}"
+                for feat, c in sorted((quality.get("features") or {}).items())
+                if c["detected"]
+            ) + ")" if quality.get("features") else "")
+        )
+    alerts = summary.get("alerts") or {}
+    if alerts.get("fired") or alerts.get("resolved"):
+        lines.append(
+            f"== alerts == fired={alerts['fired']} "
+            f"resolved={alerts['resolved']}"
+        )
+        for a in alerts.get("history") or []:
+            lines.append(
+                f"   {a['alert']} [{a['slo']}] {a['state']} "
+                f"burn short={a['burn_short']:.2f} long={a['burn_long']:.2f}"
+            )
+    by_process = summary.get("by_process") or {}
+    if by_process:
+        lines.append("== fleet log == " + ", ".join(
+            f"{proc} x{n}" for proc, n in sorted(by_process.items())
+        ))
+    if "latency_p50" in r:
+        lines.append(
+            f"   latency p50={r['latency_p50'] * 1e3:.2f}ms "
+            f"max={r['latency_max'] * 1e3:.2f}ms"
+        )
+    profiler = summary.get("profiler") or {}
+    if profiler:
+        lines.append("== profiler ==")
+        for name in sorted(profiler):
+            p = profiler[name]
+            parts = []
+            if p["compiles"]:
+                parts.append(
+                    f"compiles={p['compiles']} ({p['compile_seconds']:.3f}s)"
+                )
+            if p["executions"]:
+                avg = p["device_seconds"] / p["executions"]
+                parts.append(
+                    f"execs={p['executions']} device={p['device_seconds']:.3f}s "
+                    f"avg={avg * 1e3:.2f}ms"
+                )
+            if p.get("flops"):
+                parts.append(f"flops={p['flops']:.3g}")
+            lines.append(f"   {name}: " + " ".join(parts))
+    if summary["models"]:
+        lines.append("== models == " + ", ".join(summary["models"]))
+    swaps = summary.get("swaps") or []
+    if swaps:
+        lines.append("== swaps == " + ", ".join(
+            f"{s['name']} -> v{s['version']}"
+            + (f" @{s['server']}" if s.get("server") else "")
+            for s in swaps
+        ))
+    return "\n".join(lines)

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Dict
 
 import numpy as np
 import torch
@@ -301,6 +302,17 @@ def adds_needed(f: int, n_in: int) -> int:
     """Additions the pass does on these inputs: three per keyed row and
     feature (two int64, one float32)."""
     return 3 * f * n_in
+
+
+def histogram_cost(bins_t, grad, hess, count, node, num_nodes: int,
+                   num_bins: int) -> Dict[str, float]:
+    """One pass's cost on these inputs, for ``DeviceProfiler.wrap(cost=...)``
+    around either entry: :func:`adds_needed` and :func:`bytes_needed` of
+    the rows keyed into range (one count, which syncs with the card)."""
+    f, n = bins_t.shape
+    n_in = int((node < num_nodes).sum())
+    return {"flops": float(adds_needed(f, n_in)),
+            "bytes_accessed": float(bytes_needed(n, f, n_in, num_nodes, num_bins))}
 
 
 

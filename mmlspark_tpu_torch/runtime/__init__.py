@@ -62,6 +62,7 @@ from mmlspark_tpu_torch.runtime.pressure import (
     PressureLevel,
     ResourceWatchdog,
     current_pressure_level,
+    get_watchdog,
     reduced_footprint,
     sample_hbm,
     set_pressure_level,
@@ -110,6 +111,7 @@ __all__ = [
     "current_policy",
     "current_pressure_level",
     "default_checkpoint_dir",
+    "get_watchdog",
     "inject_faults",
     "is_oom_error",
     "policy",

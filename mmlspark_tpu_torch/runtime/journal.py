@@ -26,7 +26,9 @@ is that durability plane for the thread runtime:
   is the recovery scan a warm-restarting server runs at startup — it
   trusts ``CURRENT`` when valid and otherwise falls back to the highest
   checksummed version on disk, so a crash mid-commit can never serve a
-  half-written model;
+  half-written model. :meth:`ModelStore.commit_artifact` writes a JSON
+  artifact (the quality plane's reference profile) next to a version with
+  the same discipline, and :meth:`ModelStore.read_artifact` verifies it;
 - :func:`default_checkpoint_dir` — the ambient ``MMLSPARK_TPU_CHECKPOINT_DIR``
   root that activates all of this without API threading.
 
@@ -321,6 +323,61 @@ class ModelStore:
             logger.warning("model file %s failed CRC verification", fname)
             return None
         return data.decode("utf-8")
+
+    def current_version(self, name: str = "model") -> Optional[int]:
+        """The version the ``CURRENT`` pointer names, or None — one small
+        read, no model-text load or CRC verification, so a hot-swap
+        watcher can poll it cheaply between requests (verification
+        happens in :meth:`latest` when the watcher decides to load)."""
+        try:
+            with open(self._current_path(name), "r", encoding="utf-8") as fh:
+                cur = json.load(fh)
+            m = re.search(r"-(\d{6})\.txt$", str(cur["file"]))
+            return int(m.group(1)) if m else None
+        except (OSError, ValueError, KeyError):
+            return None
+
+    def _artifact_name(self, name: str, version: int, kind: str) -> str:
+        if not re.fullmatch(r"[A-Za-z0-9_-]+", kind):
+            raise ValueError(f"artifact kind must be a bare slug, got {kind!r}")
+        return f"{name}-{version:06d}.{kind}.json"
+
+    def commit_artifact(
+        self, name: str, version: int, kind: str, payload: Dict[str, Any]
+    ) -> str:
+        """Commit a JSON artifact riding next to ``<name>-<version>`` —
+        e.g. the quality plane's reference profile (``kind="quality"``).
+        Written with the same tmp+fsync+rename discipline and CRC32
+        sidecar as the model text itself; returns the artifact filename.
+        Artifacts never touch the ``CURRENT`` pointer: a model version is
+        live regardless of which sidecars it carries."""
+        data = json.dumps(payload, sort_keys=True).encode("utf-8")
+        crc = zlib.crc32(data) & 0xFFFFFFFF
+        fname = self._artifact_name(name, version, kind)
+        with self._lock:
+            _atomic_write(os.path.join(self.root, fname), data)
+            _atomic_write(
+                os.path.join(self.root, fname + ".crc32"),
+                f"{crc:08x}".encode(),
+            )
+        return fname
+
+    def read_artifact(
+        self, name: str, version: int, kind: str
+    ) -> Optional[Dict[str, Any]]:
+        """The verified JSON artifact for ``<name>-<version>``, or None
+        when it is absent or fails its sidecar checksum (a torn artifact
+        reads as missing, never as garbage)."""
+        fname = self._artifact_name(name, version, kind)
+        text = self._read_verified(fname)
+        if text is None:
+            return None
+        try:
+            payload = json.loads(text)
+        except ValueError:
+            logger.warning("artifact %s is not valid JSON", fname)
+            return None
+        return payload if isinstance(payload, dict) else None
 
     def latest(self, name: str = "model") -> Optional[Tuple[int, str]]:
         """(version, text) of the last committed model, or None. CURRENT

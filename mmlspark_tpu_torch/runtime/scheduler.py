@@ -1,9 +1,10 @@
 """Partitioned-job scheduler — the coordinating half of the runtime.
 
-The port's copy of ``mmlspark_tpu/runtime/scheduler.py``. The reference
-also opens tracer spans and publishes bus events for each job, attempt,
-quarantine and parole; the port has neither a tracer nor a bus yet, so
-those go to the log only.
+The port's copy of ``mmlspark_tpu/runtime/scheduler.py``, with its tracer
+spans (``scheduler.job`` and one ``task-<i>`` span per attempt, finished
+with the attempt's status) and bus events (``TaskDispatched``,
+``TaskRetried``, ``TaskFailed``, ``TaskSpeculated``, ``TaskRecovered``,
+``WorkerQuarantined``, ``WorkerParoled``).
 
 Reproduces the slice of Spark's job scheduler that MMLSpark actually leaned on:
 a partitioned job is N independent tasks, each walking
@@ -49,13 +50,24 @@ import contextlib
 import dataclasses
 import enum
 import itertools
-import logging
 import threading
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 
+from mmlspark_tpu_torch.core.profiling import get_logger
+from mmlspark_tpu_torch.observability.events import (
+    TaskDispatched,
+    TaskFailed,
+    TaskRecovered,
+    TaskRetried,
+    TaskSpeculated,
+    WorkerParoled,
+    WorkerQuarantined,
+    get_bus,
+)
+from mmlspark_tpu_torch.observability.tracing import get_tracer
 from mmlspark_tpu_torch.runtime.executor import ExecutorPool
 from mmlspark_tpu_torch.runtime.faults import FaultPlan, current_faults, is_oom_error
 from mmlspark_tpu_torch.runtime.health import HealthTracker
@@ -64,10 +76,10 @@ from mmlspark_tpu_torch.runtime.lineage import Lineage, PartitionLostError, Shar
 from mmlspark_tpu_torch.runtime.metrics import RuntimeMetrics
 from mmlspark_tpu_torch.runtime.pressure import _footprint_hint
 
-logger = logging.getLogger("mmlspark_tpu_torch.runtime")
+logger = get_logger("mmlspark_tpu_torch.runtime")
 
-# job ids are process-global so log lines of concurrent fits never collide
-# (the SparkListenerJobStart jobId analogue)
+# job ids are process-global so event-log records from concurrent fits
+# never collide (the SparkListenerJobStart jobId analogue)
 _JOB_IDS = itertools.count()
 _JOB_ID_LOCK = threading.Lock()
 
@@ -234,6 +246,9 @@ class _Attempt:
         self.started_at: Optional[float] = None
         #: CRC32 the executor took over the pickled result, pre-transport
         self.result_crc: Optional[int] = None
+        #: tracing span opened at dispatch; finished by whichever side
+        #: settles the attempt (success, failure, or scheduler supersede)
+        self.span = None
 
     # -- executor-side hooks -------------------------------------------------
 
@@ -302,6 +317,7 @@ class _Job:
         self.journal = journal
         self.health = health
         self.id = _next_job_id()
+        self.bus = get_bus()
         self.tasks = [TaskRecord(i, payload) for i, payload in enumerate(shards)]
         self.cond = threading.Condition()
         self.pending = set(range(len(self.tasks)))
@@ -348,6 +364,8 @@ class _Job:
             if corrupt:
                 if not siblings:
                     self.running.pop(t.index, None)
+                if att.span is not None:
+                    get_tracer().finish(att.span, status="corrupt")
                 self._register_failure(
                     t,
                     ResultCorruptedError(
@@ -364,6 +382,8 @@ class _Job:
             self.running.pop(t.index, None)
             for other in siblings:
                 other.superseded.set()
+                if other.span is not None:
+                    get_tracer().finish(other.span, status="superseded")
                 t.history.append(AttemptInfo(
                     attempt=other.task_attempt,
                     worker=other.worker.wid if other.worker is not None else -1,
@@ -391,6 +411,8 @@ class _Job:
                 logger.info(
                     "task %d: speculative copy won in %.3fs", t.index, duration
                 )
+            if att.span is not None:
+                get_tracer().finish(att.span)
             accepted = True
             self.cond.notify_all()
         if accepted and self.journal is not None:
@@ -427,6 +449,8 @@ class _Job:
                 t.oom_failures += 1
             else:
                 reason = "error"
+            if att.span is not None:
+                get_tracer().finish(att.span, status=reason, error=str(err)[:200])
             self._register_failure(t, err, reason, att=att)
             self.cond.notify_all()
 
@@ -461,6 +485,12 @@ class _Job:
         ))
         others_running = bool(self.running.get(t.index))
         permanent = t.failures > self.policy.max_retries and not others_running
+        if self.bus.active:
+            self.bus.publish(TaskFailed(
+                job_id=self.id, task_id=t.index, reason=reason,
+                permanent=permanent, worker=worker_id, duration=duration,
+                speculative=speculative, attempt=attempt_no,
+            ))
         if (
             isinstance(err, PartitionLostError)
             and self.lineage is not None
@@ -486,6 +516,11 @@ class _Job:
             )
         else:
             self.metrics.note_retry(t.index)
+            if self.bus.active:
+                self.bus.publish(TaskRetried(
+                    job_id=self.id, task_id=t.index, failures=t.failures,
+                    reason=reason,
+                ))
             t.state = TaskState.PENDING
             t.not_before = time.monotonic() + self.policy.backoff(t.index, t.failures)
             self.pending.add(t.index)
@@ -506,7 +541,7 @@ class Scheduler:
     is built automatically when ``policy.quarantine_threshold > 0``;
     pass one explicitly to control its clock (fake-clock tests) or share
     it across schedulers. Either way it is wired to the pool's admission
-    check, this scheduler's metrics, and its log.
+    check, this scheduler's metrics, and the event bus.
     """
 
     def __init__(
@@ -546,9 +581,17 @@ class Scheduler:
             "worker %d quarantined (score %.2f >= %.2f); parole in %.1fs",
             worker_id, score, self.health.threshold, self.health.parole_s,
         )
+        bus = get_bus()
+        if bus.active:
+            bus.publish(WorkerQuarantined(
+                worker=worker_id, score=score, parole_s=self.health.parole_s,
+            ))
 
     def _announce_parole(self, worker_id: int) -> None:
         logger.info("worker %d paroled; rejoining the pool", worker_id)
+        bus = get_bus()
+        if bus.active:
+            bus.publish(WorkerParoled(worker=worker_id))
 
     # -- scheduling loop -------------------------------------------------------
 
@@ -585,31 +628,37 @@ class Scheduler:
             self._restore_from_journal(job, journal, revalidate)
             if job.finished() and not job.failed:
                 return [t.result for t in job.tasks]
-        while True:
-            with job.cond:
-                if job.finished():
-                    break
-                now = time.monotonic()
-                self._check_all_quarantined(job)
-                self._dispatch_due(job, now)
-                self._monitor(job, now)
-                self._maybe_speculate(job, now)
-                timeout = self._wait_timeout(job, now)
-                job.cond.wait(timeout)
-            # Replace any executor that died (ExecutorDeathError exit) or
-            # was declared lost (stale heartbeat) — outside the job lock,
-            # since spawning threads under it serves nothing.
-            if self.pool.alive_count < self.pool.target_workers:
-                self.pool.ensure_capacity()
-        if job.failed:
-            first = job.failed[0]
-            raise JobFailedError(
-                f"{len(job.failed)}/{len(job.tasks)} tasks failed permanently; "
-                f"first: task {first.index} after {first.failures} attempts",
-                history={
-                    t.index: list(t.history) for t in job.tasks if t.history
-                },
-            ) from first.error
+        # the job span parents every attempt span (attempts are children,
+        # retries siblings); under a pipeline-stage or serving-apply span
+        # the whole tree hangs off one trace id
+        with get_tracer().span(
+            "scheduler.job", job_id=job.id, tasks=len(job.tasks)
+        ):
+            while True:
+                with job.cond:
+                    if job.finished():
+                        break
+                    now = time.monotonic()
+                    self._check_all_quarantined(job)
+                    self._dispatch_due(job, now)
+                    self._monitor(job, now)
+                    self._maybe_speculate(job, now)
+                    timeout = self._wait_timeout(job, now)
+                    job.cond.wait(timeout)
+                # Replace any executor that died (ExecutorDeathError exit) or
+                # was declared lost (stale heartbeat) — outside the job lock,
+                # since spawning threads under it serves nothing.
+                if self.pool.alive_count < self.pool.target_workers:
+                    self.pool.ensure_capacity()
+            if job.failed:
+                first = job.failed[0]
+                raise JobFailedError(
+                    f"{len(job.failed)}/{len(job.tasks)} tasks failed permanently; "
+                    f"first: task {first.index} after {first.failures} attempts",
+                    history={
+                        t.index: list(t.history) for t in job.tasks if t.history
+                    },
+                ) from first.error
         return [t.result for t in job.tasks]
 
     def _restore_from_journal(
@@ -640,6 +689,8 @@ class Scheduler:
             job.done_count += 1
             recovered += 1
             self.metrics.note_recovered(index)
+            if job.bus.active:
+                job.bus.publish(TaskRecovered(job_id=job.id, task_id=index))
         if recovered:
             logger.info(
                 "restored %d/%d tasks from journal %s (zero re-execution)",
@@ -688,6 +739,17 @@ class Scheduler:
             job.running[index] = [att]
             depth = self.pool.queue_depth() + 1
             self.metrics.note_dispatch(index, depth)
+            # attempt spans: children of scheduler.job; a retry opens a
+            # NEW span, so failed attempts read as siblings tagged with
+            # their failure reason
+            att.span = get_tracer().start_span(
+                f"task-{index}", job_id=job.id, attempt=t.failures
+            )
+            if job.bus.active:
+                job.bus.publish(TaskDispatched(
+                    job_id=job.id, task_id=index, attempt=t.failures,
+                    queue_depth=depth,
+                ))
             self.pool.submit(att)
 
     def _monitor(self, job: _Job, now: float) -> bool:
@@ -708,6 +770,8 @@ class Scheduler:
                     atts.remove(att)
                     if not atts:
                         job.running.pop(index, None)
+                    if att.span is not None:
+                        get_tracer().finish(att.span, status="timeout")
                     job._register_failure(
                         t,
                         TaskLostError(
@@ -725,6 +789,8 @@ class Scheduler:
                     atts.remove(att)
                     if not atts:
                         job.running.pop(index, None)
+                    if att.span is not None:
+                        get_tracer().finish(att.span, status="heartbeat")
                     self.pool.declare_lost(att.worker)
                     lost = True
                     job._register_failure(
@@ -773,6 +839,19 @@ class Scheduler:
             depth = self.pool.queue_depth() + 1
             self.metrics.note_dispatch(index, depth)
             self.metrics.note_speculative_launch(index)
+            spec.span = get_tracer().start_span(
+                f"task-{index}", job_id=job.id, attempt=orig.task.failures,
+                speculative=True,
+            )
+            if job.bus.active:
+                job.bus.publish(TaskSpeculated(
+                    job_id=job.id, task_id=index,
+                    original_worker=orig.worker.wid, age=age, median=median,
+                ))
+                job.bus.publish(TaskDispatched(
+                    job_id=job.id, task_id=index, attempt=orig.task.failures,
+                    queue_depth=depth,
+                ))
             logger.info(
                 "task %d: speculative copy launched (attempt age %.3fs > "
                 "%.2fx median %.3fs)",

@@ -148,6 +148,47 @@ def test_binary_gradients_on_the_card_are_the_cpus_bits(kind):
         assert torch.equal(a.cpu(), b)
 
 
+def _higgs_weighted(n=50_000, f=28):
+    """The HIGGS-shaped case of the card-against-CPU text check: chip_smoke's
+    generator with U(0.5, 2) row weights, ``default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(n, f))
+    logit = X[:, 0] * 1.5 + X[:, 1] * X[:, 2] + 0.8 * np.sin(X[:, 3]) + 0.5 * rng.normal(size=n)
+    return X, (logit > 0).astype(np.float64), rng.uniform(0.5, 2.0, n)
+
+
+@pytest.mark.cuda
+def test_default_path_text_on_the_card_is_the_cpus():
+    """The default path's float32 reductions over the bins are one chain in
+    bin order on both devices, so a weighted HIGGS-shaped fit writes the
+    same model text on the card as on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    X, y, w = _higgs_weighted()
+    bins, mapper = tbinning.bin_dataset(X, max_bin=255)
+    opts = ttrain.TrainOptions(objective="binary", num_iterations=5, num_leaves=31, max_bin=255)
+    texts = [ttrain.train(bins, y, opts, w=w, mapper=mapper, device=d).booster.model_to_string()
+             for d in ("cuda", "cpu")]
+    assert texts[0] == texts[1]
+
+
+@pytest.mark.parametrize("shape,dim", [((3, 5, 64, 3), 2), ((4, 63, 3), 1), ((2, 7, 256, 3), 2)])
+def test_bin_reductions_are_one_float32_chain(shape, dim):
+    """The default path's prefix and totals over the bins: numpy's float32
+    chain in bin order on the CPU (torch.cumsum would accumulate in
+    float64), exact sums on integer (quantized) histograms."""
+    rng = np.random.default_rng(sum(shape))
+    h = (rng.normal(size=shape) * 10.0 ** rng.integers(-3, 4, size=shape)).astype(np.float32)
+    chain = np.cumsum(h, axis=dim, dtype=np.float32)
+    assert ttrain._chain_prefix(torch.from_numpy(h), dim).numpy().tobytes() == chain.tobytes()
+    total = np.take(chain, -1, axis=dim)
+    assert ttrain._bin_sum(torch.from_numpy(h), dim).numpy().tobytes() == total.tobytes()
+    if dim == 2:
+        assert ttrain._bin_prefix(torch.from_numpy(h), False).numpy().tobytes() == chain.tobytes()
+    ints = torch.from_numpy(rng.integers(-500, 500, size=shape))
+    assert torch.equal(ttrain._bin_sum(ints, dim), ints.sum(dim=dim))
+
+
 def test_metrics_match_jax(ref):
     rng = np.random.default_rng(2)
     y = (rng.uniform(size=5000) > 0.5).astype(np.float64)

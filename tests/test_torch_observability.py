@@ -207,6 +207,87 @@ def test_event_log_replays_in_the_other_package(ref, tmp_path, direction):
         reader.from_record({"event": "NoSuchEvent"})
 
 
+def _value(annotation, i, field):
+    """A deterministic value for an event field by its annotation."""
+    ann = str(annotation)
+    if ann.startswith(("Dict", "dict")):
+        return {"k": i % 3}
+    if ann.startswith(("Optional", "List", "list")):
+        return None
+    if "float" in ann:
+        return 0.25 * (i % 7) + 0.125
+    if "bool" in ann:
+        return i % 2 == 0
+    if "int" in ann:
+        return (i * 7 + len(field)) % 5
+    if field == "level":
+        return ("ok", "warn", "critical")[i % 3]
+    return f"{field}{i % 3}"
+
+
+def _every_event(events_mod, copies=3):
+    """``copies`` events of every class, each field filled by its type,
+    with fixed ``t`` stamps, in a fixed interleaved order."""
+    out = []
+    for i in range(copies):
+        for j, name in enumerate(sorted(events_mod._EVENT_TYPES)):
+            cls = events_mod._EVENT_TYPES[name]
+            kw = {f.name: _value(f.type, i + j, f.name) for f in dataclasses.fields(cls)
+                  if f.name != "t"}
+            out.append(cls(t=1000.0 + 10 * i + 0.01 * j, **kw))
+    return out
+
+
+def test_timeline_and_its_text_equal_the_references(ref):
+    port = tevents.timeline(_every_event(tevents))
+    jref = ref["events"].timeline(_every_event(ref["events"]))
+    assert port == jref
+    assert tevents.format_timeline(port) == ref["events"].format_timeline(jref)
+    assert port["tasks"]["dispatched"] == 3 and port["quality"]["detected"] == 3
+    assert "== tasks ==" in tevents.format_timeline(port)
+
+
+def _federated_log(events_mod, path):
+    """A driver log and two child siblings, each size-bounded so that it
+    rotates; events interleaved across the three writers."""
+    sinks = {"driver": events_mod.EventLogSink(path, max_bytes=600, process="driver")}
+    for label in ("exec1", "exec2"):
+        sinks[label] = events_mod.EventLogSink(events_mod.process_log_path(path, label),
+                                               max_bytes=600, process=label)
+    written = _every_event(events_mod, copies=1)[:30]
+    labels = list(sinks)
+    for i, ev in enumerate(written):
+        sinks[labels[i % 3]](ev)
+    for sink in sinks.values():
+        sink.close()
+
+
+@pytest.mark.parametrize("direction", ["port_to_ref", "ref_to_port"])
+def test_federated_log_merges_as_the_reference_does(ref, tmp_path, direction):
+    writer, other = (tevents, ref["events"]) if direction == "port_to_ref" else \
+        (ref["events"], tevents)
+    path = str(tmp_path / "fleet.jsonl")
+    _federated_log(writer, path)
+    collected = {k: [os.path.relpath(p, tmp_path) for p in v]
+                 for k, v in tevents.collect(path).items()}
+    assert collected == {k: [os.path.relpath(p, tmp_path) for p in v]
+                         for k, v in ref["events"].collect(path).items()}
+    assert sorted(collected) == ["driver", "exec1", "exec2"]
+    assert all(len(v) > 1 for v in collected.values())  # every writer rotated
+    port_merged, ref_merged = tevents.merge(path), ref["events"].merge(path)
+    assert [(e.to_record(), e.process, e.wt) for e in port_merged] == \
+        [(e.to_record(), e.process, e.wt) for e in ref_merged]
+    assert tevents._merged_records(path) == ref["events"]._merged_records(path)
+    n_port = tevents.write_merged(path, str(tmp_path / "port.jsonl"))
+    n_ref = other.write_merged(path, str(tmp_path / "ref.jsonl"))
+    assert n_port == n_ref == 30
+    assert (tmp_path / "port.jsonl").read_bytes() == (tmp_path / "ref.jsonl").read_bytes()
+    summary = tevents.timeline(port_merged)
+    assert summary == ref["events"].timeline(ref_merged)
+    assert summary["by_process"] == {"driver": 10, "exec1": 10, "exec2": 10}
+    assert tevents.format_timeline(summary) == ref["events"].format_timeline(summary)
+
+
 def test_env_sink_follows_the_environment(tmp_path, monkeypatch):
     path = str(tmp_path / "log.jsonl")
     monkeypatch.setenv("MMLSPARK_TPU_EVENT_LOG", path)

@@ -330,13 +330,3 @@ def test_pipeline_spans_and_stage_transform_spans():
     tree = tracer.span_tree(root.trace_id)
     assert [c["name"] for c in tree["roots"][0]["children"]] == ["transform:Scale"] * 2
     assert out["w3"].tobytes() == (d["w"] * 4.0).tobytes()
-
-
-def test_quality_store_is_refused_by_name(monkeypatch):
-    monkeypatch.setenv("MMLSPARK_TPU_QUALITY_STORE", "/nonexistent")
-    pm = tpipe.make_pipeline_model(PScale(inputCol="w", outputCol="w2"))
-    t = Table({"w": np.ones(3)})
-    with pytest.raises(NotImplementedError, match="quality"):
-        pm.transform(t)
-    with pytest.raises(NotImplementedError, match="quality"):
-        tpipe.Pipeline(stages=[PScale(inputCol="w", outputCol="w2")]).fit(t)

@@ -454,6 +454,229 @@ def test_sample_hbm_is_empty_without_a_card():
     assert tpressure.sample_hbm() == []
 
 
+# -- events, spans and the registry ----------------------------------------------------
+
+#: the scheduler events' fields that depend on timing or on the process
+UNTIMED = {"t", "job_id", "duration", "age", "median", "queue_depth"}
+
+
+def _scheduled_events(rt, events_mod, tracer, **policy):
+    """A one-worker job under a seeded plan (a killed executor, an error on a
+    task's first attempt, a quarantine and its parole) with its events and
+    the tracer's spans; a quarantined worker waits out its parole."""
+    seen = []
+    bus = events_mod.get_bus()
+    bus.add_listener(seen.append)
+    tracer.clear()
+    failed_once = set()
+
+    def work(x):
+        if x == 2 and x not in failed_once:
+            failed_once.add(x)
+            raise ValueError("first attempt of task 2")
+        return x * 3
+
+    plan = rt.FaultPlan(seed=5).kill_task(0)
+    m = rt.RuntimeMetrics()
+    try:
+        out = rt.run_partitioned(work, [0, 1, 2, 3], _policy(
+            rt, max_workers=1, faults=plan, quarantine_threshold=1.0, parole_s=0.05,
+            quarantine_fail_fast=False, **policy), metrics=m)
+    finally:
+        bus.remove_listener(seen.append)
+    records = [{k: v for k, v in e.to_record().items() if k not in UNTIMED} for e in seen
+               if type(e).__name__ != "SpanRecorded"]  # the spans are compared apart
+    # worker ids count up across the process: number them by creation
+    rank = {w: i for i, w in enumerate(sorted({r["worker"] for r in records if "worker" in r
+                                               and r["worker"] >= 0}))}
+    for r in records:
+        if r.get("worker", -1) >= 0:
+            r["worker"] = rank[r["worker"]]
+    spans = [(sp["name"], sp["status"]) for sp in tracer.export()]
+    return out, records, spans, m.summary()
+
+
+def _per_task(records):
+    """Each task's events in their order (tasks run on one worker, but the
+    scheduling loop re-dispatches a retry while the queue still drains, so
+    the interleaving across tasks is timing's)."""
+    out = {}
+    for r in records:
+        key = ("task", r["task_id"]) if "task_id" in r else ("worker", r["worker"])
+        out.setdefault(key, []).append(r)
+    return out
+
+
+def test_scheduler_publishes_the_references_events_and_spans():
+    from mmlspark_tpu.observability import events as jevents
+    from mmlspark_tpu.observability import tracing as jtracing
+    from mmlspark_tpu_torch.observability import events as tevents
+    from mmlspark_tpu_torch.observability import tracing as ttracing
+
+    port = _scheduled_events(trt, tevents, ttracing.get_tracer())
+    jref = _scheduled_events(jrt, jevents, jtracing.get_tracer())
+    assert port[0] == jref[0] == [0, 3, 6, 9]
+    key = lambda r: json.dumps(r, sort_keys=True)  # noqa: E731
+    assert sorted(map(key, port[1])) == sorted(map(key, jref[1]))
+    assert _per_task(port[1]) == _per_task(jref[1])
+    assert sorted(port[2]) == sorted(jref[2])
+    kinds = {r["event"] for r in port[1]}
+    assert {"TaskDispatched", "TaskFailed", "TaskRetried", "WorkerQuarantined",
+            "WorkerParoled"} <= kinds
+    assert ("scheduler.job", "ok") in port[2]
+    assert {"executor_death", "error"} <= {status for _, status in port[2]}
+    s = port[3]
+    dispatched = sum(r["event"] == "TaskDispatched" for r in port[1])
+    assert (dispatched, s["retries_total"], s["failures_total"]) == (
+        s["dispatches"], sum(r["event"] == "TaskRetried" for r in port[1]),
+        sum(r["event"] == "TaskFailed" for r in port[1]))
+
+
+def test_speculation_and_recovery_events_equal_the_references(tmp_path):
+    from mmlspark_tpu.observability import events as jevents
+    from mmlspark_tpu_torch.observability import events as tevents
+
+    def run(rt, events_mod):
+        seen = []
+        bus = events_mod.get_bus()
+        bus.add_listener(seen.append)
+        try:
+            plan = rt.FaultPlan(seed=11).slow_task(3, 30.0)
+            rt.run_partitioned(lambda x: x + 1, [0, 1, 2, 3], _policy(
+                rt, max_workers=2, speculation=True, speculation_quantile=0.5, faults=plan))
+            root = str(tmp_path / rt.__name__)
+            with rt.FitJournal(root, "key", num_tasks=2) as j:
+                rt.run_partitioned(lambda x: -x, [5, 6], _policy(rt, max_workers=1), journal=j)
+            with rt.FitJournal(root, "key", num_tasks=2) as j:
+                rt.run_partitioned(lambda x: -x, [5, 6], _policy(rt, max_workers=1), journal=j)
+        finally:
+            bus.remove_listener(seen.append)
+        spec = [{k: v for k, v in e.to_record().items() if k not in UNTIMED | {"original_worker"}}
+                for e in seen if type(e).__name__ == "TaskSpeculated"]
+        recovered = [{k: v for k, v in e.to_record().items() if k not in UNTIMED}
+                     for e in seen if type(e).__name__ == "TaskRecovered"]
+        return spec[:1], recovered
+
+    port, jref = run(trt, tevents), run(jrt, jevents)
+    assert port == jref
+    assert port[0] == [{"event": "TaskSpeculated", "task_id": 3}]
+    assert port[1] == [{"event": "TaskRecovered", "task_id": 0},
+                       {"event": "TaskRecovered", "task_id": 1}]
+
+
+COUNTERS = {
+    "scheduler_tasks_done_total": "tasks_done", "scheduler_dispatches_total": "dispatches",
+    "scheduler_retries_total": "retries_total", "scheduler_quarantines_total": "quarantines",
+    "scheduler_paroles_total": "paroles", "scheduler_tasks_recovered_total": "tasks_recovered",
+    "scheduler_speculative_launched_total": "speculative_launched",
+    "scheduler_speculative_wins_total": "speculative_wins",
+    "scheduler_lineage_recomputes_total": "lineage_recomputes",
+    "scheduler_wasted_results_total": "wasted_results",
+}
+
+
+@pytest.mark.parametrize("rt", [trt, jrt], ids=["port", "ref"])
+def test_runtime_metrics_registry_counters_equal_the_summary(rt):
+    from mmlspark_tpu.observability import registry as jregistry
+    from mmlspark_tpu_torch.observability import registry as tregistry
+
+    reg = (tregistry if rt is trt else jregistry).MetricsRegistry()
+    m = rt.RuntimeMetrics(registry=reg)
+    plan = rt.FaultPlan(seed=2).kill_task(1).corrupt_result(2)
+    with rt.Scheduler(policy=_policy(rt, max_workers=2, faults=plan, result_integrity=True,
+                                     quarantine_threshold=0.5, parole_s=0.01,
+                                     quarantine_fail_fast=False), metrics=m) as sched:
+        sched.run(lambda x: x, [0, 1, 2, 3])
+    s = m.summary()
+    for metric, key in COUNTERS.items():
+        assert reg.get(metric).value == s[key], metric
+    failures = reg.get("scheduler_failures_total")
+    assert failures.labels(reason="executor_death").value == s["failures_executor_death"] == 1
+    assert failures.labels(reason="corrupt").value == s["failures_corrupt"] == 1
+    assert reg.get("scheduler_max_queue_depth").value == s["max_queue_depth"]
+    assert reg.get("scheduler_task_run_seconds").count == s["tasks_done"] == 4
+
+
+def test_runtime_metrics_render_the_references_counters():
+    from mmlspark_tpu.observability import registry as jregistry
+    from mmlspark_tpu_torch.observability import registry as tregistry
+
+    def script(rt, registry_mod):
+        reg = registry_mod.MetricsRegistry()
+        m = rt.RuntimeMetrics(registry=reg)
+        for i in range(3):
+            m.note_dispatch(i, queue_depth=i + 2)
+            m.note_start(i, 0.25)
+            m.note_done(i, 0.5)
+        m.note_failure(1, "oom")
+        m.note_retry(1)
+        m.note_recompute(1)
+        m.note_wasted_result()
+        m.note_speculative_launch(2)
+        m.note_speculative_win(2)
+        m.note_recovered(0)
+        m.note_quarantine(4)
+        m.note_parole(4)
+        m.note_quarantine(5)
+        return reg.exposition(), m.summary()
+
+    assert script(trt, tregistry) == script(jrt, jregistry)
+
+
+def test_watchdog_publishes_the_references_pressure_events_and_gauges(tmp_path):
+    from mmlspark_tpu.observability import events as jevents
+    from mmlspark_tpu.observability import registry as jregistry
+    from mmlspark_tpu_torch.observability import events as tevents
+    from mmlspark_tpu_torch.observability import registry as tregistry
+
+    rounds = [  # (card used, host rss, checkpoint free, event-log free) of 100
+        (50.0, 10.0, 90.0, 80.0), (86.0, 10.0, 90.0, 80.0), (96.0, 10.0, 12.0, 80.0),
+        (40.0, 97.0, 4.0, 80.0), (10.0, 10.0, 90.0, 80.0), (10.0, 10.0, 90.0, 2.0),
+    ]
+
+    def run(rt, registry_mod, events_mod):
+        reg = registry_mod.MetricsRegistry()
+        state = {}
+        ckpt, evdir = str(tmp_path / "ckpt"), str(tmp_path / "events")
+        wd = rt.ResourceWatchdog(
+            checkpoint_dir=ckpt, eventlog_dir=evdir, registry=reg,
+            hbm_sampler=lambda: [("cuda:0", state["r"][0], 100.0)],
+            rss_sampler=lambda: (state["r"][1], 100.0),
+            disk_sampler=lambda p: (state["r"][2] if p == ckpt else state["r"][3], 100.0))
+        seen = []
+        bus = events_mod.get_bus()
+        bus.add_listener(seen.append)
+        levels = []
+        try:
+            for r in rounds:
+                state["r"] = r
+                levels.append({k: int(v) for k, v in wd.poll().items()})
+        finally:
+            bus.remove_listener(seen.append)
+            rt.set_pressure_level("memory", rt.PressureLevel.OK)
+            rt.set_pressure_level("disk", rt.PressureLevel.OK)
+        records = [{k: v for k, v in e.to_record().items() if k != "t"} for e in seen]
+        return levels, records, reg.exposition().replace(str(tmp_path), "<tmp>")
+
+    port = run(trt, tregistry, tevents)
+    assert port == run(jrt, jregistry, jevents)
+    kinds = [(r["event"], r["level"]) for r in port[1]]
+    assert ("MemoryPressure", "critical") in kinds and ("MemoryPressure", "ok") in kinds
+    assert ("DiskPressure", "warn") in kinds and ("DiskPressure", "ok") in kinds
+    assert "pressure_hbm_fraction" in port[2]
+
+
+def test_watchdog_watches_the_event_log_volume_by_default(tmp_path, monkeypatch):
+    monkeypatch.setenv("MMLSPARK_TPU_EVENT_LOG", str(tmp_path / "logs" / "events.jsonl"))
+    assert trt.ResourceWatchdog().eventlog_dir == jrt.ResourceWatchdog().eventlog_dir == \
+        str(tmp_path / "logs")
+    monkeypatch.setenv("MMLSPARK_TPU_EVENT_LOG", "events.jsonl")
+    assert trt.ResourceWatchdog().eventlog_dir == jrt.ResourceWatchdog().eventlog_dir == "."
+    monkeypatch.delenv("MMLSPARK_TPU_EVENT_LOG")
+    assert trt.ResourceWatchdog().eventlog_dir is None
+    assert trt.get_watchdog() is trt.get_watchdog()
+
+
 def test_runtime_imports_neither_jax_nor_the_reference():
     code = ("import sys, mmlspark_tpu_torch.runtime, mmlspark_tpu_torch.lightgbm, "
             "mmlspark_tpu_torch.data.sharded\n"

@@ -369,45 +369,12 @@ def test_narrow_batch_keeps_the_trained_width_and_wide_indices_raise():
 # -- the card -----------------------------------------------------------------------
 
 
-def _signal_splits(b, t, floor):
-    """Tree ``t``'s splits whose gain is at least ``floor``, keyed by their
-    path from the root ("" the root, then "L"/"R" per step): feature, bin
-    and gain. A split below ``floor`` and its subtree are left out."""
-    out, todo = {}, [(0, "")]
-    while todo:
-        m, path = todo.pop()
-        if b.is_leaf[t, m] or b.split_gain[t, m] < floor:
-            continue
-        out[path] = (int(b.split_feature[t, m]), int(b.split_bin[t, m]),
-                     float(b.split_gain[t, m]))
-        todo += [(int(b.left_child[t, m]), path + "L"), (int(b.right_child[t, m]), path + "R")]
-    return out
-
-
-def _same_signal_trees(card, cpu, rel_floor=1e-6):
-    """The two boosters make the same splits wherever the gain stands above
-    ``rel_floor`` of the tree's root gain (float32 rounding of the root's
-    sums lies below it): same paths, features and bins, gains within
-    1e-3. Below it, float32 sums added in another order (the card's
-    kernel against the CPU's scatter) may rank near-zero gains apart, and
-    a leaf batch then splits other leaves, or in another slot order."""
-    assert card.split_feature.shape[0] == cpu.split_feature.shape[0]
-    for t in range(card.split_feature.shape[0]):
-        floor = rel_floor * float(cpu.split_gain[t, 0])
-        a, b = _signal_splits(card, t, floor), _signal_splits(cpu, t, floor)
-        assert a.keys() == b.keys(), (t, sorted(a.keys() ^ b.keys()))
-        for path in a:
-            assert a[path][:2] == b[path][:2], (t, path)
-            np.testing.assert_allclose(a[path][2], b[path][2], rtol=1e-3)
-
-
 @pytest.mark.cuda
 def test_sparse_bins_through_histogram_cu_equal_the_plain_version():
     """Packed one-hot CSR bins (the shape of the sparse airline fit, cut)
     through histogram.cu at k = 1 and 8: bit-equal to the plain version.
-    The sparse fit on the card writes the dense fit's model text, and
-    agrees with the CPU's fit: the quantized text exactly, the default
-    path's splits wherever the gain stands above float32 rounding."""
+    The sparse fit on the card writes the dense fit's model text, and the
+    CPU's fit's text on the default and the quantized path."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from mmlspark_tpu_torch.ops import hopper_histogram as hh
@@ -432,23 +399,17 @@ def test_sparse_bins_through_histogram_cu_equal_the_plain_version():
     card = LightGBMClassifier(device="cuda", **params).fit(sparse_t)
     assert card.get_model_string() == LightGBMClassifier(device="cuda", **params).fit(
         Table({"features": dense32, "label": y[:20_000]})).get_model_string()
-    # against the CPU: exact on the quantized path, and on the default path the
-    # same splits above float32 rounding, and margins within it. The binary
-    # gradients are the CPU's bits, and so are the integer histogram sums;
-    # the float32 prefix over the bins (float64-accumulated by the CPU's
-    # torch.cumsum, one float32 chain on the card) and each node's total (a
-    # sum over the bins in each device's reduction order) round apart. The
-    # label is a function of two features, so once they are split the
-    # leaves' best gains are rounding residue (a few ulps of the parent's
-    # score) and those last bits rank them.
+    # against the CPU: the same model text on both paths. The binary
+    # gradients are the CPU's bits, the histogram sums are exact integers,
+    # and the default path's float32 reductions over the bins (the split
+    # search's prefix, each node's total, a bundle's default bin) are one
+    # chain in bin order on both devices.
     obj = objectives.get_objective("binary")
     m = torch.from_numpy(np.random.default_rng(1).normal(size=(20_000, 1)).astype(np.float32))
     yw = (torch.from_numpy(y[:20_000].astype(np.float32)), torch.ones(20_000))
     for a, b in zip(obj.grad_hess(m.cuda(), *(v.cuda() for v in yw)), obj.grad_hess(m, *yw)):
         assert torch.equal(a.cpu(), b)
     cpu = LightGBMClassifier(device="cpu", **params).fit(sparse_t)
-    _same_signal_trees(card.booster, cpu.booster)
-    np.testing.assert_allclose(card.booster.raw_margin(dense32, device="cpu"),
-                               cpu.booster.raw_margin(dense32, device="cpu"), rtol=0, atol=1e-5)
+    assert card.get_model_string() == cpu.get_model_string()
     assert (QuantizedClassifier(device="cuda", **params).fit(sparse_t).get_model_string()
             == QuantizedClassifier(device="cpu", **params).fit(sparse_t).get_model_string())
