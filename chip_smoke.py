@@ -260,10 +260,33 @@ non-zero and prints no result):
    ProcessLost and one GroupReformed in its event log (under
    smoke_data/). Then a 2-process fit of the first 200,000 rows on the
    card and on the CPU port: equal text.
-28. One JSON line with every kernel (the grouped wide-level launches and
-   phases 22, 23, 24, 25 and 27's cases among them), then the card line,
-   then the result line. Each phase prints its wall time; TF32 matmuls must
-   be off.
+28. Many models (lightgbm.train.train_many, mmlspark_tpu_torch.sweep and
+   automl), after the compute-mode check of phase 27. (a) train_many on
+   phase 5's bins, K = 4 (learning rate 0.05, 0.1, 0.2, and 0.1 with
+   feature and bagging fraction 0.8, bagging every iteration): each
+   candidate's text equals its own train() fit's byte for byte; 200 + 80
+   histogram.cu launches; the bucket's seconds beside the four train()
+   calls'; each candidate's held-out AUC. (b) An inline TrainValidSweep of
+   LightGBMClassifier over GridSpace(learningRate 0.05/0.1/0.2 x numLeaves
+   15/31) on phase 5's 11,000,000 rows as a Table (seed 3, AUC): 6
+   candidates in 2 buckets of 3, one batched CandidateBatchFitted each,
+   committed under a checkpoint root in smoke_data/; its wall split into
+   binning, boosting, scoring and the refit, the leaderboard, the
+   committed version, the winner's held-out AUC. (c) TuneHyperparameters
+   (3 folds, 4 draws of learningRate in [0.05, 0.3)) on the first 250,000
+   rows, batched and on a 2-thread pool: equal metrics; then FindBestModel
+   over both tuned models. (d) (b)'s grid on the first 1,000,000 rows with
+   numProcesses=2 (workers share the card): the inline
+   run's metrics and winner; again under FaultPlan(seed=11).kill_process(1,
+   iteration=1): 2 epochs, one signal:9 exit, the undisturbed metrics,
+   winner, committed version and text, one ProcessLost and one
+   GroupReformed. (e) histogram.cu on the bins of (b)'s first bucket at
+   iteration-0 stats, k = 1 and 8, bit-equal to the plain version, timed,
+   with the bound; launches from that bucket's train_many call.
+29. One JSON line with every kernel (the grouped wide-level launches and
+   phases 22, 23, 24, 25, 27 and 28's cases among them), then the card
+   line, then the result line. Each phase prints its wall time; TF32
+   matmuls must be off.
 """
 
 import dataclasses
@@ -3822,6 +3845,320 @@ def phase_distribution(torch, uh, hh, rates, base, train, parallel, procfit, run
                 launches=mesh["data_parallel"]["launches"])
 
 
+N_MANY_GANG = 1_000_000  # phase 28's gang rows: the first of phase 5's
+N_MANY_TUNE = 250_000  # phase 28's tuner rows, cut from 1M to keep the phase under 90 s
+MANY_GRID = {"learningRate": [0.05, 0.1, 0.2], "numLeaves": [15, 31]}
+MANY_TUNE_FOLDS = 3
+MANY_TUNE_RUNS = 4
+MANY_KILL = (1, 1)  # the SIGKILLed gang member and the bucket index it dies at
+MANY_FAULT_SEED = 11
+
+
+def _many_train_many(torch, uh, hh, train, auc, higgs, card):
+    """Phase 28 (a): train_many on phase 5's bins, K = 4, against four
+    train() calls; returns the record and the bucket's launch counts."""
+    bins, mapper, y = higgs["bins"], higgs["mapper"], higgs["y"]
+    est = higgs["estimator"]
+    o = est._make_options(est._num_classes(y))
+    opts = [dataclasses.replace(o, learning_rate=0.05), dataclasses.replace(o, learning_rate=0.1),
+            dataclasses.replace(o, learning_rate=0.2),
+            dataclasses.replace(o, learning_rate=0.1, feature_fraction=0.8,
+                                bagging_fraction=0.8, bagging_freq=1)]
+    names = [f"f{i}" for i in range(bins.shape[1])]
+    torch.cuda.synchronize()
+    _zero_counts(uh, hh)
+    t0 = time.perf_counter()
+    many = train.train_many(bins, y, opts, mapper=mapper, feature_names=names)
+    torch.cuda.synchronize()
+    bucket_s = time.perf_counter() - t0
+    counts = _counts(uh, hh)
+    _need(counts, ("hist_panel", "hist_combined"), "train_many")
+    single = []
+    for opt in opts:
+        t1 = time.perf_counter()
+        res = train.train(bins, y, opt, mapper=mapper, feature_names=names)
+        torch.cuda.synchronize()
+        single.append((time.perf_counter() - t1, res))
+    Xte, yte = higgs["X_test"], higgs["y_test"]
+    cands = []
+    for opt, r, (one_s, one) in zip(opts, many, single):
+        if r.booster.model_to_string() != one.booster.model_to_string():
+            raise AssertionError(f"train_many: candidate {opt.learning_rate}/"
+                                 f"{opt.feature_fraction} differs from its train() text")
+        margin = r.booster.raw_margin(Xte, device="cuda")[:, 0]
+        cands.append(dict(learning_rate=opt.learning_rate, feature_fraction=opt.feature_fraction,
+                          bagging_fraction=opt.bagging_fraction, text_equal_train=True,
+                          step_s=r.stats.boost_seconds, train_boosting_s=one.stats.boost_seconds,
+                          train_s=one_s, passes=r.stats.passes,
+                          held_out_auc=auc(yte, margin, np.ones(len(yte)))))
+    # phase 5's 50 + 20 a fit: 5 panel and 2 combined passes a tree at 31
+    # leaves and leaf batch 8, K times
+    k, iters = len(opts), o.num_iterations
+    want = (k * 5 * iters, k * 2 * iters)
+    if (counts["hist_panel"], counts["hist_combined"]) != want or \
+            counts["u_panel_dot"] or counts["bin_scatter"]:
+        raise AssertionError(f"train_many: launches {counts}, want {want} on histogram.cu "
+                             "and none on the U path")
+    rec = dict(rows=len(y), candidates=k, bucket_s=bucket_s,
+               bucket_steps_s=sum(c["step_s"] for c in cands),
+               train_calls_s=sum(c["train_s"] for c in cands),
+               train_boosting_s=sum(c["train_boosting_s"] for c in cands),
+               upload_s=many[0].stats.upload_seconds, launches=counts, candidates_detail=cands,
+               card=card)
+    print("many models train_many: " + json.dumps(rec), flush=True)
+    if not min(c["held_out_auc"] for c in cands) > 0.75:
+        raise AssertionError("train_many: a candidate's held-out AUC is too low for this data")
+    return rec, counts
+
+
+def _many_inline_sweep(torch, uh, hh, rates, base, train, objectives, batched, tsweep, automl,
+                       events, Table, LightGBMClassifier, auc, higgs, card, work):
+    """Phase 28 (b) and (e): the inline TrainValidSweep on phase 5's rows;
+    histogram.cu on its first bucket's bins. Returns the record, the
+    kernel entries and the first bucket's launches."""
+    X, y = higgs["X"], higgs["y"]
+    table = Table({"features": X, "label": y})
+    seconds = {}
+    calls = []
+    train_many = train.train_many
+
+    def counted_train_many(bins, yb, opts_list, **kw):
+        _zero_counts(uh, hh)
+        out = train_many(bins, yb, opts_list, **kw)
+        torch.cuda.synchronize()
+        calls.append(dict(bins=bins, y=yb, counts=_counts(uh, hh), size=len(opts_list)))
+        return out
+
+    train.train_many = counted_train_many
+    saved_b = _timed_calls(base, ["bin_dataset"], seconds)
+    saved_t = _timed_calls(train, ["train_many"], seconds)
+    saved_s = _timed_calls(batched, ["_score"], seconds)
+    seen = []
+    bus = events.get_bus()
+    bus.add_listener(seen.append)
+    ckpt = os.path.join(work, "inline")
+    saved_env = os.environ.get("MMLSPARK_TPU_CHECKPOINT_DIR")
+    os.environ["MMLSPARK_TPU_CHECKPOINT_DIR"] = ckpt
+    try:
+        sweep = tsweep.TrainValidSweep(
+            estimator=LightGBMClassifier(**HIGGS_PARAMS),
+            paramSpace=automl.GridSpace(MANY_GRID), evaluationMetric="AUC", seed=3)
+        t0 = time.perf_counter()
+        model = sweep.fit(table)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        bus.remove_listener(seen.append)
+        for module, saved in ((base, saved_b), (train, saved_t), (batched, saved_s)):
+            for name, fn in saved.items():
+                setattr(module, name, fn)
+        train.train_many = train_many
+        if saved_env is None:
+            del os.environ["MMLSPARK_TPU_CHECKPOINT_DIR"]
+        else:
+            os.environ["MMLSPARK_TPU_CHECKPOINT_DIR"] = saved_env
+    fitted = [e for e in seen if type(e).__name__ == "CandidateBatchFitted"]
+    metrics = model.getAllMetrics()
+    if not (len(metrics) == 6 and [(e.size, e.batched) for e in fitted] == [(3, True)] * 2
+            and [c["size"] for c in calls] == [3, 3]):
+        raise AssertionError(f"sweep: {len(metrics)} candidates, buckets "
+                             f"{[(e.size, e.batched) for e in fitted]}, train_many calls "
+                             f"{[c['size'] for c in calls]}; want 6 in 2 batched buckets of 3")
+    version, text = _sweep_commit(ckpt)
+    best = model.getBestModel()
+    if version != model.getModelVersion() or version != 1 or text != best.get_model_string():
+        raise AssertionError(f"sweep: committed version {version} / {model.getModelVersion()}, "
+                             "or its text is not the refit winner's")
+    st = best.fit_stats
+    board = model.leaderboard()
+    prob = best.transform(Table({"features": higgs["X_test"]}))["probability"][:, 1]
+    rec = dict(
+        rows=len(y), candidates=len(metrics), buckets=len(fitted), wall_s=wall,
+        binning_s=seconds["bin_dataset"] - st.binning_seconds,
+        boosting_s=seconds["train_many"], scoring_s=seconds["_score"],
+        refit_binning_s=st.binning_seconds, refit_boosting_s=st.boost_seconds,
+        bucket_s=[e.seconds for e in fitted],
+        leaderboard=[dict(candidate=int(c), metric=float(m)) for c, m in
+                     zip(board["candidate"], board["metric"])],
+        best_params=model.getBestParams(), committed_version=version,
+        winner_held_out_auc=auc(higgs["y_test"], prob, np.ones(len(prob))),
+        first_bucket_launches=calls[0]["counts"], card=card)
+    rec["binning_share"] = (seconds["bin_dataset"]) / wall
+    print("many models inline sweep: " + json.dumps(rec), flush=True)
+    _need(calls[0]["counts"], ("hist_panel", "hist_combined"), "sweep bucket 0")
+
+    # (e) histogram.cu on the first bucket's bins at iteration-0 stats
+    dev = torch.device("cuda", 0)
+    yb = np.asarray(calls[0]["y"], np.float32)
+    obj = objectives.get_objective("binary")
+    init = obj.init_score(yb, 1, np.ones(len(yb), np.float32))
+    yd = torch.as_tensor(yb, device=dev)
+    margins = torch.as_tensor(init, device=dev)[None, :].expand(len(yd), 1).contiguous()
+    g, h = obj.grad_hess(margins, yd, torch.ones_like(yd))
+    bins_t = train.upload_bins(calls[0]["bins"], dev)
+    kernels = _path_kernels(torch, hh, rates, "sweep_bucket0", bins_t, g[:, 0], h[:, 0],
+                            NUM_BINS)
+    del bins_t, g, h, yd, margins
+    torch.cuda.empty_cache()
+    return rec, kernels, calls[0]["counts"]
+
+
+def _sweep_commit(ckpt):
+    """(version, text) of the sweep's commit under the checkpoint root."""
+    from mmlspark_tpu_torch.runtime.journal import ModelStore
+
+    return ModelStore(os.path.join(ckpt, "models")).latest("sweep-lightgbmclassificationmodel")
+
+
+def _many_tune(torch, automl, Table, LightGBMClassifier, auc, higgs, card):
+    """Phase 28 (c): TuneHyperparameters batched and on a 2-thread pool;
+    FindBestModel over both tuned models."""
+    n = min(N_MANY_TUNE, len(higgs["y"]))
+    table = Table({"features": higgs["X"][:n], "label": higgs["y"][:n]})
+    kwargs = dict(models=LightGBMClassifier(**HIGGS_PARAMS),
+                  paramSpace={"learningRate": automl.DoubleRangeHyperParam(0.05, 0.3)},
+                  evaluationMetric="AUC", numFolds=MANY_TUNE_FOLDS, numRuns=MANY_TUNE_RUNS,
+                  seed=7)
+    tuned, secs = {}, {}
+    for mode, extra in (("batched", {}), ("threadpool", {"parallelism": 2})):
+        t0 = time.perf_counter()
+        tuned[mode] = automl.TuneHyperparameters(sweepMode=mode, **kwargs, **extra).fit(table)
+        torch.cuda.synchronize()
+        secs[mode] = time.perf_counter() - t0
+    b, t = tuned["batched"], tuned["threadpool"]
+    if b.getAllMetrics() != t.getAllMetrics() or b.getBestParams() != t.getBestParams():
+        raise AssertionError(f"tune: batched {b.getAllMetrics()} against threadpool "
+                             f"{t.getAllMetrics()}")
+    test = Table({"features": higgs["X_test"], "label": higgs["y_test"]})
+    t0 = time.perf_counter()
+    best = automl.FindBestModel(models=[b.getBestModel(), t.getBestModel()],
+                                evaluationMetric="AUC").fit(test)
+    find_s = time.perf_counter() - t0
+    evald = best.get_evaluated_models()
+    if best.getBestModelMetrics() != evald["metric"].max():
+        raise AssertionError("FindBestModel did not keep the best model")
+    rec = dict(rows=n, folds=MANY_TUNE_FOLDS, runs=MANY_TUNE_RUNS, batched_s=secs["batched"],
+               threadpool_s=secs["threadpool"], threads=2, metrics=b.getAllMetrics(),
+               metrics_equal=True, best_params=b.getBestParams(), find_best_s=find_s,
+               find_best_auc=float(best.getBestModelMetrics()), card=card)
+    print("many models tune: " + json.dumps(rec), flush=True)
+    return rec
+
+
+def _many_gang(torch, tsweep, automl, runtime, events, Table, LightGBMClassifier, higgs, card,
+               work):
+    """Phase 28 (d): the grid of (b) on N_MANY_GANG rows inline, in a
+    2-process gang, and in a gang with a SIGKILLed member."""
+    n = min(N_MANY_GANG, len(higgs["y"]))
+    table = Table({"features": higgs["X"][:n], "label": higgs["y"][:n]})
+    want_dev = LightGBMClassifier(**HIGGS_PARAMS).getDevice()
+    log_path = os.path.join(work, "gang_events.jsonl")
+    runs = {}
+    saved_env = {k: os.environ.get(k) for k in ("MMLSPARK_TPU_CHECKPOINT_DIR",
+                                                "MMLSPARK_TPU_EVENT_LOG")}
+    try:
+        for name, procs, plan in (
+                ("inline", 0, None), ("gang", DIST_PROCS, None),
+                ("killed", DIST_PROCS, runtime.FaultPlan(seed=MANY_FAULT_SEED).kill_process(
+                    MANY_KILL[0], iteration=MANY_KILL[1]))):
+            ckpt = os.path.join(work, f"gang_{name}")
+            os.environ["MMLSPARK_TPU_CHECKPOINT_DIR"] = ckpt
+            if plan is not None:
+                os.environ["MMLSPARK_TPU_EVENT_LOG"] = log_path
+            sweep = tsweep.TrainValidSweep(
+                estimator=LightGBMClassifier(**HIGGS_PARAMS),
+                paramSpace=automl.GridSpace(MANY_GRID), evaluationMetric="AUC", seed=3,
+                numProcesses=procs)
+            if plan is not None:
+                sweep._group_options = {"faults": plan}
+            t0 = time.perf_counter()
+            try:
+                model = sweep.fit(table)
+            finally:
+                if plan is not None:
+                    if saved_env["MMLSPARK_TPU_EVENT_LOG"] is None:
+                        del os.environ["MMLSPARK_TPU_EVENT_LOG"]
+                    else:
+                        os.environ["MMLSPARK_TPU_EVENT_LOG"] = saved_env["MMLSPARK_TPU_EVENT_LOG"]
+                    events._sync_env_sink()
+            fit_s = time.perf_counter() - t0
+            version, text = _sweep_commit(ckpt)
+            rec = dict(run=name, processes=procs, rows=n, fit_s=fit_s,
+                       metrics=model.getAllMetrics(), best_params=model.getBestParams(),
+                       committed_version=version, card=card)
+            if procs:
+                info = sweep._process_sweep
+                rec.update(epochs=info["epochs"], spec_s=info["spec_seconds"],
+                           exits=[s.reason for s in info["exit_statuses"]],
+                           members={str(m): dict(device=r["device"], fitted=r["fitted"],
+                                                 recovered=r["recovered"],
+                                                 launches=r["launches"],
+                                                 load_s=r["load_seconds"],
+                                                 fit_s=r["fit_seconds"])
+                                    for m, r in sorted(info["worker_results"].items())})
+                for m, r in rec["members"].items():
+                    # a member that fitted a bucket on the card launched histogram.cu
+                    if r["device"] != want_dev or (want_dev == "cuda" and r["fitted"]
+                                                   and not sum(r["launches"].values())):
+                        raise AssertionError(f"gang {name}: member {m} did not run histogram.cu"
+                                             f" on {want_dev}: {r}")
+            runs[name] = dict(rec=rec, text=text, plan=plan)
+            print(f"many models gang {name}: " + json.dumps(rec), flush=True)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    inline, gang, killed = (runs[k]["rec"] for k in ("inline", "gang", "killed"))
+    if gang["metrics"] != inline["metrics"] or gang["best_params"] != inline["best_params"] \
+            or gang["epochs"] != 1:
+        raise AssertionError("gang: metrics or winner differ from the inline sweep's")
+    names = [type(e).__name__ for e in events.replay(log_path)]
+    killed.update(fired=runs["killed"]["plan"].fired, process_lost=names.count("ProcessLost"),
+                  group_reformed=names.count("GroupReformed"),
+                  text_equal_gang=runs["killed"]["text"] == runs["gang"]["text"])
+    if not (killed["epochs"] == 2 and killed["exits"].count("signal:9") == 1
+            and killed["metrics"] == gang["metrics"]
+            and killed["best_params"] == gang["best_params"]
+            and killed["committed_version"] == gang["committed_version"] == 1
+            and killed["text_equal_gang"] and killed["process_lost"] == 1
+            and killed["group_reformed"] == 1):
+        raise AssertionError(f"gang killed: {json.dumps(killed)}")
+    print("many models gang killed checks: " + json.dumps(
+        {k: killed[k] for k in ("epochs", "exits", "fired", "process_lost", "group_reformed",
+                                "text_equal_gang")}), flush=True)
+    return dict(inline=inline, gang=gang, killed=killed)
+
+
+def phase_many_models(torch, uh, hh, rates, base, train, objectives, batched, tsweep, automl,
+                      runtime, events, Table, LightGBMClassifier, auc, higgs):
+    """Phase 28 (see the module docstring). Returns the record, with the
+    first inline bucket's launches under "launches" and histogram.cu's
+    entries on its bins under "kernels"."""
+    card = _card_line()
+    mode = _compute_mode()
+    print(f"many models: {card} | compute mode {mode}", flush=True)
+    if mode != "Default":
+        raise AssertionError(f"the card's compute mode is {mode!r}: the sweep's gang workers "
+                             "each open a CUDA context on it, which needs 'Default'")
+    work = os.path.join(DATA_DIR, "many_models")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    torch.cuda.empty_cache()
+    higgs = dict(higgs, estimator=LightGBMClassifier(**HIGGS_PARAMS))
+    many, _ = _many_train_many(torch, uh, hh, train, auc, higgs, card)
+    sweep, kernels, launches = _many_inline_sweep(
+        torch, uh, hh, rates, base, train, objectives, batched, tsweep, automl, events, Table,
+        LightGBMClassifier, auc, higgs, card, work)
+    tune = _many_tune(torch, automl, Table, LightGBMClassifier, auc, higgs, card)
+    gang = _many_gang(torch, tsweep, automl, runtime, events, Table, LightGBMClassifier, higgs,
+                      card, work)
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(train_many=many, sweep=sweep, tune=tune, gang=gang, kernels=kernels,
+                launches=launches)
+
+
 def main():
     import torch
 
@@ -3832,7 +4169,8 @@ def main():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from mmlspark_tpu_torch import parallel, runtime
+    from mmlspark_tpu_torch import automl, parallel, runtime
+    from mmlspark_tpu_torch import sweep as tsweep
     from mmlspark_tpu_torch.data import sharded
     from mmlspark_tpu_torch.data.sparse import CSRMatrix, SparseRows
     from mmlspark_tpu_torch.data.table import Table
@@ -3861,6 +4199,7 @@ def main():
     from mmlspark_tpu_torch.ops import hopper_histogram as hh
     from mmlspark_tpu_torch.ops import u_histogram as uh
     from mmlspark_tpu_torch.runtime.lineage import PartitionLostError
+    from mmlspark_tpu_torch.sweep import batched
 
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
@@ -3940,6 +4279,9 @@ def main():
         dist = timed("distribution", phase_distribution, torch, uh, hh, rates, base, train,
                      parallel, procfit, runtime, events, objectives, Table, LightGBMClassifier,
                      auc, higgs)
+        many = timed("many_models", phase_many_models, torch, uh, hh, rates, base, train,
+                     objectives, batched, tsweep, automl, runtime, events, Table,
+                     LightGBMClassifier, auc, higgs)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
     del higgs
@@ -3983,6 +4325,11 @@ def main():
          dist["launches"]["hist_panel"], dist["kernels"][8]),
         ("hist_combined_mesh_shard", "histogram.cu", "mmlspark_tpu/ops/pallas_histogram.py:177",
          dist["launches"]["hist_combined"], dist["kernels"][1]),
+        # the inline sweep's first bucket: its bins, its train_many call's launches
+        ("hist_panel_sweep", "histogram.cu", "mmlspark_tpu/ops/pallas_histogram.py:86",
+         many["launches"]["hist_panel"], many["kernels"][8]),
+        ("hist_combined_sweep", "histogram.cu", "mmlspark_tpu/ops/pallas_histogram.py:177",
+         many["launches"]["hist_combined"], many["kernels"][1]),
     ):
         if launches == 0:
             raise AssertionError(f"{name} was not launched on its path")

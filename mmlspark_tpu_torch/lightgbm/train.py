@@ -63,6 +63,11 @@ slot's device (``ops/histogram.build_histograms_sharded``, the reference's
 takes the data-parallel path, as in the reference. ``hist_reduce`` sums
 each pass across processes (``lightgbm/procfit.py``); ``iteration_hook``
 and ``start_iteration`` let a process-group fit journal and resume.
+
+:func:`train_many` trains the K candidates of one sweep bucket (options
+that differ only in :data:`MANY_VMAPPED_FIELDS`) from one upload of the
+bins, in lockstep on the compare-built passes: the many-models plane of
+``sweep/`` and ``automl/``.
 """
 
 from __future__ import annotations
@@ -72,7 +77,9 @@ import dataclasses
 import functools
 import logging
 import math
+import threading
 import time
+import zlib
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -194,6 +201,10 @@ class TrainOptions:
 
 GROWTHS = ("leafwise", "depthwise")
 BOOSTING_TYPES = ("gbdt", "rf", "dart", "goss")
+#: The reference's ``histogram_method`` values (``ops/histogram.py``: its
+#: XLA formulations and its Pallas kernel): "u" takes the U path, every
+#: other one the compare-built pass of ``histogram.cu``.
+HISTOGRAM_METHODS = (None, "pallas", "segment", "onehot", "panel", "u")
 
 
 def check_supported(opts: TrainOptions, objective: Optional[Objective] = None) -> None:
@@ -203,13 +214,15 @@ def check_supported(opts: TrainOptions, objective: Optional[Objective] = None) -
     multiclass, regression, regression_l1, huber, quantile, poisson,
     tweedie and their aliases) unless ``objective`` is given (lambdarank).
     Every ``tree_learner`` is taken: ``voting_parallel`` votes, any other
-    value is data parallel, as in the reference."""
+    value is data parallel, as in the reference; every ``histogram_method``
+    of :data:`HISTOGRAM_METHODS` is, and another one raises the reference's
+    ``ValueError``."""
     if opts.growth not in GROWTHS:
         raise ValueError(f"growth={opts.growth!r} is not one of {GROWTHS}")
     if opts.boosting_type not in BOOSTING_TYPES:
         raise ValueError(f"boosting_type={opts.boosting_type!r} is not one of {BOOSTING_TYPES}")
-    if opts.histogram_method not in (None, "pallas", "u"):
-        raise NotImplementedError(f"histogram_method={opts.histogram_method!r} is not ported")
+    if opts.histogram_method not in HISTOGRAM_METHODS:
+        raise ValueError(f"unknown histogram method {opts.histogram_method!r}")
     if opts.max_bin + 1 > 256:
         raise NotImplementedError("max_bin > 255 is not ported (bins are uint8)")
     if objective is None:
@@ -2019,6 +2032,211 @@ def train(
     stats.syncs += 1  # the packing fetch
     stats.boost_seconds = time.perf_counter() - t0 - stats.u_build_seconds - side_seconds
     return TrainResult(booster=booster, stats=stats, evals=evals, best_iteration=best_iter)
+
+
+#: TrainOptions fields that differ between the candidates of one
+#: :func:`train_many` bucket: the learning rate (passed to each candidate's
+#: step call) and the bagging and feature-fraction knobs, which only shape
+#: the host-side :func:`_mask_schedule` draws. Every other field is the
+#: bucket's (the reference's traced lanes of its vmapped program).
+MANY_VMAPPED_FIELDS = (
+    "learning_rate",
+    "feature_fraction",
+    "bagging_fraction",
+    "bagging_freq",
+    "pos_bagging_fraction",
+    "neg_bagging_fraction",
+)
+
+
+def normalize_many_opts(opts: TrainOptions) -> TrainOptions:
+    """The representative of ``opts``' bucket: the fields of
+    :data:`MANY_VMAPPED_FIELDS` pinned to fixed values. Two candidates
+    share a :func:`train_many` call iff their normalized options agree."""
+    return dataclasses.replace(
+        opts,
+        learning_rate=0.0,
+        feature_fraction=1.0,
+        bagging_fraction=1.0,
+        bagging_freq=0,
+        pos_bagging_fraction=1.0,
+        neg_bagging_fraction=1.0,
+    )
+
+
+def many_bucket_key(opts: TrainOptions) -> tuple:
+    """Hashable bucket key of the many-models plane."""
+    return dataclasses.astuple(normalize_many_opts(opts))
+
+
+#: ``gbdt.scan_many`` signatures this process has run: a new one books as
+#: the reference's first call (its compile), the rest as cache hits.
+_SCAN_MANY_SEEN: set = set()
+_SCAN_MANY_LOCK = threading.Lock()
+
+
+def _validate_many(opts_list: List[TrainOptions]) -> None:
+    """The reference's ``train_many`` refusals, with its messages."""
+    if not opts_list:
+        raise ValueError("train_many requires at least one candidate")
+    base_key = many_bucket_key(opts_list[0])
+    if any(many_bucket_key(o) != base_key for o in opts_list[1:]):
+        raise ValueError("train_many candidates must share one shape-bucket (many_bucket_key "
+                         "agreement) - partition heterogeneous grids into buckets first")
+    if opts_list[0].boosting_type not in ("gbdt", "goss"):
+        raise ValueError("train_many supports boosting_type 'gbdt' or 'goss' (dart drops trees "
+                         "per host decision; rf averages at the end) - got "
+                         f"{opts_list[0].boosting_type!r}")
+    if opts_list[0].num_iterations <= 0:
+        raise ValueError("train_many requires num_iterations > 0")
+    for o in opts_list:
+        if o.boosting_type == "goss" and o.bagging_fraction < 1.0:
+            raise ValueError("boosting_type='goss' cannot be combined with bagging")
+        if o.boosting_type == "goss" and o.top_rate + o.other_rate > 1.0:
+            raise ValueError("goss requires top_rate + other_rate <= 1 "
+                             f"(got {o.top_rate} + {o.other_rate})")
+        if (o.pos_bagging_fraction < 1.0 or o.neg_bagging_fraction < 1.0) \
+                and o.objective != "binary":
+            raise ValueError("posBaggingFraction/negBaggingFraction require the binary "
+                             f"objective (got {o.objective!r})")
+        check_supported(o)
+
+
+def train_many(
+    bins: np.ndarray,  # (N, F) uint8, shared by every candidate; packed under bundling
+    y: np.ndarray,
+    opts_list: Sequence[TrainOptions],
+    w: Optional[np.ndarray] = None,
+    mapper: Optional[BinMapper] = None,
+    feature_names: Optional[List[str]] = None,
+    device: DeviceLike = None,
+) -> List[TrainResult]:
+    """Train the K candidates of one bucket on ``device`` (CUDA unless
+    ``device='cpu'``) from one upload of the bins, labels, weights and
+    edges. Every candidate must share :func:`many_bucket_key` (callers
+    bucket a heterogeneous grid first and call once per bucket).
+
+    The reference vmaps its compiled scan over a candidate axis; the port
+    runs no compiled scan, so the candidates advance in lockstep, one
+    iteration at a time, each with its own margins and its own step call
+    at its own learning rate, its bags and feature masks drawn from
+    ``np.random.default_rng(o.seed)`` through :func:`_mask_schedule`. So
+    candidate k's booster is, byte for byte, what :func:`train` writes for
+    ``opts_list[k]`` on the same inputs and device.
+
+    Scope (``ValueError`` outside it, with the reference's messages): gbdt
+    or goss boosting and at least one iteration; no mesh, validation sets,
+    callbacks or warm start. As in the reference the U path is bypassed:
+    every candidate takes the compare-built ``histogram.cu`` passes, and
+    ``use_quantized_grad`` trains exact stats (with the warning
+    :func:`train` gives off the U path). Under the profiler the call books
+    one ``gbdt.scan_many`` execution (its first signature as a compile)
+    and no ``gbdt.step``."""
+    opts_list = list(opts_list)
+    _validate_many(opts_list)
+    dev = resolve_device(device)
+    objective = get_objective(opts_list[0].objective)
+    num_classes = objective.num_outputs_fn(opts_list[0].num_class)
+    n, f = bins.shape
+    num_bins = opts_list[0].max_bin + 1
+    bundle = None if mapper is None else mapper.bundles
+    if bundle is not None and f != bundle.num_columns:
+        raise ValueError(
+            f"bundled mapper expects packed bins with {bundle.num_columns} columns, got {f}")
+    f_feat = bundle.num_features if bundle is not None else f
+    if mapper is not None and mapper.cat_values:
+        # one mapper, so one slot resolution for the whole bucket
+        cat_kw = dict(
+            categorical_slots=tuple(sorted(mapper.cat_values)),
+            onehot_slots=tuple(j for j in sorted(mapper.cat_values)
+                               if len(mapper.cat_values[j]) <= opts_list[0].max_cat_to_onehot))
+        opts_list = [dataclasses.replace(o, **cat_kw) for o in opts_list]
+    if opts_list[0].use_quantized_grad:
+        _log.warning("use_quantized_grad requested but train_many takes the compare-built "
+                     "histogram path (the precomputed-U path is bypassed); training with "
+                     "exact stats instead")
+    base = opts_list[0]
+
+    w_np = np.ones(n, dtype=np.float32) if w is None else np.asarray(w, dtype=np.float32)
+    y_np = np.asarray(y, dtype=np.float32)
+    # boost_from_average is a bucket field: one init score for every candidate
+    if base.boost_from_average:
+        init_score = objective.init_score(y_np, num_classes, w_np)
+    else:
+        init_score = np.zeros(num_classes, dtype=np.float32)
+    if mapper is not None:
+        edges = np.where(np.isfinite(mapper.edges), mapper.edges,
+                         np.float32(np.finfo(np.float32).max))
+    else:
+        edges = np.zeros((f_feat, 1))
+    edges_dev = torch.as_tensor(edges.astype(np.float32), device=dev)
+    t_bins = time.perf_counter()
+    bins_t = upload_bins(bins, dev)
+    _sync(dev)
+    upload_seconds = time.perf_counter() - t_bins
+    y_dev = torch.as_tensor(y_np, device=dev)
+    w_dev = torch.as_tensor(w_np, device=dev)
+    fm_ones = torch.ones(f_feat, dtype=torch.float32, device=dev)
+    margins0 = torch.as_tensor(init_score, device=dev)[None, :].expand(n, num_classes)
+
+    k_all = range(len(opts_list))
+    stats = [FitStats(upload_seconds=upload_seconds) for _ in k_all]
+    steps, schedules, margins, bags, trees = [], [], [], [], []
+    for o, st in zip(opts_list, stats):
+        vote_k = o.top_k if o.tree_learner == "voting_parallel" else None
+        steps.append(_make_step(o, objective, num_bins, st, bundle=bundle,
+                                dist=Distribution(vote_k=vote_k), n_real=n))
+        rng = np.random.default_rng(o.seed)
+        num_bag = max(1, int(round(n * o.bagging_fraction)))
+        num_feat = max(1, int(round(f_feat * o.feature_fraction)))
+        schedules.append(_mask_schedule(o, rng, n, num_bag, num_feat, f_feat, y=y_np))
+        margins.append(margins0.contiguous())
+        bags.append(None)  # every row in until a bag is drawn
+        trees.append([])
+
+    prof = get_profiler()
+    prof_on = prof.active
+    t_scan = time.perf_counter()
+    for it in range(base.num_iterations):
+        for k, o in zip(k_all, opts_list):
+            st = stats[k]
+            t_it = time.perf_counter()
+            bag_np, bag_changed, fm_np = next(schedules[k])
+            t_drawn = time.perf_counter()
+            if bag_changed:
+                bags[k] = torch.as_tensor(bag_np, device=dev).to(torch.float32)
+            fm_dev = fm_ones if fm_np is None else torch.as_tensor(fm_np, device=dev)
+            _sync(dev)
+            t_up = time.perf_counter()
+            tree, margins[k] = steps[k](bins_t, y_dev, w_dev, margins[k], edges_dev, bags[k],
+                                        fm_dev, it, o.learning_rate)
+            _sync(dev)
+            t_step = time.perf_counter()
+            trees[k].append(tree._replace(row_leaf=None))
+            st.boost_seconds += t_step - t_up
+            st.per_iteration.append(dict(bag_draw=t_drawn - t_it, mask_upload=t_up - t_drawn,
+                                         boost=t_step - t_up, valid_update=0.0, eval=0.0))
+    if prof_on:
+        dt = time.perf_counter() - t_scan
+        sig = (_signature((bins_t, y_dev, w_dev, edges_dev, margins[0]), {})
+               + f",K={len(opts_list)},bagged={any(b is not None for b in bags)},"
+               + f"bucket={zlib.crc32(repr(many_bucket_key(base)).encode()):08x}")
+        with _SCAN_MANY_LOCK:
+            first = sig not in _SCAN_MANY_SEEN
+            _SCAN_MANY_SEEN.add(sig)
+        if first:
+            prof.note_compile("gbdt.scan_many", dt, signature=sig)
+        else:
+            prof.note_cache_hit("gbdt.scan_many")
+        prof.note_execute("gbdt.scan_many", dt)
+
+    results = []
+    for o, st, tr in zip(opts_list, stats, trees):
+        booster = _pack_booster(tr, o, num_classes, init_score, mapper, feature_names,
+                                best_iteration=-1)
+        st.syncs += 1  # the packing fetch
+        results.append(TrainResult(booster=booster, stats=st, evals={}, best_iteration=0))
+    return results
 
 
 def _pack_booster(

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 from typing import Dict
 
 import numpy as np
@@ -224,6 +225,15 @@ def _launch(bins_t, grad, hess, count, node, num_nodes, num_bins):
     return out
 
 
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(entry) -> None:
+    """Add one to ``entry.launches``, under a lock: fits run from a thread
+    pool (``TuneHyperparameters(parallelism > 1)``) launch concurrently."""
+    with _LAUNCH_LOCK:
+        entry.launches += 1
+
 def node_groups(num_nodes: int, num_bins: int) -> list:
     """(first node, node count) of each launch of a ``num_nodes`` pass: as
     few groups as hold at most ``min(MAX_NODES, SMEM_MAX // (num_bins *
@@ -254,7 +264,7 @@ def grouped(launch, bins_t, grad, hess, count, node, num_nodes: int,
 
 def _launch_counted(bins_t, grad, hess, count, node, num_nodes, num_bins):
     out = _launch(bins_t, grad, hess, count, node, num_nodes, num_bins)
-    build_histograms_cuda.launches += 1
+    count_launch(build_histograms_cuda)
     return out
 
 
@@ -284,7 +294,7 @@ def build_histograms_combined_cuda(bins_t, grad, hess, count, node, num_nodes: i
     if not bins_t.is_cuda:
         return build_histograms_plain(bins_t, grad, hess, count, node, num_nodes, num_bins)
     out = _launch(bins_t, grad, hess, count, node, num_nodes, num_bins)
-    build_histograms_combined_cuda.launches += 1
+    count_launch(build_histograms_combined_cuda)
     return out
 
 
@@ -488,7 +498,7 @@ def bin_scatter(bins, stats, node, num_nodes: int, spec, scale=None) -> torch.Te
             f, spec.k, num_nodes, plan.chunk_rows, plan.grid_x, plan.grid_y,
             plan.rows_per_block, BIN_SCATTER_THREADS, plan.smem_bytes, out.data_ptr(), stream,
         )
-    bin_scatter.launches += 1
+    count_launch(bin_scatter)
     return out
 
 

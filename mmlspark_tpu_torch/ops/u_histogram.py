@@ -51,6 +51,7 @@ from mmlspark_tpu_torch.ops.hopper_histogram import (
     THREADS,
     WAVES,
     bin_scatter,
+    count_launch,
     fixed_point_scales,
 )
 
@@ -474,7 +475,7 @@ def fused_panel_dot(u, stats, node, num_nodes: int, scale=None) -> torch.Tensor:
             num_nodes, plan.chunk_rows, plan.grid_x, plan.grid_y, plan.rows_per_block,
             THREADS, plan.smem_bytes, out.data_ptr(), stream,
         )
-    fused_panel_dot.launches += 1
+    count_launch(fused_panel_dot)
     return out
 
 

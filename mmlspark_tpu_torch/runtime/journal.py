@@ -252,6 +252,17 @@ class _Missing:
 
 _MISSING = _Missing()
 
+#: One commit lock per store directory in this process: two ModelStore
+#: objects on one root (the fits of a tuner's thread pool) must never pick
+#: the same version and its temp file.
+_ROOT_LOCKS: Dict[str, threading.Lock] = {}
+_ROOT_LOCKS_GUARD = threading.Lock()
+
+
+def _root_lock(root: str) -> threading.Lock:
+    with _ROOT_LOCKS_GUARD:
+        return _ROOT_LOCKS.setdefault(os.path.realpath(root), threading.Lock())
+
 
 class ModelStore:
     """Atomic, versioned model commits under a durable directory.
@@ -267,7 +278,7 @@ class ModelStore:
     def __init__(self, root: str):
         self.root = root
         os.makedirs(root, exist_ok=True)
-        self._lock = threading.Lock()
+        self._lock = _root_lock(root)
 
     def _current_path(self, name: str) -> str:
         return os.path.join(self.root, f"{name}.CURRENT")

@@ -552,12 +552,21 @@ def test_new_options_are_accepted():
                                         ("histogram_method", "onehot"),
                                         ("tree_learner", "voting_parallel")])
 def test_unported_options_still_raise(name, value):
-    """histogram_method 'onehot' is still refused; the tree learners are
-    taken, and voting still refuses bundling with the reference's error."""
+    """histogram_method 'onehot' is taken now (the compare-built pass: the
+    default's text) and an unknown method raises the reference's
+    ValueError; the tree learners are taken, and voting still refuses
+    bundling with the reference's error."""
     opts = ttrain.TrainOptions(**{name: value})
     if name != "tree_learner":
-        with pytest.raises(NotImplementedError, match=name):
-            ttrain.check_supported(opts)
+        ttrain.check_supported(opts)
+        with pytest.raises(ValueError, match="unknown histogram method"):
+            ttrain.check_supported(ttrain.TrainOptions(**{name: "bogus"}))
+        X, y = _case(seed=5, n=300)
+        bins, mapper = tbinning.bin_dataset(X, max_bin=31)
+        texts = [ttrain.train(bins, y, dataclasses.replace(o, num_iterations=2), mapper=mapper,
+                              device="cpu").booster.model_to_string()
+                 for o in (opts, ttrain.TrainOptions())]
+        assert texts[0] == texts[1]
         return
     ttrain.check_supported(opts)
     X, y = _case(seed=5, n=300)
@@ -571,6 +580,27 @@ def test_unported_options_still_raise(name, value):
         res = ttrain.train(bins, y, dataclasses.replace(opts, num_iterations=1),
                            mapper=mapper, device="cpu")
         assert res.booster.num_trees == 1
+
+
+@pytest.mark.parametrize("method", ["segment", "onehot", "panel"])
+def test_reference_histogram_methods_take_the_compare_built_pass(ref, method):
+    """The reference's other ``histogram_method`` values: the port's text
+    is the default's byte for byte, and within ``model_texts_close`` of
+    the reference's fit with the same value."""
+    from mmlspark_tpu.lightgbm.procfit import model_texts_close
+
+    X, y = _case(seed=21, n=1200)
+    w = np.random.default_rng(21).uniform(0.5, 2.0, len(y))
+    b = _bins(ref, X)
+    kw = {**BASE, "objective": "binary"}
+    port = ttrain.train(b["bt"], y, ttrain.TrainOptions(**kw, histogram_method=method), w=w,
+                        mapper=b["mt"], device="cpu").booster.model_to_string()
+    default = ttrain.train(b["bt"], y, ttrain.TrainOptions(**kw), w=w, mapper=b["mt"],
+                           device="cpu").booster.model_to_string()
+    want = ref["train"].train(b["bj"], y, ref["train"].TrainOptions(**kw, histogram_method=method),
+                              w=w, mapper=b["mj"]).booster.model_to_string()
+    assert port == default
+    assert model_texts_close(port, want)
 
 
 def test_pos_neg_bagging_needs_the_binary_objective():
