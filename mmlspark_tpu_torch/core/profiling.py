@@ -21,10 +21,9 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
+import sys
 import time
 from typing import Dict, Iterator, Optional
-
-import torch
 
 
 def get_logger(name: str = "mmlspark_tpu_torch") -> logging.Logger:
@@ -50,6 +49,8 @@ def profile_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     CUDA kernels when a card is present) and write it to ``log_dir`` as a
     Chrome trace (``trace_<pid>_<ns>.json``). Yields the profiler, whose
     ``key_averages()`` summarize the region."""
+    import torch
+
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -63,7 +64,13 @@ def profile_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
 @contextlib.contextmanager
 def annotate(name: str) -> Iterator[None]:
     """Named region inside an active profiler trace (and an NVTX range on a
-    card, for Nsight); little overhead when no trace is running."""
+    card, for Nsight); little overhead when no trace is running. A process
+    that never imported torch (a replica serving a host model) has no trace
+    and no card to mark, and does not import it for this."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        yield
+        return
     with contextlib.ExitStack() as stack:
         stack.enter_context(torch.profiler.record_function(name))
         if torch.cuda.is_available():

@@ -75,6 +75,14 @@ class Table:
         t.num_partitions = self.num_partitions
         return t
 
+    @staticmethod
+    def from_rows(rows: Sequence[Mapping[str, Any]], num_partitions: int = 1) -> "Table":
+        """A table of row dicts, columns named by the first row's keys."""
+        if not rows:
+            return Table({})
+        names = list(rows[0].keys())
+        return Table({n: [r[n] for r in rows] for n in names}, num_partitions=num_partitions)
+
     @property
     def columns(self) -> List[str]:
         return list(self._columns)

@@ -25,18 +25,26 @@ know:
 - seeded **HTTP fault injection** (``FaultPlan.http_storm`` et al.) is
   enacted here, before the socket, so chaos tests run with no server.
 
-urllib-based (stdlib); connection pooling comes from keep-alive handled by
-the OS — the concurrency lever here is the thread pool, mirroring the
-reference's future pool per partition.
+urllib-based (stdlib), a new connection per request; a caller that hits
+the same hosts many times a second (the fleet router's hops) passes a
+:class:`ConnectionPool` to reuse keep-alive connections instead. The
+concurrency lever is the thread pool, mirroring the reference's future
+pool per partition.
 """
 
 from __future__ import annotations
 
+import http.client
 import logging
+import select
+import socket
+import threading
+import time
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from urllib.parse import urlsplit
 
 from mmlspark_tpu_torch.io.http.schema import (
     EntityData,
@@ -97,10 +105,103 @@ def _injected_fault(url: str):
     )
 
 
+class ConnectionPool:
+    """Idle keep-alive connections per (host, port), shared by threads: a
+    request takes one (or opens one), and gives it back unless the server
+    said it closes. An idle connection the server has closed is dropped
+    when taken. A reused connection that still turns out closed before
+    the server read the request (it fails while sending, or the server
+    hangs up with no status line) is dropped, and the request sent once
+    more on a fresh connection in the time left of ``timeout``. Any other
+    failure, a timeout above all, is the caller's: the server may have
+    the request, and a second send would double both it and the wait."""
+
+    _CLOSED_ON_SEND = (BrokenPipeError, ConnectionResetError, ConnectionAbortedError)
+
+    def __init__(self, max_idle_per_host: int = 64):
+        self.max_idle_per_host = int(max_idle_per_host)
+        self._idle: Dict[Tuple[str, int], List[http.client.HTTPConnection]] = {}
+        self._lock = threading.Lock()
+
+    def request(self, url: str, method: str, body: Optional[bytes],
+                headers: Dict[str, str], timeout: float) -> Tuple[int, str, list, bytes]:
+        """(status, reason, header pairs, body) of one request to ``url``,
+        waiting no longer than ``timeout`` seconds in all."""
+        parts = urlsplit(url)
+        key = (parts.hostname, parts.port or 80)
+        path = parts.path or "/"
+        if parts.query:
+            path += "?" + parts.query
+        deadline = time.monotonic() + timeout
+        conn = self._take(key)
+        if conn is not None:
+            out = self._exchange(key, conn, method, path, body, headers, timeout, reused=True)
+            if out is not None:
+                return out
+            timeout = deadline - time.monotonic()
+            if timeout <= 0:
+                raise socket.timeout(f"no time left to resend to {url}")
+        conn = http.client.HTTPConnection(key[0], key[1], timeout=timeout)
+        return self._exchange(key, conn, method, path, body, headers, timeout, reused=False)
+
+    def _exchange(self, key, conn, method, path, body, headers, timeout, reused):
+        """One request on ``conn``; None where ``reused`` and the server
+        had closed the connection before it read the request."""
+        conn.timeout = timeout
+        if conn.sock is not None:
+            conn.sock.settimeout(timeout)
+        sent = False
+        try:
+            conn.request(method, path, body=body, headers=headers)
+            sent = True
+            resp = conn.getresponse()
+            data = resp.read()
+        except (OSError, http.client.HTTPException) as e:
+            conn.close()
+            if reused and (isinstance(e, http.client.RemoteDisconnected) or (
+                    not sent and isinstance(e, self._CLOSED_ON_SEND))):
+                return None
+            raise
+        if resp.will_close:
+            conn.close()
+        else:
+            self._give(key, conn)
+        return resp.status, resp.reason, resp.getheaders(), data
+
+    def _take(self, key) -> Optional[http.client.HTTPConnection]:
+        while True:
+            with self._lock:
+                idle = self._idle.get(key)
+                conn = idle.pop() if idle else None
+            if conn is None:
+                return None
+            # an idle connection has nothing to read unless its server
+            # closed it (end of file) or reset it
+            if not select.select([conn.sock], [], [], 0)[0]:
+                return conn
+            conn.close()
+
+    def _give(self, key, conn: http.client.HTTPConnection) -> None:
+        with self._lock:
+            idle = self._idle.setdefault(key, [])
+            if len(idle) < self.max_idle_per_host:
+                idle.append(conn)
+                return
+        conn.close()
+
+    def close(self) -> None:
+        with self._lock:
+            idle, self._idle = self._idle, {}
+        for conns in idle.values():
+            for conn in conns:
+                conn.close()
+
+
 def _do_request(
     request: HTTPRequestData,
     timeout: float,
     extra_headers: Optional[Dict[str, str]] = None,
+    pool: Optional[ConnectionPool] = None,
 ) -> HTTPResponseData:
     fault = _injected_fault(request.url)
     if fault is not None:
@@ -114,32 +215,34 @@ def _do_request(
     headers = request.header_map()
     if extra_headers:
         headers.update(extra_headers)
-    req = urllib.request.Request(
-        request.url,
-        data=request.entity.content if request.entity else None,
-        headers=headers,
-        method=request.method,
-    )
-    try:
-        with urllib.request.urlopen(req, timeout=timeout) as resp:
-            body = resp.read()
-            if net is not None and net.get("kind") == "corrupt":
-                from mmlspark_tpu_torch.runtime.netchaos import corrupt_bytes
+    content = request.entity.content if request.entity else None
+    if pool is not None:
+        status, reason, pairs, body = pool.request(
+            request.url, request.method, content, headers, timeout)
+    else:
+        req = urllib.request.Request(
+            request.url, data=content, headers=headers, method=request.method)
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as resp:
+                status, reason = resp.status, resp.reason
+                pairs, body = list(resp.headers.items()), resp.read()
+        except urllib.error.HTTPError as e:
+            status, reason = e.code, str(e.reason)
+            pairs = list((e.headers or {}).items())
+            body = e.read() if hasattr(e, "read") else b""
+    # an error status (urllib's HTTPError) keeps its body as sent and no
+    # content type
+    ok = status < 400
+    if ok and net is not None and net.get("kind") == "corrupt":
+        from mmlspark_tpu_torch.runtime.netchaos import corrupt_bytes
 
-                body = corrupt_bytes(body)
-            return HTTPResponseData(
-                statusLine=StatusLineData("HTTP/1.1", resp.status, resp.reason or ""),
-                headers=[HeaderData(k, v) for k, v in resp.headers.items()],
-                entity=EntityData(content=body,
-                                  contentType=resp.headers.get("Content-Type")),
-            )
-    except urllib.error.HTTPError as e:
-        body = e.read() if hasattr(e, "read") else b""
-        return HTTPResponseData(
-            statusLine=StatusLineData("HTTP/1.1", e.code, str(e.reason)),
-            headers=[HeaderData(k, v) for k, v in (e.headers or {}).items()],
-            entity=EntityData(content=body),
-        )
+        body = corrupt_bytes(body)
+    content_type = next((v for k, v in pairs if k.lower() == "content-type"), None)
+    return HTTPResponseData(
+        statusLine=StatusLineData("HTTP/1.1", status, reason or ""),
+        headers=[HeaderData(k, v) for k, v in pairs],
+        entity=EntityData(content=body, contentType=content_type if ok else None),
+    )
 
 
 class HTTPClient:

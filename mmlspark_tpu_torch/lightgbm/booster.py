@@ -150,14 +150,21 @@ class Booster:
             return np.broadcast_to(self.init_score[None, :], (n, self.num_classes)).copy()
         if self.has_linear:
             return self._raw_margin_linear(X, num_iteration, dev)
+        from mmlspark_tpu_torch.lightgbm.train import _chain_prefix
+
         init = torch.as_tensor(np.asarray(self.init_score, np.float32), device=dev)
         outs = []
         for leaf, tables in self._leaf_chunks(X, t, dev):
             contrib = torch.gather(tables["leaf_values"].expand(leaf.shape[0], -1, -1),
                                    2, leaf[:, :, None])[:, :, 0]
-            rounds = t // self.num_classes
-            m = contrib.reshape(-1, rounds, self.num_classes).sum(dim=1) + init[None, :]
-            outs.append(m.cpu().numpy())
+            # (rounds, rows, classes): the trees added one after another in
+            # float32, one chain per row over the outer axis, so a row's
+            # margin has the same bits on every device and in every chunk or
+            # batch of rows (a reduction's order follows both)
+            per_round = contrib.reshape(-1, t // self.num_classes, self.num_classes)
+            per_round = per_round.transpose(0, 1).contiguous()
+            m = _chain_prefix(per_round, 0)[-1]
+            outs.append((m + init[None, :]).cpu().numpy())
         if not outs:
             return np.zeros((0, self.num_classes), np.float32)
         return np.concatenate(outs, axis=0)

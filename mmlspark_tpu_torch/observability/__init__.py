@@ -20,12 +20,20 @@ modules it has:
 - :mod:`~mmlspark_tpu_torch.observability.incidents` — the incident flight
   recorder (``MMLSPARK_TPU_INCIDENT_DIR=/path``);
 - :mod:`~mmlspark_tpu_torch.observability.federation` — fleet-wide
-  ``/metrics`` federation (:class:`MetricsFederator`, ``parse_exposition``).
+  ``/metrics`` federation (:class:`MetricsFederator`, ``parse_exposition``);
+- :mod:`~mmlspark_tpu_torch.observability.slo` — the serving SLO fold
+  (:class:`SLOReport`, :class:`SLOTargets`, ``fleet_summary`` for a
+  federated registry);
+- :mod:`~mmlspark_tpu_torch.observability.alerts` — multi-window burn-rate
+  alerting (:class:`AlertEvaluator`, the fleet controller's advisory);
+- :mod:`~mmlspark_tpu_torch.observability.history` — the history server:
+  an event log rendered to one static HTML page
+  (``python -m mmlspark_tpu_torch.observability.history``).
 
-Alerts, the history server and SLO reports are not ported yet. Importing
-this package loads neither ``jax`` nor ``mmlspark_tpu``.
+Importing this package loads neither ``jax`` nor ``mmlspark_tpu``.
 """
 
+from mmlspark_tpu_torch.observability.alerts import AlertEvaluator
 from mmlspark_tpu_torch.observability.events import (
     AlertFired,
     AlertResolved,
@@ -126,6 +134,7 @@ from mmlspark_tpu_torch.observability.sketches import (
     merge_all,
     psi,
 )
+from mmlspark_tpu_torch.observability.slo import SLOReport, SLOTargets, fleet_summary
 from mmlspark_tpu_torch.observability.tracing import (
     PARENT_HEADER,
     TRACE_HEADER,
@@ -135,7 +144,19 @@ from mmlspark_tpu_torch.observability.tracing import (
     get_tracer,
 )
 
+
+def __getattr__(name):
+    # lazy: importing history here eagerly would trip runpy's double-import
+    # warning under ``python -m mmlspark_tpu_torch.observability.history``
+    if name == "render_report":
+        from mmlspark_tpu_torch.observability.history import render_report
+
+        return render_report
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
+    "AlertEvaluator",
     "AlertFired",
     "AlertResolved",
     "BatchFormed",
@@ -182,6 +203,8 @@ __all__ = [
     "RequestRouted",
     "RequestServed",
     "RequestShed",
+    "SLOReport",
+    "SLOTargets",
     "Span",
     "SpanRecorded",
     "StageCompleted",
@@ -206,6 +229,7 @@ __all__ = [
     "collect",
     "device_peaks",
     "drift_table_from_summary",
+    "fleet_summary",
     "format_timeline",
     "from_record",
     "get_bus",
@@ -225,6 +249,7 @@ __all__ = [
     "process_label",
     "process_log_path",
     "psi",
+    "render_report",
     "replay",
     "timeline",
     "write_merged",

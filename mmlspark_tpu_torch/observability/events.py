@@ -1083,6 +1083,47 @@ def _merged_records(path: str) -> List[Dict[str, Any]]:
     return [rec for _, _, _, rec in keyed]
 
 
+def _line_stamp(line: str) -> float:
+    """The wall-clock stamp ``wt`` of one JSON-lines record, read without
+    decoding the record: the sink writes it as the last top-level key."""
+    i = line.rfind('"wt": ')
+    if i >= 0:
+        j = i + 6
+        k = j
+        while k < len(line) and line[k] not in ",}":
+            k += 1
+        try:
+            return float(line[j:k])
+        except ValueError:
+            pass
+    return float(json.loads(line).get("wt") or 0.0)
+
+
+def _merged_tail(path: str, n: int) -> List[Dict[str, Any]]:
+    """The last ``n`` records of :func:`_merged_records`, in its order,
+    decoding only those: every other record is read for its stamp alone
+    (a flight recorder's bundle must not stall the process that trips it
+    while it decodes a long fleet log)."""
+    keyed: List[tuple] = []
+    for process, segments in collect(path).items():
+        idx = 0
+        for segment in segments:
+            with open(segment, "r", encoding="utf-8") as fh:
+                for line in fh:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    keyed.append((_line_stamp(line), process, idx, line))
+                    idx += 1
+    keyed.sort(key=lambda item: item[:3])
+    out = []
+    for _, process, _, line in keyed[max(0, len(keyed) - n):] if n > 0 else []:
+        rec = json.loads(line)
+        rec.setdefault("process", process)
+        out.append(rec)
+    return out
+
+
 def merge(path: str) -> List[Event]:
     """The federated replay: fold every process's segments (see
     :func:`collect`) into one timestamp-ordered, process-tagged event

@@ -1,7 +1,8 @@
 """Incident flight recorder — atomic post-mortem bundles on tripwires; the
-port's copy of ``mmlspark_tpu/observability/incidents.py`` (the fleet
-metrics federator it can attach is not ported yet: ``federator`` takes any
-object with a ``snapshot()``).
+port's copy of ``mmlspark_tpu/observability/incidents.py``. Its
+``federator`` is the port's
+:class:`~mmlspark_tpu_torch.observability.federation.MetricsFederator` (or
+any object with a ``snapshot()``).
 
 When the fleet misbehaves (a circuit breaker trips, a worker gang
 exhausts its epoch budget, a worker is quarantined, the SLO error budget
@@ -109,6 +110,7 @@ class FlightRecorder:
         self._lock = threading.Lock()
         self._seq = 0
         self._last_at: Dict[str, float] = {}
+        self._asides: List[threading.Thread] = []
         self.recorded: List[str] = []
 
     # -- bus integration -----------------------------------------------------
@@ -126,16 +128,35 @@ class FlightRecorder:
         with self._lock:
             self._ring.append(event)
         if isinstance(event, BreakerTripped):
-            self.record(
+            self._record_aside(
                 "breaker_tripped",
-                detail=f"{event.breaker}: {event.failures} failures "
-                f"in {event.window_s}s",
+                f"{event.breaker}: {event.failures} failures in {event.window_s}s",
             )
         elif isinstance(event, WorkerQuarantined):
-            self.record(
+            self._record_aside(
                 "worker_quarantined",
-                detail=f"worker {event.worker} score {event.score:.2f}",
+                f"worker {event.worker} score {event.score:.2f}",
             )
+
+    def _record_aside(self, trigger: str, detail: str) -> None:
+        """Record from a thread of its own: a tripwire published on a
+        serving thread (a breaker tripping inside a request) must not hold
+        that request while the bundle is assembled; on a busy server the
+        bundle took that request past its deadline. The thread is not a
+        daemon, so the bundle is written before the process exits;
+        :meth:`wait` joins the pending ones."""
+        t = threading.Thread(target=self.record, args=(trigger,), kwargs={"detail": detail},
+                             name=f"flight-recorder-{trigger}")
+        with self._lock:
+            self._asides = [a for a in self._asides if a.is_alive()] + [t]
+        t.start()
+
+    def wait(self, timeout: Optional[float] = None) -> None:
+        """Join the bundles being written aside (tests, orderly shutdown)."""
+        with self._lock:
+            asides = list(self._asides)
+        for t in asides:
+            t.join(timeout)
 
     # -- the tripwire --------------------------------------------------------
 
@@ -183,9 +204,9 @@ class FlightRecorder:
         log = self.event_log or os.environ.get("MMLSPARK_TPU_EVENT_LOG")
         if log:
             try:
-                merged = _events._merged_records(log)
+                merged = _events._merged_tail(log, self.capacity)
                 if merged:
-                    return merged[-self.capacity:]
+                    return merged
             except Exception as e:  # noqa: BLE001 - half-written segments
                 logger.debug("incident merge failed, using ring: %s", e)
         with self._lock:

@@ -39,8 +39,6 @@ import time
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-import torch
-
 from mmlspark_tpu_torch.core.profiling import get_logger
 from mmlspark_tpu_torch.observability.events import (
     ProfileCompiled,
@@ -103,6 +101,8 @@ def device_peaks(device: Optional[str] = None) -> DevicePeaks:
     ``MMLSPARK_TPU_PEAK_FLOPS`` / ``MMLSPARK_TPU_PEAK_HBM_BYTES``. A card
     with no table row and no override gets ``(0, 0)`` labelled
     :data:`UNKNOWN_PLATFORM`."""
+    import torch
+
     env_f = os.environ.get("MMLSPARK_TPU_PEAK_FLOPS")
     env_b = os.environ.get("MMLSPARK_TPU_PEAK_HBM_BYTES")
     if env_f or env_b:
@@ -207,6 +207,8 @@ def _signature(args, kwargs) -> str:
 
 def _first_tensor(out) -> Optional[torch.Tensor]:
     """The first tensor of a (nested) result, or None."""
+    import torch
+
     if isinstance(out, torch.Tensor):
         return out
     if isinstance(out, dict):
@@ -222,6 +224,8 @@ def _first_tensor(out) -> Optional[torch.Tensor]:
 def _sync(out) -> None:
     """Wait for the card when ``out`` holds a CUDA tensor (the reference's
     ``jax.block_until_ready``); a CPU result is ready already."""
+    import torch
+
     t = _first_tensor(out)
     if t is not None and t.is_cuda:
         torch.cuda.synchronize(t.device)
@@ -469,6 +473,8 @@ class DeviceProfiler:
         now and at peak) and ``mem_get_info`` (its total) into per-device
         gauges. Without a card it returns {} and sets nothing — always
         safe to call."""
+        import torch
+
         if not torch.cuda.is_available():
             return {}
         out: Dict[str, Dict[str, float]] = {}
@@ -510,6 +516,8 @@ class DeviceProfiler:
         """The JSON-safe profiler section: device identity + peaks,
         per-function totals, roofline rows, and the latest memory
         sample."""
+        import torch
+
         if torch.cuda.is_available():
             dev = {"backend": "cuda", "kind": torch.cuda.get_device_name(0),
                    "count": torch.cuda.device_count()}

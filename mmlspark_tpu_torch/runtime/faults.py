@@ -73,8 +73,18 @@ Each fault fires at most once; ``plan.fired`` records what fired.
 ``kill_random_task`` and ``kill_random_process`` draw their victims from
 the plan's seeded RNG (``np.random.default_rng(seed)``, the seed from
 ``MMLSPARK_TPU_FAULT_SEED`` when None), so the victim is the reference's
-for the same seed. The stream plane (``kill_stream``, ``corrupt_record``)
-is not ported: its consumer, streaming, is not either.
+for the same seed.
+
+The stream plane (``mmlspark_tpu_torch/streaming``):
+
+- ``kill_stream(epoch, point)``: the streaming query SIGKILLs its own
+  process at ``point`` of epoch ``epoch``, ``"post_wal"`` (offsets logged,
+  nothing processed) or ``"pre_commit"`` (sink done, commit log missing),
+  when it asks :meth:`FaultPlan.should_kill_stream`;
+- ``corrupt_record(substr, index, n)``: record ``index`` of the next ``n``
+  matching jsonl/json sources is garbled after the file read
+  (:func:`corrupt_record_bytes`, the reference's bytes), so that record
+  alone fails to decode and quarantines.
 """
 
 from __future__ import annotations
@@ -83,12 +93,12 @@ import contextlib
 import errno
 import os
 import socket
+import sys
 import threading
 import time
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 
 class ExecutorDeathError(RuntimeError):
@@ -132,6 +142,10 @@ class FaultPlan:
         self._record_seq = 0
         #: process-kill directives, shipped to the gang in its epoch spec
         self._kill_process: List[dict] = []
+        #: [{epoch, point}] streaming-query kill points
+        self._kill_stream: List[dict] = []
+        #: ordered per-record corruption directives (jsonl/json sources)
+        self._corrupt_record: List[dict] = []
         #: ordered network directives: gang-targeted entries (int members)
         #: ship in the epoch spec; HTTP-targeted entries (str URL parts) are
         #: consumed by :meth:`apply_on_socket`
@@ -256,6 +270,41 @@ class FaultPlan:
                     and int(d.get("epoch", 0)) == int(epoch)):
                 return True
         return False
+
+    def kill_stream(self, epoch: int, point: str = "pre_commit") -> "FaultPlan":
+        """The streaming query SIGKILLs its own process at ``point`` of epoch
+        ``epoch``: ``"post_wal"`` (plan logged, nothing processed) or
+        ``"pre_commit"`` (sink ran, commit log not yet written: the restart
+        re-delivers the epoch and only the sink's idempotence keeps it
+        exactly-once)."""
+        if point not in ("post_wal", "pre_commit"):
+            raise ValueError(f"unknown stream kill point {point!r} "
+                             "(expected 'post_wal' or 'pre_commit')")
+        self._kill_stream.append({"epoch": int(epoch), "point": str(point)})
+        return self
+
+    def should_kill_stream(self, epoch: int, point: str) -> bool:
+        """The query asks at each crash window: pops the first matching
+        directive and books it in ``fired`` as ``("kill_stream", epoch,
+        0)``; True tells the caller to SIGKILL itself."""
+        with self._lock:
+            for i, d in enumerate(self._kill_stream):
+                if d["epoch"] == int(epoch) and d["point"] == str(point):
+                    self._kill_stream.pop(i)
+                    break
+            else:
+                return False
+        self.fired.append(("kill_stream", int(epoch), 0))
+        return True
+
+    def corrupt_record(self, path_substr: str, index: int = 0, count: int = 1) -> "FaultPlan":
+        """Record ``index`` of the next ``count`` matching record-oriented
+        sources (jsonl/json) is garbled after the file read
+        (:func:`corrupt_record_bytes`), so that record alone fails to
+        decode: the per-record quarantine path."""
+        self._corrupt_record.append({"substr": str(path_substr), "index": int(index),
+                                     "n": int(count)})
+        return self
 
     def http_storm(self, count: int = 1, status: int = 503, url_part: str = "",
                    retry_after: Optional[float] = None) -> "FaultPlan":
@@ -451,9 +500,11 @@ class FaultPlan:
         with self._lock:
             return (len(self._kill) + len(self._delay) + len(self._drop_beat)
                     + len(self._slow) + len(self._corrupt) + len(self._kill_process)
+                    + len(self._kill_stream)
                     + sum(d["n"] for d in self._http) + len(self._oom)
                     + sum(d["n"] for d in self._disk_full)
                     + sum(d["n"] for d in self._truncate)
+                    + sum(d["n"] for d in self._corrupt_record)
                     + sum(d["n"] for d in self._malformed)
                     + sum(d["n"] if d["target"] == "http" else 1 for d in self._net))
 
@@ -555,6 +606,23 @@ class FaultPlan:
         self.fired.append(("truncate_shard", seq, 0))
         raise CorruptShardError(f"truncated shard (injected): {path}")
 
+    def apply_on_record_bytes(self, path: str, index: int, data: bytes) -> bytes:
+        """Pop the first ``corrupt_record`` directive matching (``path``,
+        ``index``) and return a garbled copy of ``data``, the raw bytes of
+        that one record (the reference's prefix, which no JSON decoder
+        accepts, before the original bytes); other reads get ``data``
+        back."""
+        with self._lock:
+            for d in self._corrupt_record:
+                if d["n"] > 0 and d["substr"] in str(path) and d["index"] == int(index):
+                    d["n"] -= 1
+                    break
+            else:
+                return data
+            self._corrupt_record = [d for d in self._corrupt_record if d["n"] > 0]
+        self.fired.append(("corrupt_record", int(index), 0))
+        return b"\xff\xfe<corrupt>" + bytes(data)
+
     def _take(self, directives: List[dict], path: str, counter: str) -> Optional[int]:
         """Consume one use of the first directive whose substring is in
         ``path``; returns the plane's sequence number, or None. Caller
@@ -631,6 +699,17 @@ def check_record(path: str) -> None:
         plan.apply_on_record(path)
 
 
+def corrupt_record_bytes(path: str, index: int, data: bytes) -> bytes:
+    """Per-record corruption gate: record-oriented loaders (jsonl/json) pass
+    each record's raw bytes through it after the file read; a matching
+    :meth:`FaultPlan.corrupt_record` directive garbles them, otherwise
+    ``data`` comes back untouched."""
+    plan = current_faults()
+    if plan is None:
+        return data
+    return plan.apply_on_record_bytes(path, index, data)
+
+
 def check_net(url: str) -> Optional[dict]:
     """Network-chaos gate of outbound HTTP: registry and router clients call
     it with the target URL right before they open the socket, below
@@ -665,6 +744,10 @@ def check_net(url: str) -> Optional[dict]:
 def is_oom_error(err: BaseException) -> bool:
     """Memory exhaustion: a host ``MemoryError``, a card's
     ``torch.cuda.OutOfMemoryError``, or an error whose message carries the
-    ``RESOURCE_EXHAUSTED`` marker (the injected :class:`DeviceOomError`)."""
-    return (isinstance(err, (MemoryError, torch.cuda.OutOfMemoryError))
+    ``RESOURCE_EXHAUSTED`` marker (the injected :class:`DeviceOomError`).
+    A process that never imported torch (a replica serving a host model)
+    has no card error to classify, and does not import it for this."""
+    torch = sys.modules.get("torch")
+    return (isinstance(err, MemoryError)
+            or (torch is not None and isinstance(err, torch.cuda.OutOfMemoryError))
             or "RESOURCE_EXHAUSTED" in str(err))

@@ -35,7 +35,9 @@ Hops go through :func:`mmlspark_tpu_torch.io.http.clients._do_request`, so the
 ambient :class:`~mmlspark_tpu_torch.runtime.faults.FaultPlan` HTTP directives
 (``http_storm``/``http_delay``/``http_reset``) inject at the router->replica
 edge exactly as they do for any outbound client — the chaos campaign
-trips real breakers with no cooperating server.
+trips real breakers with no cooperating server. Unlike the reference's
+router, the port's keeps its hops' connections alive
+(:class:`~mmlspark_tpu_torch.io.http.clients.ConnectionPool`).
 """
 
 from __future__ import annotations
@@ -51,7 +53,11 @@ from http.server import BaseHTTPRequestHandler
 from typing import Any, Dict, List, Optional, Tuple
 
 from mmlspark_tpu_torch.core.profiling import get_logger
-from mmlspark_tpu_torch.io.http.clients import BREAKER_FAILURE_STATUSES, _do_request
+from mmlspark_tpu_torch.io.http.clients import (
+    BREAKER_FAILURE_STATUSES,
+    ConnectionPool,
+    _do_request,
+)
 from mmlspark_tpu_torch.io.http.schema import EntityData, HTTPRequestData
 from mmlspark_tpu_torch.observability.events import (
     RegistryRecovered,
@@ -168,6 +174,9 @@ class FleetRouter:
             failure_threshold=3, window_s=5.0, reset_timeout_s=1.0,
         )
         self._replicas: List[ServiceInfo] = []
+        #: keep-alive connections to the replicas: a hop on a new
+        #: connection costs both processes a connect and a thread
+        self._pool = ConnectionPool()
         self._rr = 0  # least-loaded tiebreak rotation (benign races ok)
         self._started_at = time.monotonic()
         self._discover_stop = threading.Event()
@@ -478,7 +487,7 @@ class FleetRouter:
             entity=EntityData(content=body, contentType="application/json"),
         )
         try:
-            resp = _do_request(request, timeout, extra_headers=extra)
+            resp = _do_request(request, timeout, extra_headers=extra, pool=self._pool)
         except Exception as e:  # noqa: BLE001 - refused/reset/timeout
             breaker.record_failure()
             logger.debug("hop to %s failed: %s", svc.name, e)
@@ -611,6 +620,7 @@ class FleetRouter:
             self._discover_thread = None
         self._httpd.shutdown()
         self._httpd.server_close()
+        self._pool.close()
 
     def __enter__(self) -> "FleetRouter":
         return self.start()

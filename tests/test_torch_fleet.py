@@ -7,9 +7,9 @@ the metrics federation cases of tests/test_observability.py, parity of the
 network-chaos gate and the federation with the JAX package, and one
 ReplicaSupervisor with a real replica process (ready, SIGKILL, respawn).
 
-The SAR payload case waits for ``recommendation.sar``'s port; the SLO fold
-over a merged event log and the fleet histogram summary wait for
-``observability/slo.py``'s.
+The SAR payload case waits for ``recommendation.sar``'s port. The SLO fold
+over a merged event log and over a federated registry use the port's
+``observability/slo.py``.
 """
 
 import json
@@ -43,6 +43,7 @@ from mmlspark_tpu_torch.observability.events import (
 )
 from mmlspark_tpu_torch.observability.federation import MetricsFederator, parse_exposition
 from mmlspark_tpu_torch.observability.registry import MetricsRegistry, get_registry
+from mmlspark_tpu_torch.observability.slo import SLOReport, fleet_summary
 from mmlspark_tpu_torch.observability.tracing import TRACE_HEADER
 from mmlspark_tpu_torch.resilience.budget import RetryBudget
 from mmlspark_tpu_torch.resilience.policy import RetryPolicy
@@ -725,7 +726,7 @@ class TestRouterTracing:
 class TestFleetLogDeterminism:
     """The fold over a merged multi-process event log is deterministic
     under seeded chaos: re-merging the same segments is byte-identical, and
-    the timeline folds to the same summary every time."""
+    the SLO report folds to the same JSON every time."""
 
     def test_merged_fold_is_deterministic_under_seeded_chaos(
         self, fleet, tmp_path
@@ -785,14 +786,16 @@ class TestFleetLogDeterminism:
         assert n1 == n2 > 0
         with open(out1, "rb") as a, open(out2, "rb") as b:
             assert a.read() == b.read()
-        # and the fold over the merged stream is deterministic (the SLO
-        # report over it waits for observability/slo.py's port)
+        # and the fleet SLO fold over the merged stream is deterministic
         events = merge(base)
         assert {getattr(e, "process", "") for e in events} >= {
             "driver", "replica-0", "replica-1",
         }
-        fold = timeline(events)
-        assert fold == timeline(merge(base))
+        report = SLOReport.fold(None, events=events)
+        assert report.requests > 0
+        assert report.to_json() == SLOReport.fold(
+            None, events=merge(base)
+        ).to_json()
 
 
 # -- network directives on HTTP targets (tests/test_partition_tolerance.py) ----
@@ -1152,6 +1155,47 @@ class TestMetricsFederation:
         assert sig["shed_total"] == 1.0
         assert sig["p99_ms"] > 0
 
+    def test_fleet_summary_merges_histogram_children(self):
+        fed = self._federator({
+            ":9000": _replica_exposition([0.002, 0.004], 0, 0),
+            ":9001": _replica_exposition([0.2, 0.4], 0, 0),
+        })
+        reg = fed.scrape([
+            {"name": "replica-0", "host": "h", "port": 9000},
+            {"name": "replica-1", "host": "h", "port": 9001},
+        ])
+        # the parent histogram has no direct observations, so the plain
+        # summary reports count=0 — the fleet fold must merge children
+        assert reg.summary()["serving_queue_wait_seconds"]["count"] == 0
+        merged = fleet_summary(reg)["serving_queue_wait_seconds"]
+        assert merged["count"] == 4
+        # the fleet fold interpolates over the union of observations
+        report = SLOReport.fold_fleet(reg)
+        assert report.stages["queue"]["count"] == 4
+        assert report.stages["queue"]["p99"] > 0
+
+    def test_fleet_fold_is_the_fold_of_one_registry_of_all_observations(self):
+        """Merging the replicas' buckets gives the quantiles one registry
+        holding every observation would give, not a mean of per-replica
+        quantiles."""
+        lat = [[0.001, 0.002, 0.003, 0.05], [0.2, 0.4, 0.004], [0.03]]
+        fed = self._federator({f":{9000 + i}": _replica_exposition(v, i, i)
+                               for i, v in enumerate(lat)})
+        reg = fed.scrape([{"name": f"replica-{i}", "host": "h", "port": 9000 + i}
+                          for i in range(3)])
+        one = MetricsRegistry()
+        h = one.histogram("serving_queue_wait_seconds", "Queue wait")
+        for v in sum(lat, []):
+            h.observe(v)
+        want = one.summary()["serving_queue_wait_seconds"]
+        got = fleet_summary(reg)["serving_queue_wait_seconds"]
+        for key in ("count", "p50", "p95", "p99"):
+            assert got[key] == want[key], key
+        assert got["sum"] == pytest.approx(want["sum"], rel=1e-12)
+        assert SLOReport.fold_fleet(reg).stages["queue"]["p99"] == want["p99"]
+        # counters and gauges sum across the replica children in the fold
+        assert SLOReport.fold_fleet(reg).shed == 3.0
+
     def test_scrape_failure_is_recorded_not_raised(self):
         fed = self._federator({":9000": _replica_exposition([], 0, 0)})
         services = [
@@ -1234,6 +1278,23 @@ def test_federation_folds_like_the_reference():
                     fed.fleet_signals(services=services[:2]),
                     fed_mod.parse_exposition(jreg.MetricsRegistry().exposition())))
     assert out[0] == out[1]
+
+
+def test_a_host_model_replica_starts_without_torch():
+    """The replica entry point and the fleet's store payload import no
+    torch: a replica serving a host model (the campaign's affine payload)
+    starts without it (on the NVIDIA H100 machine, importing the replica
+    with torch took 8.7 s)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    code = ("import sys, mmlspark_tpu_torch.serving.replicas, mmlspark_tpu_torch.serving.fleet\n"
+            "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if 'torch' in m)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(repo)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=str(repo), timeout=120)
 
 
 # -- a real replica process -------------------------------------------------------

@@ -4,8 +4,11 @@ clients), the schema, the clients' retry, breaker and ``http_storm`` paths,
 ``PortForwarder``, and parity with the JAX package's clients and schema on
 the same mock service and seeded fault plan."""
 
+import http.client
 import json
+import socket
 import threading
+import time
 import urllib.request
 
 import numpy as np
@@ -29,6 +32,7 @@ from mmlspark_tpu_torch.io.http import (
     StatusLineData,
     StringOutputParser,
 )
+from mmlspark_tpu_torch.io.http.clients import ConnectionPool, _do_request
 from mmlspark_tpu_torch.observability.registry import MetricsRegistry
 from mmlspark_tpu_torch.resilience import BreakerRegistry, RetryPolicy
 from mmlspark_tpu_torch.runtime.faults import FaultPlan, inject_faults
@@ -218,6 +222,163 @@ class TestPortForwarding:
                 )
                 with urllib.request.urlopen(req, timeout=5) as r:
                     assert json.loads(r.read()) == {"via": "forwarder"}
+
+
+class _RawServer:
+    """A keep-alive HTTP server on raw sockets that counts the requests it
+    reads, per connection. ``actions[i]`` says what it does with the i-th
+    request it reads (default ``reply``): ``reply`` answers and keeps the
+    connection; ``reply_close`` answers, then closes it; ``hangup`` closes
+    it with no reply; ``stall`` holds it unanswered until the server
+    stops."""
+
+    def __init__(self, actions=()):
+        self.actions = dict(enumerate(actions))
+        self.requests = []  # (connection index, path)
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._sock = socket.create_server(("127.0.0.1", 0))
+        self._sock.settimeout(0.05)
+        self.url = f"http://127.0.0.1:{self._sock.getsockname()[1]}/score"
+        self._threads = [threading.Thread(target=self._accept, daemon=True)]
+        self._connections = 0
+
+    def __enter__(self):
+        self._threads[0].start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for t in list(self._threads):
+            t.join(timeout=5.0)
+        self._sock.close()
+
+    def _accept(self):
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except socket.timeout:
+                continue
+            t = threading.Thread(target=self._serve, args=(conn, self._connections),
+                                 daemon=True)
+            self._connections += 1
+            self._threads.append(t)
+            t.start()
+
+    def _serve(self, conn, index):
+        reader = conn.makefile("rb")
+        try:
+            while True:
+                line = reader.readline()
+                if not line:
+                    return
+                path = line.split()[1].decode()
+                length = 0
+                while True:
+                    header = reader.readline()
+                    if header in (b"\r\n", b""):
+                        break
+                    name, _, value = header.decode().partition(":")
+                    if name.strip().lower() == "content-length":
+                        length = int(value)
+                reader.read(length)
+                with self._lock:
+                    action = self.actions.get(len(self.requests), "reply")
+                    self.requests.append((index, path))
+                if action == "hangup":
+                    return
+                if action == "stall":
+                    self._stop.wait()
+                    return
+                body = b'{"ok": true}'
+                conn.sendall(b"HTTP/1.1 200 OK\r\nContent-Type: application/json\r\n"
+                             b"Content-Length: %d\r\n\r\n%s" % (len(body), body))
+                if action == "reply_close":
+                    return
+        finally:
+            reader.close()
+            conn.close()
+
+
+class TestConnectionPool:
+    """The keep-alive pool the fleet router's hops go through: it reuses a
+    connection, sends a request once more only where the server closed the
+    connection before reading it, and never waits past its timeout."""
+
+    def _post(self, pool, url, timeout=5.0):
+        return pool.request(url, "POST", b"{}", {"Content-Type": "application/json"}, timeout)
+
+    def test_reuses_one_connection(self):
+        with _RawServer() as srv:
+            pool = ConnectionPool()
+            try:
+                for _ in range(3):
+                    status, _, _, body = self._post(pool, srv.url)
+                    assert status == 200 and json.loads(body) == {"ok": True}
+            finally:
+                pool.close()
+            assert srv.requests == [(0, "/score")] * 3
+
+    def test_a_connection_closed_while_idle_is_not_reused(self):
+        with _RawServer(["reply_close"]) as srv:
+            pool = ConnectionPool()
+            try:
+                assert self._post(pool, srv.url)[0] == 200
+                time.sleep(0.1)  # the server's close reaches the idle connection
+                assert self._post(pool, srv.url)[0] == 200
+            finally:
+                pool.close()
+            # the closed connection was dropped when taken: nothing resent
+            assert srv.requests == [(0, "/score"), (1, "/score")]
+
+    def test_a_hangup_with_no_reply_is_resent_once(self):
+        with _RawServer(["reply", "hangup"]) as srv:
+            pool = ConnectionPool()
+            try:
+                assert self._post(pool, srv.url)[0] == 200
+                status, _, _, body = self._post(pool, srv.url)
+            finally:
+                pool.close()
+            assert status == 200 and json.loads(body) == {"ok": True}
+            assert srv.requests == [(0, "/score"), (0, "/score"), (1, "/score")]
+
+    def test_a_hangup_on_a_fresh_connection_is_not_resent(self):
+        with _RawServer(["hangup"]) as srv:
+            pool = ConnectionPool()
+            try:
+                with pytest.raises(http.client.RemoteDisconnected):
+                    self._post(pool, srv.url)
+            finally:
+                pool.close()
+            assert srv.requests == [(0, "/score")]
+
+    def test_a_stalled_server_gets_one_post_and_the_timeout(self):
+        timeout = 0.5
+        with _RawServer(["reply", "stall"]) as srv:
+            pool = ConnectionPool()
+            try:
+                assert self._post(pool, srv.url)[0] == 200
+                t0 = time.monotonic()
+                with pytest.raises(socket.timeout):
+                    self._post(pool, srv.url, timeout=timeout)
+                waited = time.monotonic() - t0
+            finally:
+                pool.close()
+            assert srv.requests == [(0, "/score"), (0, "/score")]
+            assert timeout <= waited < timeout + 0.3
+
+    def test_do_request_through_the_pool_matches_urllib(self):
+        with MockService(lambda p, b: (200, {"echo": b}, {})) as svc:
+            req = HTTPRequestData.from_json(svc.url, {"x": 1})
+            pool = ConnectionPool()
+            try:
+                pooled = _do_request(req, 5.0, pool=pool)
+            finally:
+                pool.close()
+            plain = _do_request(req, 5.0)
+        assert pooled.status_code == plain.status_code == 200
+        assert pooled.json() == plain.json() == {"echo": {"x": 1}}
+        assert pooled.entity.contentType == plain.entity.contentType
 
 
 class TestParityWithTheReference:

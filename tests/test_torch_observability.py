@@ -288,6 +288,31 @@ def test_federated_log_merges_as_the_reference_does(ref, tmp_path, direction):
     assert tevents.format_timeline(summary) == ref["events"].format_timeline(summary)
 
 
+def test_merged_tail_is_the_tail_of_the_merged_log(tmp_path):
+    """The flight recorder's bundle tail: the last n records of the merged
+    fleet log, in its order, across rotated segments of three processes
+    (nested ``wt`` keys and equal stamps included)."""
+    import random
+
+    base = str(tmp_path / "ev.jsonl")
+    sinks = {"driver": tevents.EventLogSink(base, max_bytes=3000, process="driver")}
+    for label in ("replica-0", "replica-1"):
+        sinks[label] = tevents.EventLogSink(tevents.process_log_path(base, label),
+                                            max_bytes=2500, process=label)
+    rng = random.Random(0)
+    for i in range(600):
+        sinks[rng.choice(sorted(sinks))](tevents.SpanRecorded(
+            name="x", trace_id="t", span_id=str(i), tags={"wt": 5, "k": i},
+            wall_start=rng.random()))
+    for sink in sinks.values():
+        sink.close()
+    full = tevents._merged_records(base)
+    assert len(full) == 600
+    for n in (1, 5, 100, 600, 700):
+        assert tevents._merged_tail(base, n) == full[-n:]
+    assert tevents._merged_tail(base, 0) == []
+
+
 def test_env_sink_follows_the_environment(tmp_path, monkeypatch):
     path = str(tmp_path / "log.jsonl")
     monkeypatch.setenv("MMLSPARK_TPU_EVENT_LOG", path)
