@@ -181,8 +181,10 @@ non-zero and prints no result):
    writes the model text of a fit over the 3 clean shards; a failfast fit
    raises.
 24. The partition runtime (mmlspark_tpu_torch.runtime) on phase 5's
-   11,000,000 rows: inline against numExecutors=8 binning (seconds of
-   each, equal bins); a fit binning under an ambient
+   11,000,000 rows: numExecutors=8 binning against phase 5's inline
+   binning of the same rows (its bins and binning seconds, read again
+   rather than binned twice: seconds of each, equal bins); a
+   fit binning under an ambient
    runtime.policy(max_workers=8, result_integrity=True) with
    kill_random_task(8), corrupt_result and a host oom_task, under a
    checkpoint root in smoke_data/ (phase 5's model text, 3 retries, the
@@ -248,8 +250,9 @@ non-zero and prints no result):
    of phase 5's), voting-parallel with topK 20, and MeshConfig(data=2,
    model=2) (split features equal phase 5's); per fit the boosting
    seconds, the histogram.cu launches (one per pass and slot) and the
-   held-out AUC on phase 5's 500,000 rows. Voting on the first 200,000
-   rows on the card and on 4 CPU slots: equal text. histogram.cu on the
+   held-out AUC on phase 5's 500,000 rows. Voting on the first 100,000
+   rows (cut from 200,000 for the script's time) on the card and on 4 CPU
+   slots: equal text. histogram.cu on the
    first shard's bins and the fit's iteration-0 stats at k = 1 and 8,
    bit-equal to the plain version, timed, with the bound. Then
    LightGBMClassifier(numProcesses=2) on the same rows: 2 worker processes
@@ -259,18 +262,18 @@ non-zero and prints no result):
    under FaultPlan(seed=11).kill_process(1, iteration=3): 2 epochs, 3
    recovered iterations, the undisturbed text byte for byte, one
    ProcessLost and one GroupReformed in its event log (under
-   smoke_data/). Then a 2-process fit of the first 200,000 rows on the
-   card and on the CPU port: equal text.
+   smoke_data/). Then a 2-process fit of the first 100,000 rows (cut from
+   200,000) on the card and on the CPU port: equal text.
 28. Many models (lightgbm.train.train_many, mmlspark_tpu_torch.sweep and
    automl), after the compute-mode check of phase 27. (a) train_many on
-   the bins of phase 5's first 5,500,000 rows (cut from 11,000,000 for the
+   the bins of phase 5's first 4,000,000 rows (cut from 11,000,000 for the
    script's time), K = 4 (learning rate 0.05, 0.1, 0.2, and 0.1 with
    feature and bagging fraction 0.8, bagging every iteration): each
    candidate's text equals its own train() fit's byte for byte; 200 + 80
    histogram.cu launches; the bucket's seconds beside the four train()
    calls'; each candidate's held-out AUC. (b) An inline TrainValidSweep of
    LightGBMClassifier over GridSpace(learningRate 0.05/0.1/0.2 x numLeaves
-   15/31) on phase 5's first 5,500,000 rows as a Table (cut from 11,000,000
+   15/31) on phase 5's first 4,000,000 rows as a Table (cut from 11,000,000
    for the script's time; seed 3, AUC): 6
    candidates in 2 buckets of 3, one batched CandidateBatchFitted each,
    committed under a checkpoint root in smoke_data/; its wall split into
@@ -278,14 +281,15 @@ non-zero and prints no result):
    committed version, the winner's held-out AUC. (c) TuneHyperparameters
    (3 folds, 4 draws of learningRate in [0.05, 0.3)) on the first 125,000
    rows, batched and on a 2-thread pool: equal metrics; then FindBestModel
-   over both tuned models. (d) (b)'s grid on the first 1,000,000 rows with
-   numProcesses=2 (workers share the card): the inline
-   run's metrics and winner; again under FaultPlan(seed=11).kill_process(1,
-   iteration=1): 2 epochs, one signal:9 exit, the undisturbed metrics,
-   winner, committed version and text, one ProcessLost and one
-   GroupReformed. (e) histogram.cu on the bins of (b)'s first bucket at
-   iteration-0 stats, k = 1 and 8, bit-equal to the plain version, timed,
-   with the bound; launches from that bucket's train_many call.
+   over both tuned models. (d) (b)'s grid on the first 500,000 rows (cut
+   from 1,000,000 for the script's time) with numProcesses=2 (workers
+   share the card): the inline run's metrics and winner; again under
+   FaultPlan(seed=11).kill_process(1, iteration=1): 2 epochs, one
+   signal:9 exit, the undisturbed metrics, winner, committed version and
+   text, one ProcessLost and one GroupReformed. (e) histogram.cu on the
+   bins of (b)'s first bucket at iteration-0 stats, k = 1 and 8, bit-equal
+   to the plain version, timed, with the bound; launches from that
+   bucket's train_many call.
 29. Serving (mmlspark_tpu_torch.serving, resilience, dataguard's request
    guard). A LightGBMClassifier at the estimator's defaults (100
    iterations) with maxBin 255 and 31 leaves, fitted on the card on the
@@ -351,9 +355,30 @@ non-zero and prints no result):
    and every check of its verdict held but steady_p99_within_target,
    which is printed with the steady p99 and its 50 ms target (the tool
    exits 1 on that check alone); its verdict, checks and SLO p50/p99.
-32. One JSON line with every kernel (the grouped wide-level launches and
-   phases 22, 23, 24, 25, 27, 28 and 30's cases among them), then the card
-   line, then the result line. Each phase prints its wall time; TF32
+32. TrainClassifier and TrainRegressor on szilard/benchm-ml's airline rows
+   as its raw CSV gives them (phase 10's generator, 1,000,000 training and
+   500,000 held-out rows): Month, DayofMonth and DayOfWeek as "c-N"
+   strings, UniqueCarrier as carrier codes, Origin and Dest as three-letter
+   airport codes, DepTime and Distance as integers, dep_delayed_15min as
+   "Y"/"N". (a) TrainClassifier(LightGBMClassifier(numIterations 10, 31
+   leaves, maxBin 255)) as a user calls it: Featurize's plan (four columns
+   one-hot, 76 columns; Origin and Dest over its 100-value limit hashed into
+   2 x 256 murmur3 buckets; two numerics: 590 float32 columns), the
+   featurizer's fit and transform seconds, binning and boosting seconds,
+   the launches, every held-out prediction "Y" or "N", and the held-out AUC
+   above 0.5 and not below a LightGBMClassifier fit on the same rows as
+   integer codes. (b) The first 100,000 rows on the card and on the CPU
+   port: equal model text and equal decoded predictions on 100,000
+   held-out rows. (c) The TrainedClassifierModel saved, loaded and applied
+   again to the first 100,000 held-out rows (500,000 cut for time): equal
+   output columns. (d) histogram.cu's two entries on the
+   featurized bins at iteration-0 stats against the plain version, timed,
+   with the bound. (e) TrainRegressor(LightGBMRegressor) on 250,000 rows of
+   a delay-minutes label from the same latent: held-out l2 on 100,000 rows
+   below the init-only model's.
+33. One JSON line with every kernel (the grouped wide-level launches and
+   phases 22, 23, 24, 25, 27, 28, 30 and 32's cases among them), then the
+   card line, then the result line. Each phase prints its wall time; TF32
    matmuls must be off.
 """
 
@@ -1144,13 +1169,14 @@ AIR_CATEGORICAL = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7), ("Unique
 AIR_CATS = list(range(len(AIR_CATEGORICAL)))
 
 
-def _airline_data(n, seed):
+def _airline_data(n, seed, latent=False):
     """Rows in the shape of szilard/benchm-ml's airline set
     (dep_delayed_15min; LightGBM's docs/Experiments.rst "Expo" categorical
     run): six categorical columns with Zipf-skewed frequencies (Origin and
     Dest have more values than maxBin 255's 254 value bins, so their rarest
     ones share bin 0), then DepTime and Distance. The label carries a random
-    effect per category, so a category's code says nothing by its order."""
+    effect per category, so a category's code says nothing by its order.
+    With ``latent`` the label's logit comes third."""
     rng = np.random.default_rng(seed)
     X = np.empty((n, len(AIR_CATEGORICAL) + 2), np.float64)
     logit = np.full(n, -1.2)
@@ -1164,7 +1190,7 @@ def _airline_data(n, seed):
     logit += 1.2 * (dep / 2400.0) + 0.15 * (np.log(dist) - 6.5)
     X[:, -2], X[:, -1] = dep, dist
     y = (logit + rng.logistic(size=n) > 0).astype(np.float64)
-    return X, y
+    return (X, y, logit) if latent else (X, y)
 
 
 def _one_hot_airline(X):
@@ -2890,9 +2916,10 @@ def _journal_lines(root):
 
 
 def phase_runtime(torch, uh, hh, runtime, binning, base, sharded, Table, LightGBMClassifier,
-                  auc, higgs, phase5_auc, ooc):
+                  auc, higgs, phase5, ooc):
     """The partition runtime on phase 5's 11,000,000 rows and phase 23's
-    shards: inline against numExecutors=8 binning (seconds, equal bins); a
+    shards: numExecutors=8 binning against phase 5's inline binning of the
+    same rows (its bins and seconds: equal bins); a
     fit binning under an ambient runtime.policy(max_workers=8,
     result_integrity=True) with kill_random_task(8), corrupt_result and a
     host oom_task, under a checkpoint root (phase 5's model text, the
@@ -2910,22 +2937,20 @@ def phase_runtime(torch, uh, hh, runtime, binning, base, sharded, Table, LightGB
     name = "lightgbmclassificationmodel"
     rec = {}
 
-    # inline against numExecutors=8 binning
+    # numExecutors=8 binning against phase 5's inline binning of the same
+    # rows (the estimator's binning_dataset call, timed by its FitStats)
     est = LightGBMClassifier(numExecutors=RT_WORKERS, **HIGGS_PARAMS)
     opts = est._make_options()
     t0 = time.perf_counter()
-    b_inline, _ = binning.bin_dataset(X, max_bin=opts.max_bin)
-    inline_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     b_part, _ = est._bin_dataset(X, opts, set())
     part_s = time.perf_counter() - t0
-    if b_inline.tobytes() != b_part.tobytes():
+    if higgs["bins"].tobytes() != b_part.tobytes():
         raise AssertionError("runtime: partitioned bins differ from the inline bins")
-    rec["binning"] = dict(rows=len(y), inline_s=inline_s, partitioned_s=part_s,
+    rec["binning"] = dict(rows=len(y), inline_s=phase5["binning_s"], partitioned_s=part_s,
                           executors=RT_WORKERS, tasks=est._runtime_metrics.summary()["tasks_done"],
                           bins_equal=True)
     print("runtime binning: " + json.dumps(rec["binning"]), flush=True)
-    del b_inline, b_part
+    del b_part
 
     ckpt = os.path.join(DATA_DIR, "checkpoints")
     saved_root = os.environ.get(runtime.CHECKPOINT_DIR_ENV)
@@ -3018,7 +3043,7 @@ def phase_runtime(torch, uh, hh, runtime, binning, base, sharded, Table, LightGB
     rec["num_batches"] = dict(batches=RT_BATCHES, trees=merged.num_trees, fit_s=batches_s,
                               binning_s=model.fit_stats.binning_seconds,
                               boosting_s=model.fit_stats.boost_seconds, held_out_auc=held_out,
-                              phase5_auc=phase5_auc, ensemble_margin_max_err=err,
+                              phase5_auc=phase5["held_out_auc"], ensemble_margin_max_err=err,
                               launches=counts)
     print("runtime numBatches: " + json.dumps(rec["num_batches"]), flush=True)
     del model, prob, binned, train_t
@@ -3701,7 +3726,8 @@ def phase_observability(torch, uh, hh, train, runtime, pipeline, events, tracing
     return rec
 
 
-N_DIST_CPU = 200_000  # phase 27's rows fitted on the card and on the CPU port: equal text
+# phase 27's rows fitted on the card and on the CPU port: equal text (cut from 200,000)
+N_DIST_CPU = 100_000
 DIST_SLOTS = 4  # the mesh's data slots, every one on the card
 DIST_TOP_K = 20
 DIST_PROCS = 2
@@ -3921,8 +3947,8 @@ def phase_distribution(torch, uh, hh, rates, base, train, parallel, procfit, run
                 launches=mesh["data_parallel"]["launches"])
 
 
-N_MANY_SWEEP = 5_500_000  # phase 28's inline sweep rows, cut from 11M for the script's time
-N_MANY_GANG = 1_000_000  # phase 28's gang rows: the first of phase 5's
+N_MANY_SWEEP = 4_000_000  # phase 28's inline sweep rows, cut from 11M (then 5.5M) for time
+N_MANY_GANG = 500_000  # phase 28's gang rows: the first of phase 5's (cut from 1,000,000)
 N_MANY_TUNE = 125_000  # phase 28's tuner rows, cut from 1M, then 250,000, for the script's time
 MANY_GRID = {"learningRate": [0.05, 0.1, 0.2], "numLeaves": [15, 31]}
 MANY_TUNE_FOLDS = 3
@@ -5140,6 +5166,196 @@ def phase_streaming(torch, uh, hh, rates, base, train, objectives, sharded, stre
     return rec
 
 
+N_TRAINERS = 1_000_000  # benchm-ml's 1M training size
+N_TRAINERS_CPU = 100_000  # phase 32's rows trained on the card and on the CPU port: equal text
+N_TRAINERS_REG = 250_000  # phase 32's regression rows
+N_TRAINERS_REG_TEST = 100_000
+TRAINERS_PARAMS = dict(numIterations=FIT_ITERS, numLeaves=31, maxBin=NUM_BINS - 1)
+# benchm-ml's 22 UniqueCarrier codes (the 2005-2007 airline rows)
+AIR_CARRIERS = ("AA", "AQ", "AS", "B6", "CO", "DH", "DL", "EV", "F9", "FL", "HA", "HP", "MQ",
+                "NW", "OH", "OO", "TZ", "UA", "US", "WN", "XE", "YV")
+TRAINERS_PLAN = {"Month": "categorical", "DayofMonth": "categorical",
+                 "DayOfWeek": "categorical", "UniqueCarrier": "categorical", "Origin": "text",
+                 "Dest": "text", "DepTime": "numeric", "Distance": "numeric"}
+TRAINERS_WIDTH = 13 + 32 + 8 + 23 + 2 * 256 + 2  # one-hot levels + unknown, hashed, numeric
+
+
+def _airport_codes(n, seed):
+    """``n`` distinct three-letter codes, drawn from a seed."""
+    picks = np.random.default_rng(seed).choice(26 ** 3, size=n, replace=False)
+    letters = "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+    return [letters[p // 676] + letters[p // 26 % 26] + letters[p % 26] for p in picks]
+
+
+def _raw_airline(X, y):
+    """Phase 10's airline rows as benchm-ml's raw CSV gives them: Month,
+    DayofMonth and DayOfWeek as "c-N" strings, UniqueCarrier as carrier
+    codes, Origin and Dest as three-letter airport codes, DepTime and
+    Distance as integers, dep_delayed_15min as "Y"/"N"."""
+    airports = _airport_codes(AIR_CATEGORICAL[4][1], seed=32)
+    cols = {}
+    for j, (name, card) in enumerate(AIR_CATEGORICAL):
+        values = (AIR_CARRIERS if name == "UniqueCarrier" else
+                  airports if name in ("Origin", "Dest") else
+                  [f"c-{v}" for v in range(1, card + 1)])
+        cols[name] = np.array(values, dtype=object)[X[:, j].astype(np.int64) - 1]
+    cols["DepTime"] = X[:, -2].astype(np.int64)
+    cols["Distance"] = X[:, -1].astype(np.int64)
+    cols["dep_delayed_15min"] = np.array(["N", "Y"], dtype=object)[(y > 0).astype(np.int64)]
+    return cols
+
+
+def _rows(cols, lo, hi, Table, drop=()):
+    return Table({k: v[lo:hi] for k, v in cols.items() if k not in drop})
+
+
+def phase_trainers(torch, uh, hh, rates, base, objectives, train, featurize, Table, PipelineStage,
+                   LightGBMClassifier, LightGBMRegressor, TrainClassifier, TrainRegressor, auc,
+                   card):
+    """benchm-ml's raw airline rows through TrainClassifier and
+    TrainRegressor as a user calls them: (a) Featurize's plan, fit and
+    transform of 1,000,000 rows against phase 10's numeric-code fit; (b) the
+    first 100,000 rows on the card and on the CPU port; (c) save and load;
+    (d) histogram.cu on the featurized bins; (e) a regression."""
+    n, n_test = N_TRAINERS, N_TEST
+    X, y, latent = _airline_data(n + n_test, seed=7, latent=True)
+    cols = _raw_airline(X, y)
+    label = "dep_delayed_15min"
+    rec = {"card": card}
+
+    # (a) fit and transform, the featurizer and the learner's parts timed apart
+    seconds = {}
+    saved = {cls: _timed_calls(cls, (name,), seconds)
+             for cls, name in ((featurize.Featurize, "_fit"),
+                               (featurize.FeaturizeModel, "transform"))}
+    binned = []
+    bin_dataset = base.bin_dataset
+
+    def keep_bins(*a, **kw):
+        out = bin_dataset(*a, **kw)
+        binned.append(out)
+        return out
+
+    base.bin_dataset = keep_bins
+    trainer = TrainClassifier(model=LightGBMClassifier(**TRAINERS_PARAMS, device="cuda"),
+                              labelCol=label)
+    try:
+        torch.cuda.synchronize()
+        _zero_counts(uh, hh)
+        t0 = time.perf_counter()
+        model = trainer.fit(_rows(cols, 0, n, Table))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = _counts(uh, hh)
+        fit_seconds = dict(seconds)
+        seconds.clear()
+        t1 = time.perf_counter()
+        out = model.transform(_rows(cols, n, n + n_test, Table, drop=(label,)))
+        transform_s = time.perf_counter() - t1
+    finally:
+        base.bin_dataset = bin_dataset
+        for cls, fns in saved.items():
+            for name, fn in fns.items():
+                setattr(cls, name, fn)
+    _need(counts, ("hist_panel", "hist_combined"), "trainers fit")
+    plans = {p["col"]: p["kind"] for p in model.getFeaturizerModel().getPlans()}
+    if plans != TRAINERS_PLAN:
+        raise AssertionError(f"Featurize planned {plans}, expected {TRAINERS_PLAN}")
+    bins, _ = binned[0]
+    if bins.shape != (n, TRAINERS_WIDTH):
+        raise AssertionError(f"featurized bins {bins.shape}, expected ({n}, {TRAINERS_WIDTH})")
+    pred = out["prediction"]
+    if not set(np.unique(pred.astype(str))) <= {"N", "Y"} or len(pred) != n_test:
+        raise AssertionError(f"predictions outside Y/N: {np.unique(pred.astype(str))[:5]}")
+    y_test = y[n:]
+    prob = out["probability"][:, 1]
+    st = model.getFittedModel().fit_stats
+    numeric = LightGBMClassifier(**TRAINERS_PARAMS, device="cuda").fit(
+        Table({"features": X[:n], "label": y[:n]}))
+    numeric_auc = auc(y_test, numeric.transform(Table({"features": X[n:]}))["probability"][:, 1],
+                      np.ones(n_test))
+    held_out = auc(y_test, prob, np.ones(n_test))
+    rec["fit"] = dict(
+        rows=n, test_rows=n_test, columns=TRAINERS_WIDTH, plans=plans, fit_s=fit_s,
+        featurize_fit_s=fit_seconds["_fit"], featurize_transform_s=fit_seconds["transform"],
+        binning_s=st.binning_seconds, boosting_s=st.boost_seconds, trees=st.trees,
+        passes=st.passes, transform_s=transform_s,
+        test_featurize_transform_s=seconds["transform"], held_out_auc=held_out,
+        numeric_codes_auc=numeric_auc, predictions_y=int((pred == "Y").sum()), launches=counts)
+    print("trainers fit: " + json.dumps(rec["fit"]), flush=True)
+    del numeric
+
+    # (b) the card against the CPU port on the first 100,000 rows
+    m = N_TRAINERS_CPU
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        fitted = TrainClassifier(model=LightGBMClassifier(**TRAINERS_PARAMS, device=dev),
+                                 labelCol=label).fit(_rows(cols, 0, m, Table))
+        fits[dev] = (fitted, time.perf_counter() - t0)
+    texts = {dev: f.getFittedModel().get_model_string() for dev, (f, _) in fits.items()}
+    test_m = _rows(cols, n, n + m, Table, drop=(label,))
+    preds = {dev: f.transform(test_m)["prediction"] for dev, (f, _) in fits.items()}
+    rec["card_cpu"] = dict(rows=m, text_equal=texts["cuda"] == texts["cpu"],
+                           predictions_equal=bool(np.array_equal(preds["cuda"], preds["cpu"])),
+                           card_fit_s=fits["cuda"][1], cpu_fit_s=fits["cpu"][1], card=card)
+    print("trainers card against CPU: " + json.dumps(rec["card_cpu"]), flush=True)
+    if not (rec["card_cpu"]["text_equal"] and rec["card_cpu"]["predictions_equal"]):
+        raise AssertionError(f"trainers card against CPU: {rec['card_cpu']}")
+    del fits, texts, preds
+
+    # (c) save, load, transform the first N_TRAINERS_CPU held-out rows again
+    path = os.path.join(DATA_DIR, "trainers", "model")
+    t0 = time.perf_counter()
+    model.save(path)
+    save_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    loaded = PipelineStage.load(path)
+    load_s = time.perf_counter() - t1
+    again = loaded.transform(_rows(cols, n, n + m, Table, drop=(label,)))
+    equal = {c: bool(np.array_equal(out[c][:m], again[c])) for c in out.columns}
+    rec["save_load"] = dict(save_s=save_s, load_s=load_s, bytes_on_disk=_dir_bytes(path),
+                            rows=m, columns_equal=equal)
+    print("trainers save/load: " + json.dumps(rec["save_load"]), flush=True)
+    if not all(equal.values()) or type(loaded).__name__ != "TrainedClassifierModel":
+        raise AssertionError(f"trainers save/load: {rec['save_load']}")
+    del loaded, again, out
+
+    # (d) histogram.cu on the featurized bins at iteration 0's stats
+    dev = torch.device("cuda")
+    bins_t = train.upload_bins(bins, dev)
+    del binned, bins
+    g, h = _iteration0(torch, objectives.get_objective("binary"), y[:n], None, dev)
+    rec["kernels"] = _path_kernels(torch, hh, rates, "trainers featurized bins", bins_t, g, h,
+                                   NUM_BINS)
+    del bins_t, g, h
+
+    # (e) a regression on a delay-minutes label from the same latent
+    r, r_test = N_TRAINERS_REG, N_TRAINERS_REG_TEST
+    minutes = np.round(15.0 * (latent + np.random.default_rng(32).logistic(size=len(latent))))
+    reg_cols = {k: v for k, v in cols.items() if k != label}
+    reg_cols["delay_minutes"] = minutes
+    t0 = time.perf_counter()
+    reg = TrainRegressor(model=LightGBMRegressor(**TRAINERS_PARAMS, device="cuda"),
+                         labelCol="delay_minutes").fit(_rows(reg_cols, 0, r, Table))
+    reg_fit_s = time.perf_counter() - t0
+    got = reg.transform(_rows(reg_cols, n, n + r_test, Table, drop=("delay_minutes",)))
+    want = minutes[n:n + r_test]
+    l2 = float(np.mean((got["prediction"] - want) ** 2))
+    l2_init = float(np.mean((minutes[:r].mean() - want) ** 2))
+    rec["regression"] = dict(rows=r, test_rows=r_test, fit_s=reg_fit_s, held_out_l2=l2,
+                             init_only_l2=l2_init)
+    print("trainers regression: " + json.dumps(rec["regression"]), flush=True)
+    if not l2 < l2_init:
+        raise AssertionError(f"trainers regression l2 {l2} is not below the init-only {l2_init}")
+    rec["launches"] = counts
+    torch.cuda.empty_cache()
+    # held last, so that a miss still prints every other part's numbers
+    if not (held_out > 0.5 and held_out >= numeric_auc):
+        raise AssertionError(f"trainers AUC {held_out} against the numeric codes' {numeric_auc}")
+    return rec
+
+
 def phase_campaign(card):
     """Phase 31 (see the module docstring): tools/torch_loadgen.py --short
     --malformed as a subprocess with a fixed seed."""
@@ -5208,7 +5424,7 @@ def main():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from mmlspark_tpu_torch import automl, parallel, runtime, serving, streaming
+    from mmlspark_tpu_torch import automl, featurize, parallel, runtime, serving, streaming
     from mmlspark_tpu_torch import sweep as tsweep
     from mmlspark_tpu_torch.data import sharded
     from mmlspark_tpu_torch.data.sparse import CSRMatrix, SparseRows
@@ -5241,6 +5457,7 @@ def main():
     from mmlspark_tpu_torch.runtime import journal
     from mmlspark_tpu_torch.runtime.lineage import PartitionLostError
     from mmlspark_tpu_torch.sweep import batched
+    from mmlspark_tpu_torch.train import TrainClassifier, TrainRegressor
 
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
@@ -5311,7 +5528,7 @@ def main():
         ooc_fit, ooc = timed("out_of_core", phase_out_of_core, torch, uh, hh, rates, objectives,
                              train, sharded, PartitionLostError, Table, LightGBMClassifier, auc)
         timed("runtime", phase_runtime, torch, uh, hh, runtime, binning, base, sharded, Table,
-              LightGBMClassifier, auc, higgs, fit["held_out_auc"], ooc)
+              LightGBMClassifier, auc, higgs, fit, ooc)
         persist = timed("persistence", phase_persistence, torch, uh, hh, rates, base, objectives,
                         train, Table, LightGBMClassifier, LightGBMClassificationModel, Booster,
                         pipeline, guards, events, tracing, higgs)
@@ -5330,6 +5547,9 @@ def main():
                        Table, LightGBMClassifier, LightGBMClassificationModel, Booster, auc,
                        higgs)
         timed("campaign", phase_campaign, card)
+        trainers = timed("trainers", phase_trainers, torch, uh, hh, rates, base, objectives,
+                         train, featurize, Table, pipeline.PipelineStage, LightGBMClassifier,
+                         LightGBMRegressor, TrainClassifier, TrainRegressor, auc, card)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
     del higgs
@@ -5384,6 +5604,12 @@ def main():
          stream["launches"]["hist_panel"], stream["kernels"][8]),
         ("hist_combined_stream", "histogram.cu", "mmlspark_tpu/ops/pallas_histogram.py:177",
          stream["launches"]["hist_combined"], stream["kernels"][1]),
+        # TrainClassifier's fit of benchm-ml's raw airline rows: the
+        # featurized bins (590 columns) at iteration-0 stats
+        ("hist_panel_trainers", "histogram.cu", "mmlspark_tpu/ops/pallas_histogram.py:86",
+         trainers["launches"]["hist_panel"], trainers["kernels"][8]),
+        ("hist_combined_trainers", "histogram.cu", "mmlspark_tpu/ops/pallas_histogram.py:177",
+         trainers["launches"]["hist_combined"], trainers["kernels"][1]),
     ):
         if launches == 0:
             raise AssertionError(f"{name} was not launched on its path")

@@ -253,6 +253,11 @@ def _make_setter(name: str) -> Callable[..., Params]:
 _STAGE_REGISTRY: Dict[str, type] = {}
 
 
+def registered_classes() -> Dict[str, type]:
+    """Every registered stage class by its qualified name (a copy)."""
+    return dict(_STAGE_REGISTRY)
+
+
 def persisted_class_name(cls: type) -> str:
     """The class name a saved stage carries: the reference's module path for
     a class of the port (``mmlspark_tpu.<same path>``), so that the JAX
@@ -346,3 +351,7 @@ class HasValidationIndicatorCol(Params):
 class HasBatchSize(Params):
     batchSize = Param("Rows per device mini-batch", default=1024, converter=to_int,
                       validator=gt(0))
+
+
+class HasSeed(Params):
+    seed = Param("Random seed", default=0, converter=to_int)

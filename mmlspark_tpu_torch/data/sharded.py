@@ -35,8 +35,10 @@ of the file.
 
 :func:`fit_gbdt_sharded` trains on a mesh as ``fit`` does
 (``mesh="auto"``: the estimator's ``parallelism`` and ``numTasks``), or on
-the one it is given. Not ported yet, and refused with
-``NotImplementedError``: parquet shards.
+the one it is given. Parquet shards (features, with ``label`` and
+``weight`` columns when present) load through pandas, imported when one is
+read; they have no streamable row access, so a range read decodes the
+whole shard once.
 """
 
 from __future__ import annotations
@@ -107,11 +109,6 @@ def _verify_shard(path: str) -> None:
     if got != want:
         raise PartitionLostError(f"shard {path} failed CRC verification "
                                  f"(sidecar {want}, file {got})")
-
-
-def _refuse_parquet(path: str) -> None:
-    if path.endswith(".parquet"):
-        raise NotImplementedError(f"parquet shards are not ported yet: {path}")
 
 
 @dataclasses.dataclass
@@ -189,7 +186,6 @@ class ShardedDataset:
 
     @staticmethod
     def _load(path: str) -> Tuple[np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]:
-        _refuse_parquet(path)
         check_record(path)
         _verify_shard(path)
         if path.endswith(".npz"):
@@ -200,6 +196,13 @@ class ShardedDataset:
             return X, y, w
         if path.endswith(".npy"):
             return np.asarray(np.load(path), dtype=np.float64), None, None
+        if path.endswith(".parquet"):
+            import pandas as pd
+
+            df = pd.read_parquet(path)
+            y = df.pop("label").to_numpy(np.float64) if "label" in df else None
+            w = df.pop("weight").to_numpy(np.float64) if "weight" in df else None
+            return df.to_numpy(np.float64), y, w
         raise ValueError(f"unsupported shard format: {path}")
 
     @staticmethod
@@ -208,8 +211,8 @@ class ShardedDataset:
         """Decode only rows ``[lo, hi)`` of a shard, the memory-bounded
         read. ``.npy`` slices a read-only memmap; ``.npz`` seeks within the
         zip member past the skipped rows (``np.savez`` stores members
-        uncompressed, so the seek is a file seek) and reads the range."""
-        _refuse_parquet(path)
+        uncompressed, so the seek is a file seek) and reads the range;
+        parquet decodes the shard, then slices."""
         check_record(path)
         _verify_shard(path)
         lo, hi = int(lo), int(hi)
@@ -217,7 +220,8 @@ class ShardedDataset:
             mm = np.load(path, mmap_mode="r")
             return np.asarray(mm[lo:hi], dtype=np.float64), None, None
         if not path.endswith(".npz"):
-            raise ValueError(f"unsupported shard format: {path}")
+            X, y, w = ShardedDataset._load(path)
+            return X[lo:hi], None if y is None else y[lo:hi], None if w is None else w[lo:hi]
 
         def member_rows(z, name):
             with z.open(name) as fh:
@@ -253,8 +257,7 @@ class ShardedDataset:
     @staticmethod
     def _shard_info(path: str) -> ShardInfo:
         """Shape and keys from the ``.npy``/``.npz`` headers, without
-        decoding the float data."""
-        _refuse_parquet(path)
+        decoding the float data; a parquet shard is decoded once."""
         if path.endswith(".npy"):
             with open(path, "rb") as fh:
                 shape = _npy_header_shape(fh)
@@ -266,7 +269,8 @@ class ShardedDataset:
                     shape = _npy_header_shape(fh)
             return ShardInfo(path, shape[0], shape[1], has_y="y.npy" in names,
                              has_w="w.npy" in names)
-        raise ValueError(f"unsupported shard format: {path}")
+        X, y, w = ShardedDataset._load(path)
+        return ShardInfo(path, len(X), X.shape[1], has_y=y is not None, has_w=w is not None)
 
     def _scan(self) -> None:
         if self._infos is not None:
@@ -280,7 +284,6 @@ class ShardedDataset:
                 # verify now, so that every later size (row offsets, the
                 # memmap's extent, samples) is taken over the survivors
                 try:
-                    _refuse_parquet(p)
                     check_record(p)
                     _verify_shard(p)
                     info = self._shard_info(p)

@@ -26,9 +26,10 @@ Counts must be non-negative integers whose sum in any one cell stays below
 version in float32, and the two agree exactly only there.
 
 On a CUDA tensor an entry point launches the kernel or raises. On a CPU
-tensor it computes :func:`build_histograms_plain`, the same function as one
-``index_add_`` (the JAX ``segment`` formulation, ``ops/histogram.py``) in the
-kernel's integer arithmetic.
+tensor it computes :func:`build_histograms_plain`, the same function as an
+``index_add_`` (the JAX ``segment`` formulation, ``ops/histogram.py``; on the
+CPU one per group of features, each on a thread) in the kernel's integer
+arithmetic.
 
 :func:`build_histograms_bin_scatter` is the counterpart of the JAX
 package's fused bin + scatter-add pass (``_bin_scatter_kernel``): the U
@@ -41,6 +42,7 @@ of rebuilding its one-hot.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import functools
 import threading
@@ -141,6 +143,11 @@ def fixed_point_scales(*cols) -> torch.Tensor:
     return ((s + 1023) << 52).view(torch.float64)
 
 
+#: the least (rows in range) x features that pays for a thread of the plain
+#: version's exact sums on the CPU
+PLAIN_CPU_MIN_WORK = 1 << 21
+
+
 def build_histograms_plain(bins_t, grad, hess, count, node, num_nodes: int,
                            num_bins: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel: drop out-of-range node keys,
@@ -149,27 +156,59 @@ def build_histograms_plain(bins_t, grad, hess, count, node, num_nodes: int,
     float32 inputs take the kernel's arithmetic: g and h as int64
     ``round(x * 2**s)`` (:func:`fixed_point_scales`), summed exactly and
     turned back into float32; counts summed in float32. float64 inputs sum
-    in float64 (the oracle the kernel is held to within a tolerance)."""
+    in float64 (the oracle the kernel is held to within a tolerance).
+
+    On the CPU the exact float32-input sums of a wide pass run as one
+    ``index_add_`` per group of features, the groups on threads of their
+    own (``index_add_`` adds serially), as many as torch's CPU threads:
+    integer sums, and float32 sums of integer counts, take the same values
+    in any order."""
     f, n = bins_t.shape
     keep = (node >= 0) & (node < num_nodes)
     rows = keep.nonzero().squeeze(1)
     nd = node[rows].long()
-    feats = torch.arange(f, device=bins_t.device)
-    ids = ((nd[None, :] * f + feats[:, None]) * num_bins + bins_t[:, rows].long()).reshape(-1)
-    cells = num_nodes * f * num_bins
     if grad.dtype == torch.float64:
+        ids = _cell_ids(bins_t, rows, nd, 0, f, num_bins)
         data = torch.stack([grad[rows], hess[rows], count[rows].to(grad.dtype)], dim=1)
-        out = torch.zeros(cells, 3, dtype=grad.dtype, device=grad.device)
+        out = torch.zeros(num_nodes * f * num_bins, 3, dtype=grad.dtype, device=grad.device)
         out.index_add_(0, ids, data.repeat(f, 1))
         return out.reshape(num_nodes, f, num_bins, 3)
     scale = fixed_point_scales(grad, hess)
     q = torch.round(torch.stack([grad[rows], hess[rows]], dim=1).double() * scale).long()
-    acc = torch.zeros(cells, 2, dtype=torch.int64, device=grad.device)
-    acc.index_add_(0, ids, q.repeat(f, 1))
-    cnt = torch.zeros(cells, dtype=torch.float32, device=grad.device)
-    cnt.index_add_(0, ids, count[rows].repeat(f))
+    c = count[rows]
+    groups = 1 if bins_t.is_cuda else max(1, min(torch.get_num_threads(), f,
+                                                 rows.numel() * f // PLAIN_CPU_MIN_WORK))
+    if groups == 1:
+        return _exact_sums(bins_t, rows, nd, q, c, scale, 0, f, num_nodes, num_bins)
+    bounds = torch.linspace(0, f, groups + 1).long().tolist()
+    with concurrent.futures.ThreadPoolExecutor(groups) as pool:
+        parts = list(pool.map(
+            lambda i: _exact_sums(bins_t, rows, nd, q, c, scale, bounds[i], bounds[i + 1],
+                                  num_nodes, num_bins), range(groups)))
+    return torch.cat(parts, dim=1)
+
+
+def _cell_ids(bins_t, rows, nd, lo: int, hi: int, num_bins: int) -> torch.Tensor:
+    """Flat cell ids ``((node*W + j)*B + bin)`` of features ``lo..hi`` (W of
+    them) for the rows in range."""
+    feats = torch.arange(hi - lo, device=bins_t.device)
+    return ((nd[None, :] * (hi - lo) + feats[:, None]) * num_bins
+            + bins_t[lo:hi, rows].long()).reshape(-1)
+
+
+def _exact_sums(bins_t, rows, nd, q, c, scale, lo: int, hi: int, num_nodes: int,
+                num_bins: int) -> torch.Tensor:
+    """(num_nodes, hi - lo, B, 3): the fixed-point g and h sums and the
+    float32 counts of features ``lo..hi``."""
+    w = hi - lo
+    ids = _cell_ids(bins_t, rows, nd, lo, hi, num_bins)
+    cells = num_nodes * w * num_bins
+    acc = torch.zeros(cells, 2, dtype=torch.int64, device=q.device)
+    acc.index_add_(0, ids, q.repeat(w, 1))
+    cnt = torch.zeros(cells, dtype=torch.float32, device=q.device)
+    cnt.index_add_(0, ids, c.repeat(w))
     out = torch.cat([(acc.double() / scale).float(), cnt[:, None]], dim=1)
-    return out.reshape(num_nodes, f, num_bins, 3)
+    return out.reshape(num_nodes, w, num_bins, 3)
 
 
 def _check(bins_t, grad, hess, count, node, num_nodes, num_bins):

@@ -148,6 +148,22 @@ def test_plain_version_sums_in_float64():
     assert out[..., 2].sum().item() == pytest.approx(2 * c[keep].sum())
 
 
+@pytest.mark.parametrize("f,n,k", [(590, 12_000, 1), (590, 12_000, 8), (37, 9_000, 42),
+                                   (3, 800, 1)])
+def test_plain_version_on_cpu_threads_is_bit_equal_to_one_pass(f, n, k, monkeypatch):
+    """The CPU's groups of features on threads (one-hot-like and uniform
+    bins, keys out of range) equal one index_add_ over every feature."""
+    gen = torch.Generator().manual_seed(f + k)
+    bins = torch.randint(0, 256, (f, n), generator=gen, dtype=torch.int32).to(torch.uint8)
+    bins[: f // 2] = (bins[: f // 2] < 9).to(torch.uint8)
+    args = (bins, torch.randn(n, generator=gen) * 3, torch.rand(n, generator=gen),
+            torch.ones(n), torch.randint(0, k + 1, (n,), generator=gen, dtype=torch.int32), k, 256)
+    monkeypatch.setattr(hh, "PLAIN_CPU_MIN_WORK", 1)
+    threaded = hh.build_histograms_plain(*args)
+    monkeypatch.setattr(hh, "PLAIN_CPU_MIN_WORK", f * n + 1)
+    assert torch.equal(threaded, hh.build_histograms_plain(*args))
+
+
 @pytest.mark.parametrize("k", [1, 8, 42])
 def test_plain_version_does_not_depend_on_row_order(k):
     bins, g, h, c, node = _case(4001, 4, 64, k, seed=100 + k)

@@ -257,7 +257,9 @@ def test_deferred_options_raise_not_implemented(ref, shards, tmp_path):
     """numProcesses and a mesh are ported: fit_gbdt_sharded reads no
     numProcesses (it fits in this process, as the reference's does), and a
     4-shard mesh of CPU slots fits within float32 sum order of the
-    unmeshed fit. Parquet shards still raise."""
+    unmeshed fit. Parquet shards read through pandas as the reference's
+    do: the same features, labels, weights and row ranges; an empty file
+    is a corrupt record under permissive and raises under failfast."""
     paths = shards[0]
     plain = fit_gbdt_sharded(LightGBMClassifier(**PARAMS), ShardedDataset(paths),
                              sample_per_shard=SAMPLE, bins_path=str(tmp_path / "a.u8"),
@@ -270,11 +272,25 @@ def test_deferred_options_raise_not_implemented(ref, shards, tmp_path):
     meshed = fit_gbdt_sharded(LightGBMClassifier(**PARAMS), ShardedDataset(paths), mesh=mesh,
                               sample_per_shard=SAMPLE, bins_path=str(tmp_path / "c.u8"))
     assert ref["texts_close"](meshed.get_model_string(), plain.get_model_string())
+    import pandas as pd
+
+    _, X, y, w = shards
     parquet = str(tmp_path / "s.parquet")
-    open(parquet, "wb").close()
-    for mode in ("failfast", "permissive"):
-        with pytest.raises(NotImplementedError, match="parquet"):
-            ShardedDataset([parquet], mode=mode).num_rows
+    frame = pd.DataFrame(X[:ROWS].astype(np.float64), columns=[f"f{j}" for j in range(X.shape[1])])
+    frame["label"], frame["weight"] = y[:ROWS], w[:ROWS]
+    frame.to_parquet(parquet)
+    for got, want in ((ShardedDataset._load(parquet), ref["sharded"].ShardedDataset._load(parquet)),
+                      (ShardedDataset.load_rows(parquet, 5, 17),
+                       ref["sharded"].ShardedDataset.load_rows(parquet, 5, 17))):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(ShardedDataset._load(parquet)[0], X[:ROWS].astype(np.float64))
+    assert ShardedDataset([parquet]).num_rows == ROWS
+    empty = str(tmp_path / "empty.parquet")
+    open(empty, "wb").close()
+    assert ShardedDataset([empty, parquet], mode="permissive").num_rows == ROWS
+    with pytest.raises(ValueError):
+        ShardedDataset([empty], mode="failfast").num_rows
 
 
 @pytest.mark.parametrize("module", ["data.sparse", "data.sharded", "dataguard.modes",
