@@ -250,9 +250,9 @@ non-zero and prints no result):
    of phase 5's), voting-parallel with topK 20, and MeshConfig(data=2,
    model=2) (split features equal phase 5's); per fit the boosting
    seconds, the histogram.cu launches (one per pass and slot) and the
-   held-out AUC on phase 5's 500,000 rows. Voting on the first 100,000
-   rows (cut from 200,000 for the script's time) on the card and on 4 CPU
-   slots: equal text. histogram.cu on the
+   held-out AUC on phase 5's 500,000 rows. Voting on the first 50,000
+   rows (cut from 200,000, then 100,000, for the script's time) on the card
+   and on 4 CPU slots: equal text. histogram.cu on the
    first shard's bins and the fit's iteration-0 stats at k = 1 and 8,
    bit-equal to the plain version, timed, with the bound. Then
    LightGBMClassifier(numProcesses=2) on the same rows: 2 worker processes
@@ -262,8 +262,8 @@ non-zero and prints no result):
    under FaultPlan(seed=11).kill_process(1, iteration=3): 2 epochs, 3
    recovered iterations, the undisturbed text byte for byte, one
    ProcessLost and one GroupReformed in its event log (under
-   smoke_data/). Then a 2-process fit of the first 100,000 rows (cut from
-   200,000) on the card and on the CPU port: equal text.
+   smoke_data/). Then a 2-process fit of the first 50,000 rows (cut from
+   200,000, then 100,000) on the card and on the CPU port: equal text.
 28. Many models (lightgbm.train.train_many, mmlspark_tpu_torch.sweep and
    automl), after the compute-mode check of phase 27. (a) train_many on
    the bins of phase 5's first 4,000,000 rows (cut from 11,000,000 for the
@@ -343,8 +343,8 @@ non-zero and prints no result):
    kernels: every epoch committed once, one journal record per epoch, and
    the final version and model text the undisturbed run's byte for byte.
    The streamed text equals a manual chain of the same eight warm-start
-   fits merged with _merge_boosters; a 2-epoch x 100,000-row stream gives
-   the same text on the card and on the CPU port; held-out AUC on phase 5's
+   fits merged with _merge_boosters; a 2-epoch x 100,000-row stream
+   gives the same text on the card and on the CPU port; held-out AUC on phase 5's
    500,000 test rows above 0.75. A ServingServer warm-restarted with hot
    swap on the stream's ModelStore answers 2,000 held-out rows as
    single-row requests (8 clients), each within 1e-6 of one transform by
@@ -367,19 +367,56 @@ non-zero and prints no result):
    featurizer's fit and transform seconds, binning and boosting seconds,
    the launches, every held-out prediction "Y" or "N", and the held-out AUC
    above 0.5 and not below a LightGBMClassifier fit on the same rows as
-   integer codes. (b) The first 100,000 rows on the card and on the CPU
-   port: equal model text and equal decoded predictions on 100,000
-   held-out rows. (c) The TrainedClassifierModel saved, loaded and applied
-   again to the first 100,000 held-out rows (500,000 cut for time): equal
-   output columns. (d) histogram.cu's two entries on the
+   integer codes. (b) The first 30,000 rows (cut from 100,000 for the
+   script's time) on the card and on the CPU port: equal model text and
+   equal decoded predictions on 30,000 held-out rows. (c) The
+   TrainedClassifierModel saved, loaded and applied again to the first
+   30,000 held-out rows (500,000 cut for time): equal output columns. (d) histogram.cu's two entries on the
    featurized bins at iteration-0 stats against the plain version, timed,
    with the bound. (e) TrainRegressor(LightGBMRegressor) on 250,000 rows of
    a delay-minutes label from the same latent: held-out l2 on 100,000 rows
    below the init-only model's.
-33. One JSON line with every kernel (the grouped wide-level launches and
+33. VW text classification, BASELINE config 4 (benchmarks/vw_text_bench.py's
+   corpus generator, copied): 200,000 training and 20,000 held-out
+   documents of 30 words from a 5,000-word vocabulary (seed 0), numBits 18
+   (262,144 weights), 3 passes of batchSize 64 (9,375 sequential steps).
+   One departure from config 4: batchSize 64 is VW's default, while
+   benchmarks/vw_text_bench.py fits at batchSize 1024, which (b) runs too.
+   No hand kernel runs (the histogram kernels' counts stay 0). (a)
+   VowpalWabbitFeaturizer(stringSplit=True) on the host: seconds. (b)
+   VowpalWabbitClassifier fitted twice on the card (each minibatch step
+   replayed from one captured CUDA graph): bit-identical weights; fit
+   seconds, learn_time_s, steps, device launches per step (torch.profiler
+   over two short fits that differ by one pass), held-out accuracy above
+   the majority class's and log loss below the constant model's. The same
+   at batchSize 1024 (588 steps): two fits bit-identical, the same two
+   held-out checks. (c) The first 20,000 documents on the card and on the
+   CPU port: weights and held-out margins within 1e-4 of the largest
+   magnitude (the card sums a run of equal indices before adding it; the
+   CPU adds one by one), and within 1e-5 of the CPU running the card's
+   scatter form (vw.base._Lanes with its sorted run sums). (d) A K = 4
+   "vw" bucket (learning rate, powerT, l1, l2) through fit_bucket on the
+   card on the first 50,000 documents: each candidate's held-out accuracy
+   within rtol 1e-5 of its own sequential fit's; the bucket's seconds
+   against the four fits'. (e) A 4-slot logical mesh on the one card, 1
+   pass over the first 20,000 documents, against the CPU port's 4-slot
+   fit: weights within 1e-4. (f) VowpalWabbitRegressor --ftrl over
+   VowpalWabbitInteractions of each document's first and second 15 words
+   (two featurized namespaces), 50,000 rows, 3 passes: held-out l2 on
+   5,000 documents below the init-only model's. The wall of each part is
+   printed.
+34. One JSON line with every kernel (the grouped wide-level launches and
    phases 22, 23, 24, 25, 27, 28, 30 and 32's cases among them), then the
    card line, then the result line. Each phase prints its wall time; TF32
    matmuls must be off.
+
+Cuts for the script's time, of depth only (every check still runs): phase
+22's sparse-against-dense rows 1M -> 250,000; phase 24's WARN run 4 -> 2
+shards; phase 26's quality fit 2M -> 1M; phase 27's card-against-CPU fits
+200,000 -> 100,000 -> 50,000 rows; phase 28's train_many and inline sweep
+11M -> 4M rows, gang 1M -> 500,000, tuner 1M -> 125,000; phase 29 (a) 16 x
+1,000 -> 16 x 500 requests; phase 32's card-against-CPU fit and reloaded rows
+100,000 -> 30,000; the plan sweeps 5 -> 3 launches.
 """
 
 import collections
@@ -3727,7 +3764,7 @@ def phase_observability(torch, uh, hh, train, runtime, pipeline, events, tracing
 
 
 # phase 27's rows fitted on the card and on the CPU port: equal text (cut from 200,000)
-N_DIST_CPU = 100_000
+N_DIST_CPU = 50_000  # phase 27's card-against-CPU rows, cut from 200,000, then 100,000
 DIST_SLOTS = 4  # the mesh's data slots, every one on the card
 DIST_TOP_K = 20
 DIST_PROCS = 2
@@ -4884,7 +4921,7 @@ N_STREAM = 8_000_000  # phase 30's streamed rows: the first of phase 5's
 STREAM_CHUNK = 1_000_000  # rows a part-NNNNN.npz; one epoch each (max_per_trigger=1)
 STREAM_KILLS = ((2, "post_wal"), (5, "pre_commit"))  # the chaos run's SIGKILLs
 STREAM_FAULT_SEED = 30
-N_STREAM_CPU = 100_000  # rows of each of the 2 epochs streamed on the card and the CPU port
+N_STREAM_CPU = 100_000  # rows of each of the 2 epochs on the card and the CPU port
 N_STREAM_SERVE, STREAM_SERVE_CLIENTS = 2_000, 8
 STREAM_MODEL = "stream"
 CAMPAIGN_SEED = 31  # phase 31's MMLSPARK_TPU_FAULT_SEED
@@ -5167,7 +5204,7 @@ def phase_streaming(torch, uh, hh, rates, base, train, objectives, sharded, stre
 
 
 N_TRAINERS = 1_000_000  # benchm-ml's 1M training size
-N_TRAINERS_CPU = 100_000  # phase 32's rows trained on the card and on the CPU port: equal text
+N_TRAINERS_CPU = 30_000  # phase 32's card-against-CPU rows (equal text), cut from 100,000
 N_TRAINERS_REG = 250_000  # phase 32's regression rows
 N_TRAINERS_REG_TEST = 100_000
 TRAINERS_PARAMS = dict(numIterations=FIT_ITERS, numLeaves=31, maxBin=NUM_BINS - 1)
@@ -5215,7 +5252,7 @@ def phase_trainers(torch, uh, hh, rates, base, objectives, train, featurize, Tab
     """benchm-ml's raw airline rows through TrainClassifier and
     TrainRegressor as a user calls them: (a) Featurize's plan, fit and
     transform of 1,000,000 rows against phase 10's numeric-code fit; (b) the
-    first 100,000 rows on the card and on the CPU port; (c) save and load;
+    first N_TRAINERS_CPU rows on the card and on the CPU port; (c) save and load;
     (d) histogram.cu on the featurized bins; (e) a regression."""
     n, n_test = N_TRAINERS, N_TEST
     X, y, latent = _airline_data(n + n_test, seed=7, latent=True)
@@ -5285,7 +5322,7 @@ def phase_trainers(torch, uh, hh, rates, base, objectives, train, featurize, Tab
     print("trainers fit: " + json.dumps(rec["fit"]), flush=True)
     del numeric
 
-    # (b) the card against the CPU port on the first 100,000 rows
+    # (b) the card against the CPU port on the first N_TRAINERS_CPU rows
     m = N_TRAINERS_CPU
     fits = {}
     for dev in ("cuda", "cpu"):
@@ -5353,6 +5390,320 @@ def phase_trainers(torch, uh, hh, rates, base, objectives, train, featurize, Tab
     # held last, so that a miss still prints every other part's numbers
     if not (held_out > 0.5 and held_out >= numeric_auc):
         raise AssertionError(f"trainers AUC {held_out} against the numeric codes' {numeric_auc}")
+    return rec
+
+
+# phase 33: BASELINE config 4, VW text classification (benchmarks/vw_text_bench.py's shape)
+N_VW = 200_000  # training documents
+N_VW_TEST = 20_000
+VW_VOCAB = 5000
+VW_DOC_LEN = 30
+VW_BITS = 18  # 262,144 weights
+VW_PASSES = 3
+VW_BATCH = 64  # VW's default
+VW_SOURCE_BATCH = 1024  # benchmarks/vw_text_bench.py's batchSize, fitted in (b) too
+N_VW_CPU = 20_000  # (c) and (e): the first documents fitted on the card and the CPU port
+N_VW_MANY = 50_000  # (d): the K = 4 bucket's rows
+N_VW_FTRL = 50_000  # (f): the FTRL regressor's rows over the crossed namespaces
+VW_TOL = 1e-4  # card against CPU, weights and margins, of the largest magnitude: CARD_TOL
+VW_SORTED_TOL = 1e-5  # card against the CPU running the card's scatter form: TOL
+VW_MESH_SLOTS = 4
+VW_MANY_MAPS = ({"learningRate": 0.5, "powerT": 0.5}, {"learningRate": 0.25, "powerT": 0.5},
+                {"learningRate": 1.0, "powerT": 0.0, "l2": 1e-6},
+                {"learningRate": 0.5, "powerT": 0.5, "l1": 1e-6})
+VW_PROFILE_BATCHES = 40  # batches of the two profiled fits that count launches per step
+
+
+def _vw_corpus(n, seed=0):
+    """benchmarks/vw_text_bench.py's generator (copied, not imported; its
+    documents joined from one gather instead of a row loop, the same
+    strings): a Zipf-ish vocabulary tilted per class, DOC_LEN words a
+    document."""
+    rng = np.random.default_rng(seed)
+    words = np.array([f"w{i}" for i in range(VW_VOCAB)])
+    base = 1.0 / np.arange(1, VW_VOCAB + 1)
+    tilt = rng.normal(size=VW_VOCAB) * 0.7
+    p_pos = base * np.exp(tilt)
+    p_neg = base * np.exp(-tilt)
+    p_pos /= p_pos.sum()
+    p_neg /= p_neg.sum()
+    y = rng.integers(0, 2, size=n).astype(np.float64)
+    pos_draw = rng.choice(VW_VOCAB, size=(n, VW_DOC_LEN), p=p_pos)
+    neg_draw = rng.choice(VW_VOCAB, size=(n, VW_DOC_LEN), p=p_neg)
+    draw = np.where((y > 0)[:, None], pos_draw, neg_draw)
+    docs = np.empty(n, dtype=object)
+    docs[:] = [" ".join(row) for row in words[draw].tolist()]
+    return docs, y
+
+
+def _vw_rel_err(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _vw_lanes_fit(torch, vwbase, batch, y, w, const_idx, device, sorted_scatter,
+                  eager=False):
+    """train_linear's unmeshed fit at the classifier's defaults (logistic,
+    learningRate 0.5, powerT 0.5), built from vw.base._Lanes with the
+    scatter form chosen, where train_linear takes the platform's: the CPU
+    running the card's sorted run sums, or the card running index_add_'s
+    float atomics. With ``eager`` the card launches each step op by op
+    instead of replaying its CUDA graph. Returns the weights."""
+    dev = torch.device(device)
+    hp = vwbase._Hyper(loss="logistic", optimizer="adagrad", quantile_tau=0.5,
+                       ftrl_alpha=0.005, ftrl_beta=0.1, l1=0.0, l2=0.0, many=False)
+    idx, val, yp, wp, k, nb = vwbase._prep_rows(batch, y, w, const_idx, VW_BATCH, 1)
+    steps = vwbase._step_sizes([0.5], [0.5], VW_PASSES * nb)
+    lanes = vwbase._Lanes(idx.reshape(nb, 1, VW_BATCH, k), val.reshape(nb, 1, VW_BATCH, k),
+                          yp.reshape(nb, 1, VW_BATCH), wp.reshape(nb, 1, VW_BATCH), 1,
+                          batch.dim, dev, hp, sorted_scatter,
+                          np.zeros(batch.dim, np.float32), steps)
+    if eager:
+        for p in range(VW_PASSES):
+            for b in range(nb):
+                lanes.run_step(b, p * nb + b)
+        return lanes.fitted()[0].cpu().numpy()
+    return vwbase._run_lanes([lanes], VW_PASSES, average=False)[0].cpu().numpy()
+
+
+def _vw_launches_per_step(torch, vwbase, batch, y, w, const_idx):
+    """Device launches (kernels, copies, fills) per minibatch step, from
+    torch.profiler over two fits of VW_PROFILE_BATCHES batches that differ
+    by one pass: their difference over the steps it adds (the kernels of
+    the replayed CUDA graph count one by one). None when the profile holds
+    no device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = VW_PROFILE_BATCHES * VW_BATCH
+    sub = type(batch)(batch.indices[:rows], batch.values[:rows], batch.dim)
+    counts = []
+    for passes in (1, 2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            vwbase.train_linear(sub, y[:rows], w[:rows], loss="logistic", num_passes=passes,
+                                learning_rate=0.5, power_t=0.5, l1=0.0, l2=0.0,
+                                batch_size=VW_BATCH, constant_index=const_idx, device="cuda")
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if str(e.device_type).endswith("CUDA")))
+    if counts[1] <= counts[0]:
+        return None
+    return (counts[1] - counts[0]) / VW_PROFILE_BATCHES
+
+
+def phase_vw(torch, uh, hh, Table, vw, vwbase, parallel, tsweep, card):
+    """Phase 33 (see the module docstring): BASELINE config 4 through the
+    VW learners on the card. No hand kernel runs: the histogram kernels'
+    counts stay 0."""
+    from mmlspark_tpu_torch.sweep import batched
+
+    dev = "cuda"
+    rec = {"card": card}
+    parts = {}
+    _zero_counts(uh, hh)
+
+    # (a) featurize on the host
+    t0 = time.perf_counter()
+    docs, y = _vw_corpus(N_VW + N_VW_TEST, seed=0)
+    gen_s = time.perf_counter() - t0
+    feat = vw.VowpalWabbitFeaturizer(inputCols=["text"], outputCol="features",
+                                     numBits=VW_BITS, stringSplit=True)
+    t0 = time.perf_counter()
+    table = feat.transform(Table({"text": docs, "label": y}))
+    featurize_s = time.perf_counter() - t0
+    train, test = table.slice(0, N_VW), table.slice(N_VW, N_VW + N_VW_TEST)
+    y_test = y[N_VW:]
+    rec["featurize"] = dict(documents=N_VW + N_VW_TEST, generate_s=gen_s,
+                            featurize_s=featurize_s, nnz=int(table.column("features").nnz))
+    print("vw featurize: " + json.dumps(rec["featurize"]), flush=True)
+    parts["a"] = gen_s + featurize_s
+
+    # (b) the classifier on the card: fit twice (bit-identical), score held-out rows
+    t_b = time.perf_counter()
+    est = vw.VowpalWabbitClassifier(numPasses=VW_PASSES, batchSize=VW_BATCH, device=dev)
+    fits = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = est.fit(train)
+        torch.cuda.synchronize()
+        fits.append((model, time.perf_counter() - t0))
+    model = fits[0][0]
+    identical = fits[0][0].getModelWeights().tobytes() == fits[1][0].getModelWeights().tobytes()
+    out = model.transform(test)
+    p1 = np.clip(out["probability"][:, 1].astype(np.float64), 1e-15, 1 - 1e-15)
+    acc = float((out["prediction"] == y_test).mean())
+    logloss = float(-np.mean(y_test * np.log(p1) + (1 - y_test) * np.log(1 - p1)))
+    prior = float(y[:N_VW].mean())
+    const_logloss = float(-np.mean(y_test * np.log(prior) + (1 - y_test) * np.log(1 - prior)))
+    majority = float(max(y_test.mean(), 1 - y_test.mean()))
+    args, batch, yb, wb, const_idx, _ = est._train_setup(train)
+    launches = _vw_launches_per_step(torch, vwbase, batch, yb, wb, const_idx)
+    st = model.getTrainingStats()
+    rec["fit"] = dict(rows=N_VW, passes=VW_PASSES, batch=VW_BATCH, weights=1 << VW_BITS,
+                      features_per_row=int(batch.max_active) + 1, fit_s=[f[1] for f in fits],
+                      learn_time_s=st["learn_time_s"], steps=st["steps"],
+                      launches_per_step=launches, bit_identical=identical,
+                      held_out_accuracy=acc, majority_accuracy=majority,
+                      held_out_logloss=logloss, constant_logloss=const_logloss, card=card)
+    print("vw fit: " + json.dumps(rec["fit"]), flush=True)
+    if not identical:
+        raise AssertionError("two VW fits on the card gave different weights")
+    if not (acc > majority and logloss < const_logloss):
+        raise AssertionError(f"vw held-out accuracy {acc} (majority {majority}), log loss "
+                             f"{logloss} (constant {const_logloss})")
+    # at benchmarks/vw_text_bench.py's own batchSize
+    est_src = est.copy({"batchSize": VW_SOURCE_BATCH})
+    src_fits = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m_src = est_src.fit(train)
+        torch.cuda.synchronize()
+        src_fits.append((m_src.getModelWeights(), time.perf_counter() - t0))
+    out = m_src.transform(test)
+    p1 = np.clip(out["probability"][:, 1].astype(np.float64), 1e-15, 1 - 1e-15)
+    acc_src = float((out["prediction"] == y_test).mean())
+    logloss_src = float(-np.mean(y_test * np.log(p1) + (1 - y_test) * np.log(1 - p1)))
+    rec["fit_source_batch"] = dict(
+        rows=N_VW, passes=VW_PASSES, batch=VW_SOURCE_BATCH, fit_s=[f[1] for f in src_fits],
+        learn_time_s=m_src.getTrainingStats()["learn_time_s"],
+        steps=m_src.getTrainingStats()["steps"],
+        bit_identical=src_fits[0][0].tobytes() == src_fits[1][0].tobytes(),
+        held_out_accuracy=acc_src, held_out_logloss=logloss_src, card=card)
+    print("vw fit at the source's batch: " + json.dumps(rec["fit_source_batch"]), flush=True)
+    if not rec["fit_source_batch"]["bit_identical"]:
+        raise AssertionError("two VW fits on the card at batchSize 1024 gave different weights")
+    if not (acc_src > majority and logloss_src < const_logloss):
+        raise AssertionError(f"vw at batchSize {VW_SOURCE_BATCH}: held-out accuracy {acc_src} "
+                             f"(majority {majority}), log loss {logloss_src} "
+                             f"(constant {const_logloss})")
+    parts["b"] = time.perf_counter() - t_b
+    del fits, src_fits, out
+
+    # (c) the first documents on the card and on the CPU port
+    t_c = time.perf_counter()
+    head = train.slice(0, N_VW_CPU)
+    cpu_est = est.copy({"device": "cpu"})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_card = est.fit(head)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_cpu = cpu_est.fit(head)
+    cpu_s = time.perf_counter() - t0
+    margins = {}
+    for name, m in (("card", m_card), ("cpu", m_cpu)):
+        margins[name] = m.transform(test)["rawPrediction"][:, 1]
+    # the CPU running the card's scatter form: what is left is not the scatter
+    _, h_batch, h_y, h_w, h_const, _ = est._train_setup(head)
+    t0 = time.perf_counter()
+    w_sorted = _vw_lanes_fit(torch, vwbase, h_batch, h_y, h_w, h_const, "cpu", True)
+    sorted_s = time.perf_counter() - t0
+    m_sorted = m_cpu.copy({"modelWeights": w_sorted})
+    margins["cpu_sorted"] = m_sorted.transform(test)["rawPrediction"][:, 1]
+    rec["card_cpu"] = dict(rows=N_VW_CPU, card_fit_s=card_s, cpu_fit_s=cpu_s,
+                           weights_err=_vw_rel_err(m_card.getModelWeights(),
+                                                   m_cpu.getModelWeights()),
+                           margins_err=_vw_rel_err(margins["card"], margins["cpu"]),
+                           tolerance=VW_TOL, cpu_sorted_fit_s=sorted_s,
+                           sorted_weights_err=_vw_rel_err(m_card.getModelWeights(), w_sorted),
+                           sorted_margins_err=_vw_rel_err(margins["card"],
+                                                          margins["cpu_sorted"]),
+                           sorted_tolerance=VW_SORTED_TOL)
+    print("vw card against CPU: " + json.dumps(rec["card_cpu"]), flush=True)
+    if (max(rec["card_cpu"]["weights_err"], rec["card_cpu"]["margins_err"]) > VW_TOL
+            or max(rec["card_cpu"]["sorted_weights_err"],
+                   rec["card_cpu"]["sorted_margins_err"]) > VW_SORTED_TOL):
+        raise AssertionError(f"vw card against CPU: {rec['card_cpu']}")
+    parts["c"] = time.perf_counter() - t_c
+
+    # (d) a K = 4 "vw" bucket through fit_bucket against the four sequential fits
+    t_d = time.perf_counter()
+    rows_d, valid_d = train.slice(0, N_VW_MANY), test
+    (bucket,) = tsweep.bucket_candidates([(est, dict(m)) for m in VW_MANY_MAPS])
+    if bucket.kind != "vw" or bucket.size != len(VW_MANY_MAPS):
+        raise AssertionError(f"vw bucket {bucket.kind} of {bucket.size}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scored = batched.fit_bucket(bucket, rows_d, valid_d, "label", "accuracy")
+    bucket_s = time.perf_counter() - t0
+    seq_metrics, seq_s = [], 0.0
+    for m in VW_MANY_MAPS:
+        t0 = time.perf_counter()
+        seq = est.copy(dict(m)).fit(rows_d)
+        seq_s += time.perf_counter() - t0
+        seq_metrics.append(batched._score(seq, valid_d, "label", "accuracy"))
+    metrics = [float(s[0]) for s in scored]
+    rec["many"] = dict(rows=N_VW_MANY, k=len(VW_MANY_MAPS), bucket_s=bucket_s,
+                       sequential_s=seq_s, metrics=metrics, sequential_metrics=seq_metrics)
+    print("vw bucket: " + json.dumps(rec["many"]), flush=True)
+    if not all(np.isclose(a, b, rtol=1e-5) for a, b in zip(metrics, seq_metrics)):
+        raise AssertionError(f"vw bucket against its sequential fits: {rec['many']}")
+    parts["d"] = time.perf_counter() - t_d
+
+    # (e) a 4-slot logical mesh on the one card, one pass, against the CPU port's
+    t_e = time.perf_counter()
+    meshes = {"card": parallel.make_mesh(parallel.MeshConfig(data=VW_MESH_SLOTS),
+                                         devices=["cuda"] * VW_MESH_SLOTS),
+              "cpu": parallel.make_mesh(parallel.MeshConfig(data=VW_MESH_SLOTS),
+                                        devices=["cpu"] * VW_MESH_SLOTS)}
+    mesh_fits, mesh_s = {}, {}
+    for name, e in (("card", est), ("cpu", cpu_est)):
+        e1 = e.copy({"numPasses": 1})
+        e1._select_mesh = lambda device=None, _m=meshes[name]: _m
+        t0 = time.perf_counter()
+        mesh_fits[name] = e1.fit(head)
+        mesh_s[name] = time.perf_counter() - t0
+    rec["mesh"] = dict(rows=N_VW_CPU, slots=VW_MESH_SLOTS, passes=1,
+                       shards=mesh_fits["card"].getTrainingStats()["shards"],
+                       card_fit_s=mesh_s["card"], cpu_fit_s=mesh_s["cpu"],
+                       weights_err=_vw_rel_err(mesh_fits["card"].getModelWeights(),
+                                               mesh_fits["cpu"].getModelWeights()),
+                       tolerance=VW_TOL)
+    print("vw mesh: " + json.dumps(rec["mesh"]), flush=True)
+    if rec["mesh"]["shards"] != VW_MESH_SLOTS or rec["mesh"]["weights_err"] > VW_TOL:
+        raise AssertionError(f"vw mesh: {rec['mesh']}")
+    parts["e"] = time.perf_counter() - t_e
+
+    # (f) FTRL over two crossed namespaces: each document's first and second half
+    t_f = time.perf_counter()
+    n_f, n_f_test = N_VW_FTRL, N_VW_TEST // 4
+    rows_f = np.concatenate([np.arange(n_f), np.arange(N_VW, N_VW + n_f_test)])
+    words_f = [docs[i].split() for i in rows_f]
+    half = VW_DOC_LEN // 2
+    t_ns = Table({"a": np.array([" ".join(w[:half]) for w in words_f], dtype=object),
+                  "b": np.array([" ".join(w[half:]) for w in words_f], dtype=object),
+                  "label": y[rows_f]})
+    t0 = time.perf_counter()
+    for name in ("a", "b"):
+        t_ns = vw.VowpalWabbitFeaturizer(inputCols=[name], outputCol="f_" + name,
+                                         numBits=VW_BITS, stringSplit=True).transform(t_ns)
+    t_ns = vw.VowpalWabbitInteractions(inputCols=["f_a", "f_b"], outputCol="features",
+                                       numBits=VW_BITS).transform(t_ns)
+    cross_s = time.perf_counter() - t0
+    tr_f, te_f = t_ns.slice(0, n_f), t_ns.slice(n_f, t_ns.num_rows)
+    reg = vw.VowpalWabbitRegressor(numPasses=VW_PASSES, batchSize=VW_BATCH, device=dev,
+                                   passThroughArgs="--ftrl")
+    t0 = time.perf_counter()
+    m_f = reg.fit(tr_f)
+    ftrl_s = time.perf_counter() - t0
+    y_f = te_f.column("label")
+    l2 = float(np.mean((m_f.transform(te_f)["prediction"] - y_f) ** 2))
+    l2_init = float(np.mean((y[:n_f].mean() - y_f) ** 2))
+    rec["ftrl"] = dict(rows=n_f, test_rows=te_f.num_rows, cross_s=cross_s, fit_s=ftrl_s,
+                       crossed_per_row=float(te_f.column("features").nnz / te_f.num_rows),
+                       held_out_l2=l2, init_only_l2=l2_init)
+    print("vw ftrl: " + json.dumps(rec["ftrl"]), flush=True)
+    if not l2 < l2_init:
+        raise AssertionError(f"vw FTRL held-out l2 {l2} is not below the init-only {l2_init}")
+    parts["f"] = time.perf_counter() - t_f
+
+    counts = _counts(uh, hh)
+    if any(counts.values()):
+        raise AssertionError(f"the VW phase launched a hand kernel: {counts}")
+    rec["parts_s"] = parts
+    print("vw parts: " + json.dumps(parts), flush=True)
     return rec
 
 
@@ -5458,6 +5809,8 @@ def main():
     from mmlspark_tpu_torch.runtime.lineage import PartitionLostError
     from mmlspark_tpu_torch.sweep import batched
     from mmlspark_tpu_torch.train import TrainClassifier, TrainRegressor
+    from mmlspark_tpu_torch import vw
+    from mmlspark_tpu_torch.vw import base as vwbase
 
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
@@ -5550,6 +5903,7 @@ def main():
         trainers = timed("trainers", phase_trainers, torch, uh, hh, rates, base, objectives,
                          train, featurize, Table, pipeline.PipelineStage, LightGBMClassifier,
                          LightGBMRegressor, TrainClassifier, TrainRegressor, auc, card)
+        timed("vw_text", phase_vw, torch, uh, hh, Table, vw, vwbase, parallel, tsweep, card)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
     del higgs

@@ -115,8 +115,7 @@ class DefaultHyperparams:
 
     @staticmethod
     def sgd() -> Dict[str, Dist]:
-        """The VW learners' SGD space, kept as the reference has it; the
-        port has no VW estimators yet."""
+        """The VW learners' SGD space."""
         # param names match the VW estimator surface (``l2``, not the
         # reference's ``l2Regularization`` — that drift made the space
         # unusable against the real estimators)
@@ -128,9 +127,9 @@ class DefaultHyperparams:
 
     @staticmethod
     def vw() -> Dict[str, Dist]:
-        """Text-learner space for the VW estimators (not ported yet): the
-        vmapped lanes (``learningRate``/``powerT``/``l1``/``l2``) plus
-        ``numPasses``, so a random draw shape-buckets into few programs."""
+        """Text-learner space for the VW estimators: the per-candidate
+        lanes (``learningRate``/``powerT``/``l1``/``l2``) plus
+        ``numPasses``, so a random draw shape-buckets into few batched fits."""
         return {
             "learningRate": DoubleRangeHyperParam(0.05, 1.0),
             "powerT": DiscreteHyperParam([0.0, 0.5]),

@@ -1,7 +1,8 @@
 """Carry fitted state from the JAX package into the port.
 
-Both take plain numpy state — ``mmlspark_tpu`` ``Booster.to_dict()`` and a
-``BinMapper``'s arrays — so this module imports nothing of the JAX package.
+Each takes plain numpy state — ``mmlspark_tpu`` ``Booster.to_dict()``, a
+``BinMapper``'s arrays, a VW model's param values — so this module imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -51,3 +52,30 @@ def bin_mapper_from_jax(edges, num_bins, max_bin: int, cat_values=None,
                     if cat_values else None),
         bundles=bundles,
     )
+
+
+#: the params that make a VW model: its weights and feature space, its bias
+#: slot and its link
+VW_MODEL_PARAMS = ("modelWeights", "sparseDim", "constantIndex", "numBits", "linkFunction")
+
+
+def vw_model_from_jax(params: Dict[str, Any], kind: str = "classifier", **kwargs):
+    """The port's VW model (``kind`` "classifier" or "regressor") from a JAX
+    VW model's param values as numpy (``{name: model.getOrDefault(name)}``
+    for :data:`VW_MODEL_PARAMS`; ``modelWeights`` is required, the others
+    take their defaults when absent). ``kwargs`` are the port model's other
+    params (columns, ``device``)."""
+    from mmlspark_tpu_torch.vw import (
+        VowpalWabbitClassificationModel,
+        VowpalWabbitRegressionModel,
+    )
+
+    classes = {"classifier": VowpalWabbitClassificationModel,
+               "regressor": VowpalWabbitRegressionModel}
+    if kind not in classes:
+        raise ValueError(f"kind must be one of {sorted(classes)}, got {kind!r}")
+    if "modelWeights" not in params:
+        raise ValueError("a VW model's params need modelWeights")
+    values = {k: params[k] for k in VW_MODEL_PARAMS if k in params}
+    values["modelWeights"] = np.asarray(values["modelWeights"], dtype=np.float32)
+    return classes[kind](**values, **kwargs)

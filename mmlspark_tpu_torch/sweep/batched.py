@@ -7,8 +7,10 @@ through candidate 0's own ``_bin_dataset`` (so ``numExecutors`` and
 durable binning apply as in a fit), and hands the K candidates to
 :func:`~mmlspark_tpu_torch.lightgbm.train.train_many`, which uploads the
 bins once and runs every candidate's ``histogram.cu`` passes on the
-estimator's ``device``. A singleton (``kind is None``) bucket falls back
-to the ordinary ``estimator.copy(params).fit``.
+estimator's ``device``. A VW bucket lays its rows out once through
+candidate 0's ``_train_setup`` and hands the K candidates to
+:func:`~mmlspark_tpu_torch.vw.base.train_linear_many`. A singleton (``kind
+is None``) bucket falls back to the ordinary ``estimator.copy(params).fit``.
 
 The same executor serves the inline sweep
 (:class:`~mmlspark_tpu_torch.sweep.estimator.TrainValidSweep`), the
@@ -71,6 +73,43 @@ def _fit_bucket_gbdt(bucket: CandidateBucket, table: Table) -> List[Any]:
     return models
 
 
+def _fit_bucket_vw(bucket: CandidateBucket, table: Table) -> List[Any]:
+    """K VW candidates through one row layout and one
+    :func:`~mmlspark_tpu_torch.vw.base.train_linear_many` call on candidate
+    0's ``device``."""
+    from mmlspark_tpu_torch.vw.base import train_linear_many
+
+    cands = [bucket.estimator.copy(p) for p in bucket.param_maps]
+    c0 = cands[0]
+    args, batch, y, w, const_idx, init = c0._train_setup(table)
+    results = train_linear_many(
+        batch, y, w,
+        loss=args.get("loss", c0._default_loss),
+        num_passes=args.get("passes", c0.getNumPasses()),
+        learning_rates=[c.getLearningRate() for c in cands],
+        power_ts=[c.getPowerT() for c in cands],
+        l1s=[c.getL1() for c in cands],
+        l2s=[c.getL2() for c in cands],
+        batch_size=c0.getBatchSize(),
+        constant_index=const_idx,
+        initial_weights=init,
+        quantile_tau=args.get("quantile_tau", 0.5),
+        optimizer="ftrl" if args.get("ftrl") else "adagrad",
+        ftrl_alpha=args.get("ftrl_alpha", 0.005),
+        ftrl_beta=args.get("ftrl_beta", 0.1),
+        device=c0.getDevice(),
+    )
+    link = args.get("link", "identity")
+    models = []
+    for c, r in zip(cands, results):
+        c._link = link
+        model = c._make_model(r, batch.dim, const_idx)
+        model.set("linkFunction", link)
+        model.parent = c
+        models.append(model)
+    return models
+
+
 def fit_bucket(
     bucket: CandidateBucket,
     train_table: Table,
@@ -90,6 +129,8 @@ def fit_bucket(
     t0 = time.perf_counter()
     if bucket.kind == "gbdt":
         models = _fit_bucket_gbdt(bucket, train_table)
+    elif bucket.kind == "vw":
+        models = _fit_bucket_vw(bucket, train_table)
     else:
         models = [bucket.estimator.copy(p).fit(train_table) for p in bucket.param_maps]
     scored = [(_score(m, valid_table, label_col, metric), m) for m in models]

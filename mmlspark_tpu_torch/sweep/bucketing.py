@@ -3,11 +3,13 @@
 The port's copy of ``mmlspark_tpu/sweep/bucketing.py``. The many-models
 plane fits a bucket's candidates K at once
 (:func:`mmlspark_tpu_torch.lightgbm.train.train_many`: one binning, one
-upload of the bins, the candidates in lockstep). Two candidates share a
-bucket only when every *program-shaping* option agrees (``numLeaves``
-changes tree-array shapes, ``numIterations`` the loop length, the
-objective the gradients) while the per-candidate lanes (learning rate,
-bagging and feature fractions for GBDT) may differ.
+upload of the bins, the candidates in lockstep;
+:func:`mmlspark_tpu_torch.vw.base.train_linear_many`: one row layout, one
+upload, K states stepped together). Two candidates share a bucket only when
+every *program-shaping* option agrees (``numLeaves`` changes tree-array
+shapes, ``numIterations`` the loop length, the objective the gradients)
+while the per-candidate lanes (learning rate, bagging and feature fractions
+for GBDT; learning rate, ``powerT``, ``l1``, ``l2`` for VW) may differ.
 
 :func:`bucket_candidates` partitions a candidate list into
 :class:`CandidateBucket` groups by that rule: candidates whose param maps
@@ -16,9 +18,6 @@ differ only in vmapped params share a bucket; everything else
 batched core excludes) lands in singleton buckets fitted through the
 ordinary ``estimator.fit`` path. Bucketing is deterministic (first-seen
 order) so the gang scheduler can shard buckets across processes by index.
-The VW learners' bucket kind comes with their port; until then a VW or
-any other estimator is a singleton, as the reference makes any estimator
-that is neither LightGBM nor VW.
 """
 
 from __future__ import annotations
@@ -39,9 +38,13 @@ GBDT_VMAPPED = frozenset({
     "negBaggingFraction",
 })
 
-#: Estimator param names the reference's VW batched core vmaps over (the
-#: reference exports it; the port's VW learners are still to come).
+#: Estimator param names that may differ inside a VW bucket.
 VW_VMAPPED = frozenset({"learningRate", "powerT", "l1", "l2"})
+
+#: VW pass-through flags that would override a per-candidate lane with a
+#: static (``--learning_rate 0.1`` wins over ``learningRate``), breaking the
+#: per-candidate stacks. Candidates carrying them fall back to singleton.
+_VW_ARG_CONFLICTS = frozenset({"learning_rate", "power_t", "l1", "l2"})
 
 
 def _freeze(value: Any):
@@ -61,8 +64,8 @@ def _freeze(value: Any):
 class CandidateBucket:
     """One shape-bucket: candidates sharing one batched fit.
 
-    ``kind`` is ``"gbdt"`` for a batchable bucket (fitted K at once by
-    :func:`mmlspark_tpu_torch.sweep.batched.fit_bucket`) or ``None`` for
+    ``kind`` is ``"gbdt"`` / ``"vw"`` for a batchable bucket (fitted K at
+    once by :func:`mmlspark_tpu_torch.sweep.batched.fit_bucket`) or ``None`` for
     a singleton fallback fitted through ``estimator.copy(params).fit``.
     ``indices`` maps each bucket position back into the original candidate
     list, so leaderboards and journals stay in candidate order.
@@ -105,11 +108,23 @@ def _gbdt_batchable(cand: Estimator) -> bool:
     return True
 
 
+def _vw_batchable(cand: Estimator) -> bool:
+    """VW candidates batch unless pass-through args pin a vmapped lane."""
+    try:
+        args = cand._parse_args()
+    except ValueError:
+        return False  # bad flags surface on the sequential path
+    return not (_VW_ARG_CONFLICTS & set(args))
+
+
 def _candidate_kind(cand: Estimator) -> Optional[str]:
     from mmlspark_tpu_torch.lightgbm.base import LightGBMBase
+    from mmlspark_tpu_torch.vw.base import VowpalWabbitBase
 
     if isinstance(cand, LightGBMBase) and _gbdt_batchable(cand):
         return "gbdt"
+    if isinstance(cand, VowpalWabbitBase) and _vw_batchable(cand):
+        return "vw"
     return None
 
 
@@ -117,10 +132,11 @@ def _bucket_key(cand: Estimator, kind: str):
     """Statics that must agree for two candidates to share a bucket:
     every set param EXCEPT the vmapped lanes. Estimator class is part of
     the key (classifier vs regressor = different objective)."""
+    vmapped = GBDT_VMAPPED if kind == "gbdt" else VW_VMAPPED
     statics = frozenset(
         (name, _freeze(value))
         for name, value in cand.extractParamMap().items()
-        if name not in GBDT_VMAPPED
+        if name not in vmapped
     )
     return (kind, type(cand).__name__, statics)
 

@@ -209,7 +209,8 @@ def test_pytree_tag_is_refused_by_name(tmp_path):
 
 
 @pytest.mark.parametrize("module,name", [("jax.numpy", "zeros"),
-                                         ("mmlspark_tpu.vw.base", "VowpalWabbitBase"),
+                                         ("mmlspark_tpu.isolationforest.forest",
+                                          "IsolationForest"),
                                          ("mmlspark_tpu.data.sparse", "NoSuchClass")])
 def test_unpickler_refuses_globals_without_a_port_counterpart(tmp_path, module, name):
     import pickle
@@ -237,7 +238,7 @@ def test_lookup_class_maps_both_prefixes():
     assert persisted_class_name(LightGBMClassificationModel) == "mmlspark_tpu." + name
     assert persisted_class_name(PortDummy) == f"{__name__}.PortDummy"
     with pytest.raises(LookupError, match="no counterpart"):
-        lookup_class("mmlspark_tpu.vw.classifier.VowpalWabbitClassifier")
+        lookup_class("mmlspark_tpu.isolationforest.forest.IsolationForest")
 
 
 def test_pipeline_model_round_trip_in_the_port(tmp_path):

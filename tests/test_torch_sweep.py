@@ -1,5 +1,8 @@
 """The port's many-models sweep plane (``mmlspark_tpu_torch.sweep``)
-against the JAX package: mirrors ``tests/test_sweep.py`` without VW.
+against the JAX package: mirrors ``tests/test_sweep.py``, VW buckets
+included (a VW bucket's metrics are within rtol 1e-5 of its candidates'
+sequential fits and of the reference's bucket, whose sequential path runs
+with ``_select_mesh`` pinned to None, as ``tests/test_sweep.py`` pins it).
 
 Shape-bucketing, the seeded split and the candidate maps must equal the
 reference's exactly; batched scores equal sequential fits' within rtol
@@ -194,6 +197,57 @@ def test_vmapped_name_sets(ref):
     est = _port_clf()
     assert all(est.hasParam(n) for n in GBDT_VMAPPED)
     assert GBDT_VMAPPED == ref["sweep"].GBDT_VMAPPED and VW_VMAPPED == ref["sweep"].VW_VMAPPED
+
+
+def _port_vw(**kw):
+    from mmlspark_tpu_torch.vw import VowpalWabbitClassifier
+
+    return VowpalWabbitClassifier(**{"labelCol": "label", "numPasses": 2, "device": "cpu", **kw})
+
+
+def _ref_vw(ref, **kw):
+    import mmlspark_tpu.vw as jvw
+
+    return jvw.VowpalWabbitClassifier(**{"labelCol": "label", "numPasses": 2, **kw})
+
+
+VW_MAPS = [{"learningRate": 0.3, "powerT": 0.5}, {"learningRate": 0.6, "powerT": 0.0, "l2": 1e-6},
+           {"learningRate": 0.3, "numPasses": 3}, {"l1": 1e-4, "batchSize": 32}]
+
+
+@pytest.mark.parametrize("args", ["", "--learning_rate 0.2", "--ftrl", "--cubic abc"])
+def test_vw_buckets_equal_the_reference(ref, args):
+    """Candidates differing only in vmapped lanes share a ``"vw"`` bucket;
+    a pass-through arg pinning a lane, or a bad one, makes singletons."""
+    port = bucket_candidates([(_port_vw(passThroughArgs=args), m) for m in VW_MAPS])
+    want = ref["sweep"].bucket_candidates([(_ref_vw(ref, passThroughArgs=args), m)
+                                           for m in VW_MAPS])
+    assert _layout(port) == _layout(want)
+    if args in ("--learning_rate 0.2", "--cubic abc"):
+        assert [(b.kind, b.size) for b in port] == [(None, 1)] * 4
+    else:
+        assert [(b.kind, b.size) for b in port] == [("vw", 2), ("vw", 1), ("vw", 1)]
+
+
+def test_vw_batched_scores_match_sequential_and_the_reference(ref, clf_table, monkeypatch):
+    import mmlspark_tpu.vw.base as jbase
+
+    monkeypatch.setattr(jbase.VowpalWabbitBase, "_select_mesh", lambda self: None)
+    maps = VW_MAPS[:2]
+    est = _port_vw()
+    (bucket,) = bucket_candidates([(est, m) for m in maps])
+    train, valid = _split(clf_table)
+    scored = fit_bucket(bucket, train, valid, "label", "accuracy")
+    (jbucket,) = ref["sweep"].bucket_candidates([(_ref_vw(ref), m) for m in maps])
+    jtrain, jvalid = (ref["Table"]({c: t.column(c) for c in t.columns}) for t in (train, valid))
+    jscored = ref["sweep"].fit_bucket(jbucket, jtrain, jvalid, "label", "accuracy")
+    for m, (metric, model), (jmetric, _) in zip(maps, scored, jscored):
+        seq = est.copy(m).fit(train)
+        assert np.isclose(metric, _evaluate(seq.transform(valid), "label", "accuracy"), rtol=1e-5)
+        assert np.isclose(metric, jmetric, rtol=1e-5)
+        w, ws = model.getModelWeights(), seq.getModelWeights()
+        assert np.abs(w - ws).max() <= 1e-5 * np.abs(ws).max()
+        assert model.parent.getLearningRate() == m["learningRate"]
 
 
 # -- batched parity --------------------------------------------------------------
