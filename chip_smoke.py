@@ -92,9 +92,11 @@ non-zero and prints no result):
    mask upload, boosting, the valid update and the evaluation, peak device
    bytes and the histogram.cu launches. Then the training metric
    (isProvideTrainingMetric) on a 1,000,000-row fit, timed.
-14. Warm start: phase 13's model continued for 5 iterations through
-   modelString and through initScoreCol holding the raw margins of the
-   model that text holds; the two delta boosters' model texts are equal.
+14. Warm start: phase 13's model continued for 5 iterations on the first
+   2,000,000 of its training rows (cut from 11,000,000 for the script's
+   time) through modelString and through initScoreCol holding the raw
+   margins of the model that text holds; the two delta boosters' model
+   texts are equal.
 15. The quantized path's noise on the card: train.quant_noise (jax's
    threefry2x32 and uniform) against known answers computed with
    jax.random on the CPU (bits at four positions and the sum of all bits
@@ -165,8 +167,8 @@ non-zero and prints no result):
    rows/s on them and SHAP rows/s on 10,000 CSR rows (SHAP adds up to the
    margin within 1e-5); histogram.cu at k = 1 and 8 on the packed columns
    and the fit's iteration-0 stats, bit-equal to the plain version, timed
-   with its bound. Then the first 250,000 of phase 11's rows fitted sparse
-   and dense (cut from 1,000,000 for the script's time):
+   with its bound. Then the first 125,000 of phase 11's rows fitted sparse
+   and dense (cut from 1,000,000, then 250,000, for the script's time):
    the same model text.
 23. Out of core: 22,000,000 HIGGS-width rows (float32) written by
    ShardedDataset.write_shards as 11 .npz shards of 2,000,000 rows with CRC
@@ -266,15 +268,15 @@ non-zero and prints no result):
    200,000, then 100,000) on the card and on the CPU port: equal text.
 28. Many models (lightgbm.train.train_many, mmlspark_tpu_torch.sweep and
    automl), after the compute-mode check of phase 27. (a) train_many on
-   the bins of phase 5's first 4,000,000 rows (cut from 11,000,000 for the
-   script's time), K = 4 (learning rate 0.05, 0.1, 0.2, and 0.1 with
+   the bins of phase 5's first 2,000,000 rows (cut from 11,000,000, then
+   4,000,000, for the script's time), K = 4 (learning rate 0.05, 0.1, 0.2, and 0.1 with
    feature and bagging fraction 0.8, bagging every iteration): each
    candidate's text equals its own train() fit's byte for byte; 200 + 80
    histogram.cu launches; the bucket's seconds beside the four train()
    calls'; each candidate's held-out AUC. (b) An inline TrainValidSweep of
    LightGBMClassifier over GridSpace(learningRate 0.05/0.1/0.2 x numLeaves
-   15/31) on phase 5's first 4,000,000 rows as a Table (cut from 11,000,000
-   for the script's time; seed 3, AUC): 6
+   15/31) on phase 5's first 2,000,000 rows as a Table (cut from 11,000,000,
+   then 4,000,000, for the script's time; seed 3, AUC): 6
    candidates in 2 buckets of 3, one batched CandidateBatchFitted each,
    committed under a checkpoint root in smoke_data/; its wall split into
    binning, boosting, scoring and the refit, the leaderboard, the
@@ -405,16 +407,44 @@ non-zero and prints no result):
    (two featurized namespaces), 50,000 rows, 3 passes: held-out l2 on
    5,000 documents below the init-only model's. The wall of each part is
    printed.
-34. One JSON line with every kernel (the grouped wide-level launches and
-   phases 22, 23, 24, 25, 27, 28, 30 and 32's cases among them), then the
-   card line, then the result line. Each phase prints its wall time; TF32
-   matmuls must be off.
+34. The other learners on the card against the CPU port; the wall of each
+   part is printed. (a) SAR at MovieLens-1M's shape (6,040 users, 3,706
+   items, 1,000,209 seeded ratings of Zipf item popularity at its star
+   frequencies over three years), jaccard, supportThreshold 4: fit and
+   recommend_for_all_users(10) seconds; the first 500 users on the CPU
+   port: scores within 1e-6 of the largest, items equal at every rank
+   apart from its neighbours and at every exact tie (lax.top_k's order);
+   the co-occurrence's first 100 columns equal the host's product. (b)
+   IsolationForest, 100 trees of maxSamples 256 on 1,000,000 x 28 rows
+   with 1% planted outliers: the packed trees equal the CPU port's bit for
+   bit, scores of the first 100,000 rows within 1e-6 of the CPU port's
+   (and whether bit-equal), the AUC against the planted labels (above
+   0.9), fit and scoring seconds. (c) KNN and ConditionalKNN (k = 5) over
+   an embedding index of 100,000 x 512 float32 keys, 10,000 queries, 10
+   labels, each query's conditioner 1-3 seeded labels: query seconds, the
+   first 1,000 queries against the CPU port (as in (a)), every match's
+   label admissible. (a) and (c) also time ops/topk.py's two forms (sort,
+   select) at SAR's and KNN's score shapes beside torch.topk; they give
+   the same indices. (d) TabularLIME (nSamples 1,000, the reference's
+   default) over a LightGBMRegressor fitted on the card (200,000
+   HIGGS-shaped rows, 50 trees, its histogram.cu launches): 1,000 rows
+   explained, 1,000,000 inner predictions and 1,000 lasso problems of
+   1,000 x 28, the inner predict and the lasso timed apart; 20 rows on the
+   CPU port within 1e-5 of the largest weight; x0 and x3 (the generator's
+   linear and sine terms) carry the most weight; histogram.cu's two
+   entries on the regressor's bins at iteration-0 stats (kernel rows
+   hist_panel_lime, hist_combined_lime). Only (d) launches hand kernels.
+35. One JSON line with every kernel (the grouped wide-level launches and
+   phases 22, 23, 24, 25, 27, 28, 30, 32 and 34's cases among them), then
+   the card line, then the result line. Each phase prints its wall time;
+   TF32 matmuls must be off.
 
 Cuts for the script's time, of depth only (every check still runs): phase
-22's sparse-against-dense rows 1M -> 250,000; phase 24's WARN run 4 -> 2
+14's warm-start fits 11,000,000 -> 2,000,000 rows; phase 22's
+sparse-against-dense rows 1M -> 250,000 -> 125,000; phase 24's WARN run 4 -> 2
 shards; phase 26's quality fit 2M -> 1M; phase 27's card-against-CPU fits
 200,000 -> 100,000 -> 50,000 rows; phase 28's train_many and inline sweep
-11M -> 4M rows, gang 1M -> 500,000, tuner 1M -> 125,000; phase 29 (a) 16 x
+11M -> 4M -> 2M rows, gang 1M -> 500,000, tuner 1M -> 125,000; phase 29 (a) 16 x
 1,000 -> 16 x 500 requests; phase 32's card-against-CPU fit and reloaded rows
 100,000 -> 30,000; the plan sweeps 5 -> 3 launches.
 """
@@ -1568,6 +1598,7 @@ ES_ROUNDS = 3
 ES_TOLERANCE = 5e-4  # valid AUC gains below this count as no improvement
 N_TRAIN_METRIC = 1_000_000
 WARM_ITERS = 5
+N_WARM = 2_000_000  # phase 14's rows: phase 13's first, cut from its 11,000,000 for time
 BAGGING = dict(baggingFraction=0.8, baggingFreq=5, featureFraction=0.8)
 
 
@@ -2513,7 +2544,7 @@ def phase_explain(torch, Table, LightGBMClassificationModel, Booster, boosters):
 # -- phases 22-23: sparse (CSR) input and out-of-core sharded ingest -------------
 
 N_SHAP_SPARSE = 10_000
-N_SPARSE_CHECK = 250_000  # phase 22's sparse-against-dense rows, cut from 1M for the script's time
+N_SPARSE_CHECK = 125_000  # phase 22's sparse-against-dense rows, cut from 1M, then 250,000, for time
 N_OOC = 22_000_000  # twice HIGGS's 11,000,000 rows, cut from 44M for the script's time
 OOC_SHARD_ROWS = 2_000_000
 OOC_CORRUPT_SHARDS = 4  # the copy the read modes run on; its shard 1 is truncated
@@ -3984,7 +4015,7 @@ def phase_distribution(torch, uh, hh, rates, base, train, parallel, procfit, run
                 launches=mesh["data_parallel"]["launches"])
 
 
-N_MANY_SWEEP = 4_000_000  # phase 28's inline sweep rows, cut from 11M (then 5.5M) for time
+N_MANY_SWEEP = 2_000_000  # phase 28's train_many and sweep rows, cut from 11M (5.5M, 4M) for time
 N_MANY_GANG = 500_000  # phase 28's gang rows: the first of phase 5's (cut from 1,000,000)
 N_MANY_TUNE = 125_000  # phase 28's tuner rows, cut from 1M, then 250,000, for the script's time
 MANY_GRID = {"learningRate": [0.05, 0.1, 0.2], "numLeaves": [15, 31]}
@@ -5707,6 +5738,335 @@ def phase_vw(torch, uh, hh, Table, vw, vwbase, parallel, tsweep, card):
     return rec
 
 
+# phase 34: the other learners (isolation forest, KNN, SAR, LIME)
+SAR_USERS = 6040  # MovieLens-1M's users, items and ratings
+SAR_ITEMS = 3706
+SAR_EVENTS = 1_000_209
+SAR_K = 10
+N_SAR_CPU = 500  # users recommended for on the card and on the CPU port
+SAR_RATING_SHARES = (0.056, 0.108, 0.261, 0.349, 0.226)  # MovieLens-1M's 1-5 stars
+N_IF = 1_000_000
+IF_TREES = 100
+IF_SAMPLES = 256
+IF_OUTLIERS = 0.01
+N_IF_CPU = 100_000  # rows scored on the card and on the CPU port
+N_KNN_INDEX = 100_000
+KNN_DIM = 512
+N_KNN_QUERIES = 10_000
+KNN_K = 5
+KNN_LABELS = 10
+N_KNN_CPU = 1_000
+N_LIME_FIT = 200_000
+LIME_TREES = 50
+N_LIME_ROWS = 1_000
+LIME_SAMPLES = 1_000  # the reference's default nSamples
+N_LIME_CPU = 20
+LIME_REG = 0.001
+OTHER_TOL = 1e-6  # card against CPU: float32 scores, of the largest
+LIME_TOL = 1e-5  # card against CPU: lasso weights, of the largest magnitude
+
+
+def _apart(scores, tol):
+    """(rows, k) mask of ranks whose score stands more than ``tol`` of the
+    largest apart from both neighbours in its row."""
+    scores = np.asarray(scores, np.float64)
+    gap = tol * max(np.abs(scores).max(), 1e-30)
+    pad = np.full((len(scores), 1), np.inf)
+    d = np.abs(np.diff(np.hstack([pad, scores, pad]), axis=1))
+    return np.minimum(d[:, :-1], d[:, 1:]) > gap
+
+
+def _ranked_agree(idx, scores, cpu_idx, cpu_scores, tol):
+    """Card against CPU top-k: scores within ``tol`` of the largest, and
+    equal indices at every rank apart from its neighbours and at every
+    rank where the two scores are exactly equal (ties in item order)."""
+    err = float(np.abs(np.asarray(scores, np.float64) - cpu_scores).max()
+                / max(np.abs(cpu_scores).max(), 1e-30))
+    held = _apart(cpu_scores, tol) | (np.asarray(scores) == np.asarray(cpu_scores))
+    mismatched = int((np.asarray(idx)[held] != np.asarray(cpu_idx)[held]).sum())
+    return dict(max_rel_err=err, ranks_held=int(held.sum()), ranks=int(held.size),
+                mismatched=mismatched, ok=err <= tol and mismatched == 0)
+
+
+def _movielens_events(seed=34):
+    """MovieLens-1M's shape: 6,040 users of lognormal activity, 3,706
+    items of Zipf popularity, 1,000,209 ratings at its star frequencies
+    over three years (seconds)."""
+    rng = np.random.default_rng(seed)
+    activity = rng.lognormal(0.0, 1.0, SAR_USERS)
+    users = rng.choice(SAR_USERS, SAR_EVENTS, p=activity / activity.sum())
+    pop = 1.0 / np.arange(1, SAR_ITEMS + 1) ** 0.9
+    items = rng.permutation(SAR_ITEMS)[rng.choice(SAR_ITEMS, SAR_EVENTS, p=pop / pop.sum())]
+    ratings = rng.choice(5, SAR_EVENTS, p=SAR_RATING_SHARES) + 1.0
+    times = 956_703_932 + rng.uniform(0, 3 * 365 * 86_400, SAR_EVENTS)
+    users[:SAR_USERS] = np.arange(SAR_USERS)  # every user id present
+    items[:SAR_ITEMS] = np.arange(SAR_ITEMS)
+    return {"user": users.astype(np.int64), "item": items.astype(np.int64),
+            "rating": ratings, "timestamp": times}
+
+
+def _topk_forms(torch, topk, label, scores, k):
+    """``ops.topk``'s two forms on one score matrix on the card: the same
+    indices, each timed, beside one ``torch.topk`` call (no tie order)."""
+    sv, si = topk.topk_ordered(scores, k, method="sort")
+    lv, li = topk.topk_ordered(scores, k, method="select")
+    if not (torch.equal(si, li) and torch.equal(sv, lv)):
+        raise AssertionError(f"{label}: the sort and select forms of topk_ordered differ")
+    rec = dict(shape=list(scores.shape), k=k,
+               sort_ms=_time_ms(torch, lambda: topk.topk_ordered(scores, k, method="sort"), 5),
+               select_ms=_time_ms(torch, lambda: topk.topk_ordered(scores, k, method="select"),
+                                  5),
+               torch_topk_ms=_time_ms(torch, lambda: torch.topk(scores, k, dim=1), 5),
+               default="sort" if scores.shape[1] <= topk.SORT_MAX_WIDTH else "select")
+    print(f"topk forms {label}: " + json.dumps(rec), flush=True)
+    return rec
+
+
+def _other_sar(torch, Table, recommendation, topk, rec):
+    """Phase 34 (a): SAR at MovieLens-1M's shape on the card."""
+    from mmlspark_tpu_torch.recommendation import sar as tsar
+
+    cols = _movielens_events()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = recommendation.SAR(supportThreshold=4, device="cuda").fit(Table(cols))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recs = model.recommend_for_all_users(SAR_K)
+    recommend_s = time.perf_counter() - t0
+    idx, scores = recs["recommendations"], recs["ratings"]
+    # the CPU port on the first users; the co-occurrence's first 100 columns
+    # against the host's float32 product (integer counts: exact)
+    cpu = model.copy({"device": "cpu"})
+    cpu_idx, cpu_scores = cpu._recommend(model.getUserAffinity()[:N_SAR_CPU], SAR_K)
+    agree = _ranked_agree(idx[:N_SAR_CPU], scores[:N_SAR_CPU], cpu_idx, cpu_scores, OTHER_TOL)
+    U = np.zeros((SAR_USERS, SAR_ITEMS), np.float32)
+    U[cols["user"], cols["item"]] = 1.0
+    cooc_equal = bool(np.array_equal(tsar._cooccurrence(U, "cuda")[:, :100],
+                                     U.T @ U[:, :100]))
+    sim = model.getItemSimilarity()
+    zero_users = int(np.all(scores == 0.0, axis=1).sum())
+    rec["sar"] = dict(users=SAR_USERS, items=SAR_ITEMS, events=SAR_EVENTS, fit_s=fit_s,
+                      recommend_s=recommend_s, k=SAR_K, nonzero_similarities=int((sim > 0).sum()),
+                      all_zero_users=zero_users, finite=bool(np.isfinite(scores).all()),
+                      cpu_users=N_SAR_CPU, card_cpu=agree, cooccurrence_equal=cooc_equal)
+    print("other sar: " + json.dumps(rec["sar"]), flush=True)
+    dev = torch.device("cuda")
+    A = torch.as_tensor(model.getUserAffinity().astype(np.float32), device=dev)
+    S = torch.as_tensor(sim.astype(np.float32), device=dev)
+    rec["topk_sar"] = _topk_forms(torch, topk, "sar", A @ S, SAR_K)
+    del A, S
+    if not (agree["ok"] and cooc_equal and rec["sar"]["finite"]
+            and idx.shape == (SAR_USERS, SAR_K)):
+        raise AssertionError(f"other sar: {rec['sar']}")
+
+
+def _other_iforest(torch, Table, isolationforest, auc, rec):
+    """Phase 34 (b): IsolationForest on 1,000,000 x 28 rows, 1% planted."""
+    rng = np.random.default_rng(35)
+    X = rng.normal(size=(N_IF, N_FEATURES)).astype(np.float32)
+    n_out = int(N_IF * IF_OUTLIERS)
+    planted = rng.choice(N_IF, n_out, replace=False)
+    X[planted] = rng.uniform(-6.0, 6.0, size=(n_out, N_FEATURES)).astype(np.float32)
+    truth = np.zeros(N_IF)
+    truth[planted] = 1.0
+    params = dict(numEstimators=IF_TREES, maxSamples=float(IF_SAMPLES))
+    t0 = time.perf_counter()
+    model = isolationforest.IsolationForest(device="cuda", **params).fit(Table({"features": X}))
+    fit_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.transform(Table({"features": X}))
+    score_s = time.perf_counter() - t0
+    scores = out["outlierScore"]
+    cpu_model = isolationforest.IsolationForest(device="cpu", **params).fit(
+        Table({"features": X}))
+    trees_equal = all(np.asarray(model.getTrees()[k]).tobytes()
+                      == np.asarray(cpu_model.getTrees()[k]).tobytes()
+                      for k in ("feature", "threshold", "left", "right", "path_adjust"))
+    t0 = time.perf_counter()
+    cpu = cpu_model._scores(X[:N_IF_CPU])
+    cpu_score_s = time.perf_counter() - t0
+    err = float(np.abs(scores[:N_IF_CPU] - cpu).max() / np.abs(cpu).max())
+    rec["iforest"] = dict(rows=N_IF, features=N_FEATURES, trees=IF_TREES, samples=IF_SAMPLES,
+                          max_depth=model.getMaxDepth(), fit_s=fit_s, score_s=score_s,
+                          auc=auc(truth, scores, np.ones(N_IF)), trees_equal=trees_equal,
+                          cpu_rows=N_IF_CPU, cpu_score_s=cpu_score_s, max_rel_err=err,
+                          bit_equal=bool(scores[:N_IF_CPU].tobytes() == cpu.tobytes()),
+                          finite=bool(np.isfinite(scores).all()))
+    print("other iforest: " + json.dumps(rec["iforest"]), flush=True)
+    if not (trees_equal and err <= OTHER_TOL and rec["iforest"]["finite"]
+            and rec["iforest"]["auc"] > 0.9):
+        raise AssertionError(f"other iforest: {rec['iforest']}")
+
+
+def _knn_rows(out):
+    vals = np.array([[m["value"] for m in r] for r in out], dtype=np.int64)
+    dist = np.array([[m["distance"] for m in r] for r in out], dtype=np.float64)
+    return vals, dist
+
+
+def _other_knn(torch, Table, nn, topk, rec):
+    """Phase 34 (c): KNN and ConditionalKNN over a 100,000 x 512 index."""
+    rng = np.random.default_rng(36)
+    t0 = time.perf_counter()
+    normal = functools.partial(rng.standard_normal, dtype=np.float32)
+    centers = normal((256, KNN_DIM))
+    keys = centers[rng.integers(0, 256, N_KNN_INDEX)] + np.float32(0.5) * normal(
+        (N_KNN_INDEX, KNN_DIM))
+    keys /= np.linalg.norm(keys, axis=1, keepdims=True)
+    queries = keys[rng.integers(0, N_KNN_INDEX, N_KNN_QUERIES)] + np.float32(0.1) * normal(
+        (N_KNN_QUERIES, KNN_DIM))
+    labels = rng.integers(0, KNN_LABELS, N_KNN_INDEX)
+    conds = np.empty(N_KNN_QUERIES, dtype=object)
+    for i in range(N_KNN_QUERIES):
+        conds[i] = set(rng.choice(KNN_LABELS, rng.integers(1, 4), replace=False).tolist())
+    index = Table({"features": keys, "values": np.arange(N_KNN_INDEX),
+                   "labels": labels})
+    parts = {"generate_s": time.perf_counter() - t0}
+    for name, est, q in (
+            ("knn", nn.KNN(k=KNN_K, outputCol="m", device="cuda"), {"features": queries}),
+            ("conditional", nn.ConditionalKNN(k=KNN_K, labelCol="labels", outputCol="m",
+                                              device="cuda"),
+             {"features": queries, "conditioner": conds})):
+        model = est.fit(index)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.transform(Table(q))["m"]
+        query_s = time.perf_counter() - t0
+        cpu_q = {k: v[:N_KNN_CPU] for k, v in q.items()}
+        t0 = time.perf_counter()
+        cpu = model.copy({"device": "cpu"}).transform(Table(cpu_q))["m"]
+        cpu_s = time.perf_counter() - t0
+        vals, dist = _knn_rows(out[:N_KNN_CPU])
+        cvals, cdist = _knn_rows(cpu)
+        agree = _ranked_agree(vals, dist, cvals, cdist, OTHER_TOL)
+        allowed = all(labels[m["value"]] in conds[i] for i in range(N_KNN_CPU)
+                      for m in out[i]) if name == "conditional" else True
+        parts[name] = dict(queries=N_KNN_QUERIES, query_s=query_s, cpu_queries=N_KNN_CPU,
+                           cpu_s=cpu_s, card_cpu=agree, labels_allowed=allowed,
+                           groups=len({frozenset(c) for c in conds}) if name == "conditional"
+                           else 1)
+        if not (agree["ok"] and allowed and len(out) == N_KNN_QUERIES):
+            raise AssertionError(f"other {name}: {parts[name]}")
+    rec["knn"] = dict(index=N_KNN_INDEX, dim=KNN_DIM, k=KNN_K, labels=KNN_LABELS, **parts)
+    print("other knn: " + json.dumps(rec["knn"]), flush=True)
+    dev = torch.device("cuda")
+    K = torch.as_tensor(keys, device=dev)
+    Q = torch.as_tensor(queries[:4096], device=dev)
+    rec["topk_knn"] = _topk_forms(torch, topk, "knn", Q @ K.T, KNN_K)
+    del K, Q
+
+
+def _other_lime(torch, uh, hh, rates, objectives, train, base, Table, lime, LightGBMRegressor,
+                rec):
+    """Phase 34 (d): TabularLIME over a LightGBMRegressor fitted on the card."""
+    from mmlspark_tpu_torch.lightgbm import LightGBMRegressionModel
+    from mmlspark_tpu_torch.lime import lime as tlime
+
+    X, _ = _make_data(N_LIME_FIT, N_FEATURES, seed=37)
+    y = X[:, 0] * 1.5 + X[:, 1] * X[:, 2] + 0.8 * np.sin(X[:, 3])
+    binned = []
+    bin_dataset = base.bin_dataset
+
+    def keep_bins(*a, **kw):
+        out = bin_dataset(*a, **kw)
+        binned.append(out)
+        return out
+
+    base.bin_dataset = keep_bins
+    try:
+        torch.cuda.synchronize()
+        _zero_counts(uh, hh)
+        t0 = time.perf_counter()
+        reg = LightGBMRegressor(numIterations=LIME_TREES, numLeaves=31, maxBin=NUM_BINS - 1,
+                                device="cuda").fit(Table({"features": X, "label": y}))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = _counts(uh, hh)
+    finally:
+        base.bin_dataset = bin_dataset
+    _need(counts, ("hist_panel", "hist_combined"), "lime regressor fit")
+    seconds = {}
+    saved_lasso = _timed_calls(tlime, ("fit_lasso_batch",), seconds)
+    saved_predict = _timed_calls(LightGBMRegressionModel, ("transform",), seconds)
+    try:
+        explainer = lime.TabularLIME(model=reg, inputCol="features", outputCol="weights",
+                                     nSamples=LIME_SAMPLES, regularization=LIME_REG, seed=34,
+                                     device="cuda").fit(Table({"features": X}))
+        rows = Table({"features": X[:N_LIME_ROWS]})
+        t0 = time.perf_counter()
+        W = np.stack(explainer.transform(rows)["weights"])
+        explain_s = time.perf_counter() - t0
+        card = dict(seconds)
+        cpu_model = explainer.copy({"device": "cpu", "model": reg.copy({"device": "cpu"})})
+        cpu_W = np.stack(cpu_model.transform(Table({"features": X[:N_LIME_CPU]}))["weights"])
+    finally:
+        for cls, fns in ((tlime, saved_lasso), (LightGBMRegressionModel, saved_predict)):
+            for name, fn in fns.items():
+                setattr(cls, name, fn)
+    err = float(np.abs(W[:N_LIME_CPU] - cpu_W).max() / np.abs(cpu_W).max())
+    imp = np.abs(W).mean(axis=0)
+    rec["lime"] = dict(fit_rows=N_LIME_FIT, trees=LIME_TREES, fit_s=fit_s, launches=counts,
+                       rows=N_LIME_ROWS, samples=LIME_SAMPLES,
+                       inner_predictions=N_LIME_ROWS * LIME_SAMPLES, explain_s=explain_s,
+                       inner_predict_s=card["transform"], lasso_s=card["fit_lasso_batch"],
+                       cpu_rows=N_LIME_CPU, max_rel_err=err,
+                       top_features=[int(i) for i in np.argsort(-imp)[:4]],
+                       finite=bool(np.isfinite(W).all()))
+    print("other lime: " + json.dumps(rec["lime"]), flush=True)
+    bins, _ = binned[0]
+    dev = torch.device("cuda")
+    bins_t = train.upload_bins(bins, dev)
+    g, h = _iteration0(torch, objectives.get_objective("regression"), y, None, dev)
+    rec["kernels"] = _path_kernels(torch, hh, rates, "lime regressor bins", bins_t, g, h,
+                                   NUM_BINS)
+    rec["launches"] = counts
+    del bins_t, g, h
+    # perturbations are drawn around the column means (the reference's
+    # TabularLIME), so each row's weights near the global linear fit of
+    # 1.5 x0 + x1 x2 + 0.8 sin(x3): x0 (1.5) and x3 (0.8 E[cos]) lead
+    if not (err <= LIME_TOL and rec["lime"]["finite"] and W.shape == (N_LIME_ROWS, N_FEATURES)
+            and set(rec["lime"]["top_features"][:2]) == {0, 3}):
+        raise AssertionError(f"other lime: {rec['lime']}")
+
+
+def phase_other_learners(torch, uh, hh, rates, objectives, train, base, Table, LightGBMRegressor,
+                         card):
+    """Phase 34 (see the module docstring): SAR, the isolation forest, KNN
+    and TabularLIME on the card against the CPU port. Only (d)'s regressor
+    fit launches hand kernels."""
+    from mmlspark_tpu_torch import isolationforest, lime, nn, recommendation
+    from mmlspark_tpu_torch.lightgbm.objectives import auc
+    from mmlspark_tpu_torch.ops import topk
+
+    rec = {"card": card}
+    parts = {}
+    _zero_counts(uh, hh)
+    t0 = time.perf_counter()
+    _other_sar(torch, Table, recommendation, topk, rec)
+    parts["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _other_iforest(torch, Table, isolationforest, auc, rec)
+    parts["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _other_knn(torch, Table, nn, topk, rec)
+    parts["c"] = time.perf_counter() - t0
+    counts = _counts(uh, hh)
+    if any(counts.values()):
+        raise AssertionError(f"SAR, the isolation forest or KNN launched a hand kernel: {counts}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _other_lime(torch, uh, hh, rates, objectives, train, base, Table, lime, LightGBMRegressor,
+                rec)
+    parts["d"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    rec["parts_s"] = parts
+    print("other parts: " + json.dumps(parts), flush=True)
+    return rec
+
+
 def phase_campaign(card):
     """Phase 31 (see the module docstring): tools/torch_loadgen.py --short
     --malformed as a subprocess with a fixed seed."""
@@ -5857,7 +6217,7 @@ def main():
     _, es_model, X_es, y_es = timed("early_stopping", phase_early_stopping, torch, uh, hh,
                                     binning, train, callbacks, Table, LightGBMClassifier, auc)
     timed("warm_start", phase_warm_start, torch, uh, hh, Table, LightGBMClassifier, Booster,
-          es_model, X_es, y_es)
+          es_model, X_es[:N_WARM], y_es[:N_WARM])
     del es_model, X_es, y_es
     timed("quant_noise", phase_quant_noise, torch, uh, hh, binning, train)
     _, cover = timed("multiclass", phase_multiclass, torch, uh, hh, binning, train, objectives,
@@ -5904,6 +6264,8 @@ def main():
                          train, featurize, Table, pipeline.PipelineStage, LightGBMClassifier,
                          LightGBMRegressor, TrainClassifier, TrainRegressor, auc, card)
         timed("vw_text", phase_vw, torch, uh, hh, Table, vw, vwbase, parallel, tsweep, card)
+        other = timed("other_learners", phase_other_learners, torch, uh, hh, rates, objectives,
+                      train, base, Table, LightGBMRegressor, card)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
     del higgs
@@ -5964,6 +6326,12 @@ def main():
          trainers["launches"]["hist_panel"], trainers["kernels"][8]),
         ("hist_combined_trainers", "histogram.cu", "mmlspark_tpu/ops/pallas_histogram.py:177",
          trainers["launches"]["hist_combined"], trainers["kernels"][1]),
+        # the LightGBMRegressor that TabularLIME explains: its bins at
+        # iteration-0 stats
+        ("hist_panel_lime", "histogram.cu", "mmlspark_tpu/ops/pallas_histogram.py:86",
+         other["launches"]["hist_panel"], other["kernels"][8]),
+        ("hist_combined_lime", "histogram.cu", "mmlspark_tpu/ops/pallas_histogram.py:177",
+         other["launches"]["hist_combined"], other["kernels"][1]),
     ):
         if launches == 0:
             raise AssertionError(f"{name} was not launched on its path")

@@ -21,8 +21,10 @@ Where the two packages part:
   refuses one without a counterpart, or one of jax: the JAX package is
   never imported;
 - a dict or list of arrays takes the ``pickle`` tag, which the reference
-  reads; the reference's ``pytree`` tag pickles a jax tree structure that
-  cannot be read without jax, and reading it raises.
+  reads; the reference's ``pytree`` tag pickles a jax tree structure beside
+  its leaves. A structure of dicts, lists, tuples and None (an isolation
+  forest's packed trees) is rebuilt from that pickle's state without jax;
+  any other (a named tuple, a registered node) raises.
 """
 
 from __future__ import annotations
@@ -121,11 +123,67 @@ def _read_pickle(path: str) -> Any:
         return load_pickle(f)
 
 
+class _TreeDefState:
+    """A pickled jax ``PyTreeDef``: its state is (registry, nodes), each node
+    (kind, arity, node data, custom, leaves, nodes) in post-order."""
+
+    def __setstate__(self, state) -> None:
+        self.nodes = list(state[1])
+
+
+#: jax's tree-node kinds that a plain structure holds
+_LEAF, _NONE, _TUPLE, _LIST, _DICT = 0, 1, 2, 4, 5
+
+
+class _TreeDefUnpickler(pickle.Unpickler):
+    """Reads a pickled ``PyTreeDef`` into :class:`_TreeDefState`; refuses
+    every other global."""
+
+    def find_class(self, module: str, name: str) -> Any:
+        if module.startswith("jaxlib") and name == "PyTreeDef":
+            return _TreeDefState
+        if module == "jax._src.tree_util" and name == "default_registry":
+            return None
+        raise pickle.UnpicklingError(f"{module}.{name}")
+
+
+def _unflatten(nodes: List[tuple], leaves: List[Any]) -> Any:
+    leaves = iter(leaves)
+    stack: List[Any] = []
+    for kind, arity, data, *_ in nodes:
+        kids = stack[len(stack) - arity:] if arity else []
+        del stack[len(stack) - arity:]
+        if kind == _LEAF:
+            stack.append(next(leaves))
+        elif kind == _NONE:
+            stack.append(None)
+        elif kind == _TUPLE:
+            stack.append(tuple(kids))
+        elif kind == _LIST:
+            stack.append(list(kids))
+        elif kind == _DICT:
+            stack.append(dict(zip(data, kids)))
+        else:
+            raise ValueError(f"tree node kind {kind}")
+    if len(stack) != 1:
+        raise ValueError("malformed tree structure")
+    return stack[0]
+
+
 def _read_pytree(path: str) -> Any:
-    raise ValueError(
-        f"{path}: a value saved under the 'pytree' tag holds a pickled jax tree "
-        "structure, which the port cannot read without jax; save it from the JAX "
-        "package as a dict or list of numpy arrays (the 'pickle' tag)")
+    """A value of the reference's ``pytree`` tag whose structure is plain
+    dicts, lists, tuples and None; its leaves from ``leaves.npz``."""
+    try:
+        with open(os.path.join(path, "treedef.pkl"), "rb") as f:
+            nodes = _TreeDefUnpickler(f).load().nodes
+        with np.load(os.path.join(path, "leaves.npz"), allow_pickle=True) as z:
+            leaves = [z[f"leaf_{i}"] for i in range(len(z.files))]
+        return _unflatten(nodes, leaves)
+    except (OSError, pickle.UnpicklingError, ValueError, AttributeError, TypeError) as err:
+        raise ValueError(
+            f"{path}: a value saved under the 'pytree' tag holds a jax tree structure "
+            f"the port cannot rebuild without jax ({err}); save it from the JAX package "
+            "as a dict or list of numpy arrays (the 'pickle' tag)") from err
 
 
 # -- value writers and readers -------------------------------------------------

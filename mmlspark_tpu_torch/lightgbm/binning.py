@@ -246,6 +246,29 @@ def _bundle_sample_rows(n: int, sample_cnt: int, seed: int = 0) -> Optional[np.n
     return np.random.default_rng(seed).choice(n, size=sample_cnt, replace=False)
 
 
+def bin_dataset_to_device(
+    X, max_bin: int = 255, mapper: Optional[BinMapper] = None,
+    categorical_features=None, feature_bundling: bool = False,
+    max_conflict_rate: float = 0.0, device=None,
+):
+    """Bin on the host (:func:`bin_dataset`), then upload the bins once to
+    ``device`` (the card unless the CPU is named). Returns (the bins as
+    ``train.upload_bins`` lays them out: a (C, N) feature-major uint8 tensor,
+    C = F, or the packed columns under ``feature_bundling``; and the
+    mapper). The JAX package's counterpart returns its (N, C) device array."""
+    from mmlspark_tpu_torch.device import resolve_device
+    from mmlspark_tpu_torch.lightgbm.train import upload_bins
+
+    dev = resolve_device(device)
+    bins, mapper = bin_dataset(
+        X, max_bin=max_bin, mapper=mapper,
+        categorical_features=categorical_features,
+        feature_bundling=feature_bundling,
+        max_conflict_rate=max_conflict_rate,
+    )
+    return upload_bins(bins, dev), mapper
+
+
 def bin_dataset(
     X, max_bin: int = 255, mapper: Optional[BinMapper] = None,
     categorical_features=None, sample_cnt: int = 200_000, max_bin_by_feature=None,

@@ -1,8 +1,9 @@
 """Carry fitted state from the JAX package into the port.
 
 Each takes plain numpy state — ``mmlspark_tpu`` ``Booster.to_dict()``, a
-``BinMapper``'s arrays, a VW model's param values — so this module imports
-nothing of the JAX package.
+``BinMapper``'s arrays, a VW model's param values, the fitted arrays of an
+isolation forest, a SAR, a KNN index or a tabular LIME model — so this
+module imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -79,3 +80,59 @@ def vw_model_from_jax(params: Dict[str, Any], kind: str = "classifier", **kwargs
     values = {k: params[k] for k in VW_MODEL_PARAMS if k in params}
     values["modelWeights"] = np.asarray(values["modelWeights"], dtype=np.float32)
     return classes[kind](**values, **kwargs)
+
+
+def isolation_forest_from_jax(trees: Dict[str, Any], numSamples: int, maxDepth: int,
+                              outlierScoreThreshold: float, **params):
+    """The port's :class:`IsolationForestModel` from a JAX model's packed
+    ``trees`` (a dict of numpy arrays, ``getTrees()``), ``numSamples``,
+    ``maxDepth`` and ``outlierScoreThreshold``; ``params`` are its other
+    params (columns, ``device``)."""
+    from mmlspark_tpu_torch.isolationforest import IsolationForestModel
+
+    dtypes = {"feature": np.int32, "threshold": np.float32, "left": np.int32,
+              "right": np.int32, "path_adjust": np.float32}
+    missing = sorted(set(dtypes) - set(trees))
+    if missing:
+        raise ValueError(f"packed trees lack {missing}")
+    packed = {k: np.array(trees[k], dtype=t) for k, t in dtypes.items()}
+    return IsolationForestModel(trees=packed, numSamples=int(numSamples),
+                                maxDepth=int(maxDepth),
+                                outlierScoreThreshold=float(outlierScoreThreshold), **params)
+
+
+def sar_model_from_jax(userAffinity, itemSimilarity, **params):
+    """The port's :class:`SARModel` from a JAX model's ``userAffinity`` and
+    ``itemSimilarity`` (numpy, float64 as fitted); ``params`` are its other
+    params (columns, ``device``)."""
+    from mmlspark_tpu_torch.recommendation import SARModel
+
+    return SARModel(userAffinity=np.array(userAffinity, dtype=np.float64),
+                    itemSimilarity=np.array(itemSimilarity, dtype=np.float64), **params)
+
+
+def knn_model_from_jax(indexKeys, indexValues, indexLabels=None, **params):
+    """The port's :class:`KNNModel`, or :class:`ConditionalKNNModel` when
+    ``indexLabels`` is given, from a JAX model's index keys (numpy), values
+    and labels; ``params`` are its other params (columns, ``k``,
+    ``method``, ``device``)."""
+    from mmlspark_tpu_torch.nn import ConditionalKNNModel, KNNModel
+
+    keys = np.array(indexKeys, dtype=np.float64)
+    if indexLabels is None:
+        return KNNModel(indexKeys=keys, indexValues=list(indexValues), **params)
+    return ConditionalKNNModel(indexKeys=keys, indexValues=list(indexValues),
+                               indexLabels=list(indexLabels), **params)
+
+
+def tabular_lime_model_from_jax(columnMeans, columnSTDs, model, **params):
+    """The port's :class:`TabularLIMEModel` from a JAX model's column means
+    and standard deviations (numpy) and an inner ``model`` of the port (one
+    carried with :func:`booster_from_jax`, say); ``params`` are its other
+    params (columns, ``nSamples``, ``regularization``, ``seed``,
+    ``device``)."""
+    from mmlspark_tpu_torch.lime import TabularLIMEModel
+
+    return TabularLIMEModel(columnMeans=np.array(columnMeans, dtype=np.float64),
+                            columnSTDs=np.array(columnSTDs, dtype=np.float64), model=model,
+                            **params)

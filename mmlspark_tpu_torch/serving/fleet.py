@@ -25,10 +25,11 @@ INSIDE replica processes, so they must live in an importable module):
 :func:`store_model_factory` serves whatever the shared ModelStore's
 CURRENT pointer names — the mid-storm hot-swap payload.
 
-The port's copy of ``mmlspark_tpu/serving/fleet.py``. The reference's SAR
-payload (``sar_topk_model``, ``sar_demo_factory``) serves
-``recommendation.sar``, which the port does not have yet; it comes with
-the recommendation module.
+:func:`sar_demo_factory` fits a small seeded SAR in each replica and
+serves top-k retrieval (:func:`sar_topk_model`) — the recommendation
+payload.
+
+The port's copy of ``mmlspark_tpu/serving/fleet.py``.
 """
 
 from __future__ import annotations
@@ -431,3 +432,51 @@ def store_model_factory(spec: Dict[str, Any]):
         return store_model_loader("{}")  # identity until the first commit
     _, text = latest
     return store_model_loader(text)
+
+
+def sar_topk_model(model, num_items: int = 5):
+    """Wrap a fitted :class:`~mmlspark_tpu_torch.recommendation.sar.SARModel`
+    as a serving callable: each request posts a user id, the reply is
+    that user's top-``num_items`` item ids (unknown users get ``[-1...]``
+    — cold start is an answer, not an error). Scores on the model's
+    ``device``."""
+    import numpy as np
+
+    from mmlspark_tpu_torch.data.table import Table
+
+    def serve(table: Table) -> Table:
+        users = np.asarray(table.column("input"), dtype=np.int64)
+        A = model.getUserAffinity()
+        known = (users >= 0) & (users < A.shape[0])
+        idx, _ = model._recommend(A[np.where(known, users, 0)], num_items)
+        idx = np.where(known[:, None], idx, -1)
+        return Table({"prediction": idx.astype(np.int64)})
+
+    return serve
+
+
+def sar_demo_factory(spec: Dict[str, Any]):
+    """Replica factory for the recommendation payload: fit a small,
+    seeded SAR inside the replica process and serve top-k retrieval.
+    Every replica fits the identical model (same seed), so any replica
+    answers any user — the stateless-replica property routing needs. The
+    spec's ``sar.device`` names the device (the port's default, the card,
+    when absent)."""
+    import numpy as np
+
+    from mmlspark_tpu_torch.data.table import Table
+    from mmlspark_tpu_torch.recommendation.sar import SAR
+
+    opts = spec.get("sar", {})
+    n_users = int(opts.get("n_users", 64))
+    n_items = int(opts.get("n_items", 32))
+    events = int(opts.get("events", 1024))
+    rng = np.random.default_rng(int(opts.get("seed", 0)))
+    table = Table({
+        "user": rng.integers(0, n_users, events).astype(np.int64),
+        "item": rng.integers(0, n_items, events).astype(np.int64),
+        "rating": rng.uniform(0.5, 5.0, events),
+    })
+    device = {"device": opts["device"]} if "device" in opts else {}
+    model = SAR(userCol="user", itemCol="item", ratingCol="rating", **device).fit(table)
+    return sar_topk_model(model, num_items=int(opts.get("num_items", 5)))

@@ -229,8 +229,10 @@ class ReplicaSupervisor:
     """Spawn and babysit N serving-replica processes.
 
     ``factory`` is a ``"module:function"`` entry resolved INSIDE each
-    replica process; it receives the replica spec dict and returns the
-    model (a ``Transformer`` or table->table callable) to serve. Call
+    replica process; it receives the replica spec dict (with the entries
+    of ``spec_extra``, such as a payload's ``{"sar": {...}}`` options) and
+    returns the model (a ``Transformer`` or table->table callable) to
+    serve. Call
     :meth:`poll` periodically (or :meth:`watch` for a bounded loop):
     dead or heartbeat-silent replicas are booked as
     :class:`ExitStatus` + ``ProcessLost`` and respawned on a fresh port
@@ -253,6 +255,7 @@ class ReplicaSupervisor:
         registry_url: Optional[str] = None,
         registry_heartbeat_s: float = 0.5,
         hot_swap: Optional[Dict[str, Any]] = None,
+        spec_extra: Optional[Dict[str, Any]] = None,
     ):
         from mmlspark_tpu_torch.observability.registry import get_registry
         from mmlspark_tpu_torch.runtime.health import HealthTracker
@@ -286,6 +289,7 @@ class ReplicaSupervisor:
         #: optional ModelStore hot-swap spec passed through to every
         #: replica: {"loader": "module:fn", "root": ..., "name": ...}
         self.hot_swap = dict(hot_swap) if hot_swap else None
+        self.spec_extra = dict(spec_extra or {})
         self.exit_statuses: List[ExitStatus] = []
         self._procs: Dict[int, subprocess.Popen] = {}
         self._generations: Dict[int, int] = {}
@@ -327,6 +331,7 @@ class ReplicaSupervisor:
             except OSError:
                 pass
         spec: Dict[str, Any] = {
+            **self.spec_extra,
             "factory": self.factory, "host": self.host, "port": port,
             "name": self.name, "server_options": self.server_options,
         }

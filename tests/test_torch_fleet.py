@@ -7,9 +7,10 @@ the metrics federation cases of tests/test_observability.py, parity of the
 network-chaos gate and the federation with the JAX package, and one
 ReplicaSupervisor with a real replica process (ready, SIGKILL, respawn).
 
-The SAR payload case waits for ``recommendation.sar``'s port. The SLO fold
-over a merged event log and over a federated registry use the port's
-``observability/slo.py``.
+The SAR payload serves the port's ``recommendation.sar`` on the CPU (the
+spec's ``sar.device``) and answers as the reference's payload does. The
+SLO fold over a merged event log and over a federated registry use the
+port's ``observability/slo.py``.
 """
 
 import json
@@ -25,6 +26,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import pytest
+import torch
 
 from mmlspark_tpu_torch.data.table import Table
 from mmlspark_tpu_torch.observability.events import (
@@ -57,7 +59,11 @@ from mmlspark_tpu_torch.serving import (
     ServiceInfo,
     ServingServer,
 )
-from mmlspark_tpu_torch.serving.fleet import store_model_factory, store_model_loader
+from mmlspark_tpu_torch.serving.fleet import (
+    sar_demo_factory,
+    store_model_factory,
+    store_model_loader,
+)
 
 
 def _import_reference():
@@ -622,6 +628,42 @@ class TestCampaignPayloads:
         )
         out = model(Table({"input": np.array([2.0])}))
         assert out.column("prediction")[0] == 11.0
+
+    SAR_SPEC = {"sar": {"n_users": 16, "n_items": 8, "events": 300, "num_items": 3,
+                        "seed": 1, "device": "cpu"}}
+
+    def test_sar_topk_served_end_to_end(self):
+        model = sar_demo_factory(self.SAR_SPEC)
+        with ServingServer(model, max_latency_ms=1.0,
+                           registry=MetricsRegistry()) as srv:
+            status, out = _post(srv.info.url, {"input": 2})
+            assert status == 200
+            recs = out["prediction"]
+            assert len(recs) == 3
+            assert all(0 <= i < 8 for i in recs)
+            assert len(set(recs)) == 3  # distinct top-k items
+            # cold start: unknown users get an answer, not an error
+            status, out = _post(srv.info.url, {"input": 999})
+            assert status == 200
+            assert out["prediction"] == [-1, -1, -1]
+
+    def test_sar_payload_answers_as_the_references(self):
+        from mmlspark_tpu.data.table import Table as JTable
+        from mmlspark_tpu.serving.fleet import sar_demo_factory as jfactory
+
+        users = np.array([0, 2, 5, 15, -1, 16, 999], dtype=np.int64)
+        spec = {"sar": {k: v for k, v in self.SAR_SPEC["sar"].items() if k != "device"}}
+        want = jfactory(spec)(JTable({"input": users})).column("prediction")
+        got = sar_demo_factory(self.SAR_SPEC)(Table({"input": users})).column("prediction")
+        assert np.array_equal(got, np.asarray(want))
+        assert np.all(got[-3:] == -1)
+
+    def test_sar_payload_defaults_to_the_card(self):
+        if torch.cuda.is_available():
+            pytest.skip("a card is present")
+        spec = {"sar": {k: v for k, v in self.SAR_SPEC["sar"].items() if k != "device"}}
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            sar_demo_factory(spec)
 
 
 class TestFleetObservability:

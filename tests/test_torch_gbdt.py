@@ -396,3 +396,41 @@ def test_unported_estimator_params_raise():
                            baggingFreq=1).fit(t)
     with pytest.raises(ValueError, match="voting_parallel"):
         LightGBMClassifier(device="cpu", numProcesses=2, parallelism="voting_parallel").fit(t)
+
+
+def test_bin_dataset_to_device_is_the_uploaded_bins(ref):
+    """``binning.bin_dataset_to_device``: the reference's host bins and
+    mapper, as the (C, N) tensor ``train.upload_bins`` makes."""
+    X, _ = _higgs_like(3000, 6, seed=21)
+    X[::7, 2] = np.nan
+    got, mapper = tbinning.bin_dataset_to_device(X, max_bin=63, device="cpu")
+    want, jmapper = ref["binning"].bin_dataset_to_device(X, max_bin=63)
+    assert got.dtype == torch.uint8 and got.device.type == "cpu"
+    assert np.array_equal(got.numpy().T, np.asarray(want))
+    assert np.array_equal(mapper.edges, np.asarray(jmapper.edges))
+    bins, _ = tbinning.bin_dataset(X, max_bin=63, mapper=mapper)
+    assert torch.equal(got, ttrain.upload_bins(bins, torch.device("cpu")))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tbinning.bin_dataset_to_device(X)
+
+
+def test_clear_compiled_caches_empties_the_bounded_caches():
+    """Every bounded ``lru_cache`` of the port's loaded modules is emptied;
+    the kernel library's unbounded cache is left alone."""
+    import functools
+    import sys
+
+    import mmlspark_tpu_torch
+    from mmlspark_tpu_torch.kernels import build
+
+    ttrain._cat_static_maps((0, 2), (2,), 3, torch.device("cpu"))
+    assert ttrain._cat_static_maps.cache_info().currsize >= 1
+    mmlspark_tpu_torch.clear_compiled_caches()
+    bounded = [v for name, m in list(sys.modules.items())
+               if name.startswith("mmlspark_tpu_torch.") and m is not None
+               for v in vars(m).values()
+               if isinstance(v, functools._lru_cache_wrapper) and v.cache_info().maxsize]
+    assert ttrain._cat_static_maps in bounded and len(bounded) >= 7
+    assert all(c.cache_info().currsize == 0 for c in bounded)
+    assert build.histogram_extension.cache_info().maxsize is None

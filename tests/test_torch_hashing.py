@@ -2,8 +2,13 @@
 package's, bit for bit, with the reference's host C++ library on and with
 ``MMLSPARK_TPU_NATIVE=off`` (its numpy fallback): bytes (non-ASCII utf-8
 and empty strings), seeds, prefixes of 0-7 bytes, float, negative and
-uint32 integer inputs, string columns with a cache.
+uint32 integer inputs, string columns with a cache. When the in-tree
+library is not built, the fixture compiles it into a temp directory, so the
+``native`` cases run in a fresh checkout.
 """
+
+import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -38,8 +43,35 @@ from hypothesis import strategies as st
 from mmlspark_tpu_torch.ops import hashing as th
 
 
+def _build_native_library(tmp_path_factory):
+    """The reference's host library: the in-tree build when one exists,
+    else ``native/mmlspark_native.cpp`` compiled with the Makefile's flags
+    into this process's temp directory (never ``make -C native``, which
+    another test worker may be running). None without ``g++``."""
+    import shutil
+
+    import mmlspark_tpu.native as native
+
+    lib = native.load_library()
+    if lib is not None:
+        return lib
+    if shutil.which("g++") is None:
+        return None
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = str(tmp_path_factory.mktemp("native") / "libmmlspark_native.so")
+    subprocess.run(["g++", "-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-shared", "-o",
+                    out, os.path.join(root, "native", "mmlspark_native.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    return native.load_library(out)
+
+
+@pytest.fixture(scope="session")
+def native_library(tmp_path_factory):
+    return _build_native_library(tmp_path_factory)
+
+
 @pytest.fixture(params=["native", "off"])
-def ref(request, monkeypatch):
+def ref(request, monkeypatch, native_library):
     """The reference's hashing module under one of its two paths; the
     library reads ``MMLSPARK_TPU_NATIVE`` at each load."""
     import mmlspark_tpu.native as native
@@ -48,8 +80,10 @@ def ref(request, monkeypatch):
     if request.param == "off":
         monkeypatch.setenv("MMLSPARK_TPU_NATIVE", "off")
         assert native.load_library() is None
-    elif native.load_library() is None:
-        pytest.skip("the reference's host library is not built")
+    elif native_library is None:
+        pytest.skip("no g++ to build the reference's host library")
+    else:
+        assert native.load_library() is not None
     return jh
 
 

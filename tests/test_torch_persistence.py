@@ -208,9 +208,30 @@ def test_pytree_tag_is_refused_by_name(tmp_path):
         PortDummy.load(str(p))
 
 
+def test_pytree_tag_of_plain_structures_is_rebuilt(tmp_path):
+    """The reference writes a dict, list or tuple of arrays under its
+    ``pytree`` tag; the port rebuilds plain structures without jax."""
+    from mmlspark_tpu.core import serialize as jser
+
+    value = {"b": (np.arange(3, dtype=np.int32), None), "a": [np.ones(2), 2.5],
+             "c": {"z": np.float32(1.5), "y": [np.zeros((2, 2))]}}
+    path = str(tmp_path / "v")
+    jser.save_value(value, path)
+    with open(os.path.join(path, "_type")) as fh:
+        assert fh.read() == "pytree"
+    got = tser.load_value(path)
+    want = jser.load_value(path)
+    assert list(got) == list(want) == ["a", "b", "c"]
+    assert got["b"][1] is None and isinstance(got["b"], tuple)
+    for g, w in ((got["a"][0], want["a"][0]), (got["a"][1], want["a"][1]),
+                 (got["b"][0], want["b"][0]), (got["c"]["z"], want["c"]["z"]),
+                 (got["c"]["y"][0], want["c"]["y"][0])):
+        assert np.asarray(g).dtype == np.asarray(w).dtype
+        assert np.asarray(g).tobytes() == np.asarray(w).tobytes()
+
+
 @pytest.mark.parametrize("module,name", [("jax.numpy", "zeros"),
-                                         ("mmlspark_tpu.isolationforest.forest",
-                                          "IsolationForest"),
+                                         ("mmlspark_tpu.dnn.model", "DNNModel"),
                                          ("mmlspark_tpu.data.sparse", "NoSuchClass")])
 def test_unpickler_refuses_globals_without_a_port_counterpart(tmp_path, module, name):
     import pickle
@@ -238,7 +259,7 @@ def test_lookup_class_maps_both_prefixes():
     assert persisted_class_name(LightGBMClassificationModel) == "mmlspark_tpu." + name
     assert persisted_class_name(PortDummy) == f"{__name__}.PortDummy"
     with pytest.raises(LookupError, match="no counterpart"):
-        lookup_class("mmlspark_tpu.isolationforest.forest.IsolationForest")
+        lookup_class("mmlspark_tpu.dnn.model.DNNModel")
 
 
 def test_pipeline_model_round_trip_in_the_port(tmp_path):

@@ -6,11 +6,14 @@ The port always takes the reference's numpy split-and-hash path; its columns
 must equal the reference's bit for bit (no tolerance) whether the reference
 runs its host C++ library (``murmur3_split_hash_native``) or its numpy
 fallback (``MMLSPARK_TPU_NATIVE=off``), and must reproduce
-``tests/fixtures/golden_matrix_vw.csv``.
+``tests/fixtures/golden_matrix_vw.csv``. When the in-tree library is not
+built, the fixture compiles it into a temp directory, so the ``native``
+cases run in a fresh checkout.
 """
 
 import csv
 import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -43,8 +46,35 @@ from mmlspark_tpu_torch.vw import VowpalWabbitFeaturizer, VowpalWabbitInteractio
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "golden_matrix_vw.csv")
 
 
+def _build_native_library(tmp_path_factory):
+    """The reference's host library: the in-tree build when one exists,
+    else ``native/mmlspark_native.cpp`` compiled with the Makefile's flags
+    into this process's temp directory (never ``make -C native``, which
+    another test worker may be running). None without ``g++``."""
+    import shutil
+
+    import mmlspark_tpu.native as native
+
+    lib = native.load_library()
+    if lib is not None:
+        return lib
+    if shutil.which("g++") is None:
+        return None
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = str(tmp_path_factory.mktemp("native") / "libmmlspark_native.so")
+    subprocess.run(["g++", "-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-shared", "-o",
+                    out, os.path.join(root, "native", "mmlspark_native.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    return native.load_library(out)
+
+
+@pytest.fixture(scope="session")
+def native_library(tmp_path_factory):
+    return _build_native_library(tmp_path_factory)
+
+
 @pytest.fixture(params=["native", "off"])
-def ref(request, monkeypatch):
+def ref(request, monkeypatch, native_library):
     """The reference's VW modules under one of its two hashing paths; the
     library reads ``MMLSPARK_TPU_NATIVE`` at each load."""
     import mmlspark_tpu.native as native
@@ -55,8 +85,10 @@ def ref(request, monkeypatch):
     if request.param == "off":
         monkeypatch.setenv("MMLSPARK_TPU_NATIVE", "off")
         assert native.load_library() is None
-    elif native.load_library() is None:
-        pytest.skip("the reference's host library is not built")
+    elif native_library is None:
+        pytest.skip("no g++ to build the reference's host library")
+    else:
+        assert native.load_library() is not None
     return dict(vw=jvw, sparse=jsparse, Table=JTable)
 
 

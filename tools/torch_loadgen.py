@@ -45,14 +45,15 @@ the reference's harness, so that the campaign measures the fleet and not
 its own process: the closed-loop clients post from a process of their own
 on keep-alive connections (this process runs the router, the registry and
 the controller under one interpreter lock), and the log is folded for the
-breaker-trip and replica-shed counts only after the load stops. ``--payload sar`` exits
-with a message: the SAR payload waits for the port of
-``recommendation/``.
+breaker-trip and replica-shed counts only after the load stops. ``--payload sar``
+serves ``sar_demo_factory``'s seeded SAR top-k from every replica, on the
+card unless ``--device cpu`` is given.
 
 Usage:
   python tools/torch_loadgen.py --out /tmp/fleet-campaign --short
   python tools/torch_loadgen.py --short --malformed --out fleet-campaign
   python tools/torch_loadgen.py --quality --out quality-campaign
+  python tools/torch_loadgen.py --payload sar --policy consistent_hash --short
 """
 
 import argparse
@@ -387,13 +388,18 @@ def run_campaign(args):
 
     workdir = tempfile.mkdtemp(prefix="mmlspark-tpu-torch-fleet-")
     store = ModelStore(os.path.join(workdir, "models"))
-    # the affine payload only: main() refuses sar until recommendation/ is ported
-    store.commit(json.dumps(AFFINE_V1), name="model")
-    factory = "mmlspark_tpu_torch.serving.fleet:store_model_factory"
-    hot_swap = {
-        "loader": "mmlspark_tpu_torch.serving.fleet:store_model_loader",
-        "root": workdir, "name": "model", "poll_s": 0.2,
-    }
+    if args.payload == "affine":
+        store.commit(json.dumps(AFFINE_V1), name="model")
+        factory = "mmlspark_tpu_torch.serving.fleet:store_model_factory"
+        hot_swap = {
+            "loader": "mmlspark_tpu_torch.serving.fleet:store_model_loader",
+            "root": workdir, "name": "model", "poll_s": 0.2,
+        }
+        spec_extra = None
+    else:
+        factory = "mmlspark_tpu_torch.serving.fleet:sar_demo_factory"
+        hot_swap = None
+        spec_extra = {"sar": {"device": args.device}}
 
     registry = RegistrationService(ttl_s=2.0).start()
     sup = ReplicaSupervisor(
@@ -405,6 +411,7 @@ def run_campaign(args):
         registry_url=registry.info.url,
         registry_heartbeat_s=0.2,
         hot_swap=hot_swap,
+        spec_extra=spec_extra,
         server_options={
             "max_batch_size": 8, "max_latency_ms": 1.0,
             "max_pending": 32, "shed_retry_after_s": 0.05,
@@ -629,7 +636,7 @@ def run_campaign(args):
     )
     steady_p99_ms = _quantile(steady, 0.99) * 1e3
     # the affine payload is judged against the SLO's tail target; the SAR
-    # payload (when its module is ported) gets the reference's looser budget
+    # payload gets the reference's looser budget
     p99_target_ms = args.p99_target or (
         targets.p99_ms if args.payload == "affine" else 250.0
     )
@@ -1110,6 +1117,8 @@ def main(argv=None):
                         default="affine",
                         help="campaign model: hot-swappable affine, or "
                              "SAR top-k recommendation")
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help="device the SAR payload's replicas fit and score on")
     parser.add_argument("--policy", choices=("least_loaded",
                                              "consistent_hash"),
                         default="least_loaded")
@@ -1130,11 +1139,6 @@ def main(argv=None):
                              "shedding while healthy clients keep being "
                              "served")
     args = parser.parse_args(argv)
-    if args.payload == "sar" and not args.quality:
-        print("tools/torch_loadgen.py: the sar payload waits for the port of "
-              "recommendation/ (mmlspark_tpu_torch has no recommendation.sar yet)",
-              file=sys.stderr)
-        return 2
     os.makedirs(args.out, exist_ok=True)
     # shared across the router, the controller, and every replica process;
     # truncate so a re-run into the same --out folds only its own campaign.
