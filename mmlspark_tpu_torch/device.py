@@ -8,7 +8,8 @@ reports CPU numbers under a device's name.
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Iterator, Union
 
 import torch
 
@@ -29,3 +30,22 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
 
+
+
+@contextlib.contextmanager
+def float32_exact() -> Iterator[None]:
+    """Float32 convolutions and matmuls in full float32 for the block's
+    duration: cuDNN's TF32 (on by PyTorch's default) and cuBLAS's TF32 off,
+    the previous settings restored after. The deep models' float32 paths
+    run under it, so the card holds the reference's float32 arithmetic
+    without a process-wide switch."""
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                        benchmark=torch.backends.cudnn.benchmark,
+                                        deterministic=torch.backends.cudnn.deterministic,
+                                        allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul

@@ -2,8 +2,8 @@
 
 Each takes plain numpy state — ``mmlspark_tpu`` ``Booster.to_dict()``, a
 ``BinMapper``'s arrays, a VW model's param values, the fitted arrays of an
-isolation forest, a SAR, a KNN index or a tabular LIME model — so this
-module imports nothing of the JAX package.
+isolation forest, a SAR, a KNN index, a tabular LIME model or a ResNet's
+parameter tree — so this module imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -136,3 +136,55 @@ def tabular_lime_model_from_jax(columnMeans, columnSTDs, model, **params):
     return TabularLIMEModel(columnMeans=np.array(columnMeans, dtype=np.float64),
                             columnSTDs=np.array(columnSTDs, dtype=np.float64), model=model,
                             **params)
+
+
+def resnet_params_from_jax(params: Any, device: Any = None):
+    """The port's ResNet from a JAX zoo ResNet's parameter tree (numpy
+    arrays, as ``init_resnet`` makes them or ``jax.device_get`` returns
+    them): ``(tree, ResNet)``, the tree as float32 numpy and the module on
+    ``device`` (default the card)."""
+    from mmlspark_tpu_torch.device import resolve_device
+    from mmlspark_tpu_torch.models.resnet import ResNet
+
+    tree = _float32_tree(params)
+    return tree, ResNet(tree, device=resolve_device(device))
+
+
+def _float32_tree(params: Any) -> Any:
+    from mmlspark_tpu_torch.core.pytree import tree_map
+
+    return tree_map(lambda a: np.array(a, dtype=np.float32), params)
+
+
+#: the params of an ImageFeaturizer that carry over as they are
+FEATURIZER_PARAMS = ("inputCol", "outputCol", "cutOutputLayers", "inputHeight", "inputWidth",
+                     "autoResize", "scale", "batchSize")
+
+
+def dnn_model_from_jax(model: Any, **params):
+    """The port's :class:`ImageFeaturizer` from a JAX ``ImageFeaturizer``
+    whose backbone is the zoo ResNet (``applyFn`` unset, or the JAX zoo's
+    ``resnet_apply``): its params and its weights as numpy. ``params`` are
+    the port model's other params (``device``). A JAX ``applyFn`` (a
+    ``DNNModel``'s, a pipeline stage, an expert, a featurizer's own
+    backbone) is a jax function and cannot cross: this raises
+    ``ValueError`` for it; rebuild such a model with a torch callable
+    (``from_torch``, ``from_onnx``) and carry its params."""
+    from mmlspark_tpu_torch.image import ImageFeaturizer
+
+    kind = type(model).__name__
+    fns = {name: model.getOrDefault(name) for name in
+           ("applyFn", "pipelineStageFn", "expertFn") if name in model.params}
+    if kind == "ImageFeaturizer":
+        fn = fns.get("applyFn")
+        if fn is None or (getattr(fn, "__name__", "") == "resnet_apply"
+                          and getattr(fn, "__module__", "").endswith("models.resnet")):
+            values = {name: model.getOrDefault(name) for name in FEATURIZER_PARAMS}
+            return ImageFeaturizer(modelParams=_float32_tree(model.getOrDefault("modelParams")),
+                                   **values, **params)
+    used = sorted(k for k, v in fns.items() if v is not None)
+    raise ValueError(
+        f"a JAX {kind}'s {', '.join(used) or 'backbone'} is a jax function and cannot "
+        "cross to the port; only an ImageFeaturizer over the zoo ResNet carries over. "
+        "Rebuild the network as a torch module (from_torch, from_onnx) and carry its params"
+    )

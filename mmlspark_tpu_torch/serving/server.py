@@ -619,6 +619,17 @@ class _ListenerMixin:
                     if admission is not None:
                         admission.release()
 
+            def _reply_lost(self, span, rid: str, exc: BaseException) -> None:
+                """A reply that could not be written. Its ``serving.request``
+                span was recorded before the write with the status that was
+                computed, so the loss is traced as a zero-length
+                ``serving.reply`` child of it with status ``disconnect``,
+                and counted as a failed reply."""
+                tracer = get_tracer()
+                tracer.finish(tracer.start_span("serving.reply", parent=span),
+                              status="disconnect")
+                loop.note_reply_failure(rid, exc)
+
             def _client_id(self) -> str:
                 """Poison-breaker key: an explicit X-Client-Id beats the
                 peer address (routers/proxies collapse many clients onto
@@ -641,15 +652,16 @@ class _ListenerMixin:
                 data = json.dumps({
                     "error": {"kind": kind, "detail": detail, "rid": rid},
                 }).encode()
+                # recorded before the reply, as on the served path
+                tracer.finish(span, status="400")
                 try:
                     self._reply_bytes(
                         400, data,
                         extra_headers={TRACE_HEADER: span.trace_id},
                     )
-                except OSError:
-                    tracer.finish(span, status="disconnect")
+                except OSError as e:
+                    self._reply_lost(span, rid, e)
                     return
-                tracer.finish(span, status="400")
                 bus = get_bus()
                 if bus.active:
                     bus.publish(RequestServed(
@@ -683,6 +695,10 @@ class _ListenerMixin:
                 if breaker is not None and breaker.blocked(client):
                     breaker.note_shed(client)
                     retry_after = f"{breaker.reset_s:g}"
+                    # the span is recorded BEFORE the reply: once the client
+                    # holds its answer the span exists, even if this process
+                    # dies on the next line
+                    tracer.finish(span, status="429")
                     self._reply_bytes(
                         429, json.dumps({
                             "error": {"kind": "malformed-rate",
@@ -694,7 +710,6 @@ class _ListenerMixin:
                             TRACE_HEADER: span.trace_id,
                         },
                     )
-                    tracer.finish(span, status="429")
                     bus = get_bus()
                     if bus.active:
                         bus.publish(RequestShed(
@@ -737,6 +752,10 @@ class _ListenerMixin:
                     status, data = 504, b'{"error": "timeout"}'
                 else:
                     status, data = req.status, req.response
+                # the span is recorded BEFORE the reply is written: a replica
+                # killed or retired once the client holds its answer has
+                # already recorded it (the fleet's trace continuity)
+                tracer.finish(span, status=str(status))
                 try:
                     self._reply_bytes(
                         status, data,
@@ -746,10 +765,8 @@ class _ListenerMixin:
                     # client disconnect on the reply path: answer computed
                     # but unwritable — count it, don't stack-trace (see
                     # docs/observability.md)
-                    loop.note_reply_failure(req.rid, e)
-                    tracer.finish(span, status="disconnect")
+                    self._reply_lost(span, req.rid, e)
                     return
-                tracer.finish(span, status=str(status))
                 bus = get_bus()
                 if bus.active:
                     bus.publish(RequestServed(

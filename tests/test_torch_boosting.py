@@ -16,135 +16,20 @@ ties apart.
 """
 
 import dataclasses
-import signal
 
 import numpy as np
 import pytest
 import torch
 
 from mmlspark_tpu_torch.data.table import Table
-from mmlspark_tpu_torch.lightgbm import LightGBMClassifier
 from mmlspark_tpu_torch.lightgbm import binning as tbinning
 from mmlspark_tpu_torch.lightgbm import objectives as tobj
 from mmlspark_tpu_torch.lightgbm import train as ttrain
-from mmlspark_tpu_torch.lightgbm.booster import Booster
-from mmlspark_tpu_torch.lightgbm.convert import booster_from_jax
 from mmlspark_tpu_torch.ops import hopper_histogram as hh
 from mmlspark_tpu_torch.runtime.faults import FaultPlan, inject_faults
 
-
-def _import_reference():
-    """Import the JAX package's fit path through the u_histogram shim (see
-    ``tests/test_torch_gbdt.py``): a dict holding the barrier rule stands
-    in for jax 0.9's ``batching.primitive_batchers`` while the module
-    imports. The JAX package itself is not changed."""
-    from jax._src.lax import lax as lax_internal
-    from jax.interpreters import batching
-
-    saved = batching.primitive_batchers
-    batching.primitive_batchers = {lax_internal.optimization_barrier_p: None}
-    try:
-        import mmlspark_tpu.ops.u_histogram  # noqa: F401
-    finally:
-        batching.primitive_batchers = saved
-
-
-try:
-    _import_reference()
-except ModuleNotFoundError as err:
-    if err.name != "jax":
-        raise
-
-TIME_LIMIT_S = 180
-STRUCTURE = ("split_feature", "split_bin", "left_child", "right_child", "is_leaf")
-BASE = dict(num_iterations=5, num_leaves=15, max_bin=31, learning_rate=0.2,
-            min_gain_to_split=1e-3)
-PATHS = {
-    "compare": {},
-    "u_bf16": dict(histogram_method="u"),
-    "u_quant": dict(histogram_method="u", use_quantized_grad=True),
-}
-
-
-@pytest.fixture(autouse=True)
-def _time_limit():
-    """Each test of this file fails after TIME_LIMIT_S seconds."""
-
-    def expire(signum, frame):
-        raise TimeoutError(f"test ran past its {TIME_LIMIT_S} s limit")
-
-    saved = signal.signal(signal.SIGALRM, expire)
-    signal.alarm(TIME_LIMIT_S)
-    try:
-        yield
-    finally:
-        signal.alarm(0)
-        signal.signal(signal.SIGALRM, saved)
-
-
-@pytest.fixture(scope="module")
-def ref():
-    import jax
-    import mmlspark_tpu.lightgbm.binning as jbinning
-    import mmlspark_tpu.lightgbm.objectives as jobj
-    import mmlspark_tpu.lightgbm.train as jtrain
-    from mmlspark_tpu.data.table import Table as JTable
-    from mmlspark_tpu.lightgbm import LightGBMClassifier as JClassifier
-    from mmlspark_tpu.lightgbm.procfit import model_texts_close
-
-    return dict(jax=jax, binning=jbinning, obj=jobj, train=jtrain, Table=JTable,
-                Classifier=JClassifier, texts_close=model_texts_close)
-
-
-def _case(seed, num_class=2, n=2000, f=8):
-    """Gaussian features; per-class scores with noise; the label is the
-    argmax (multiclass) or the sign of a difference (binary); row weights."""
-    rng = np.random.default_rng(seed)
-    X = rng.normal(size=(n, f))
-    s = np.stack([X[:, 0] + X[:, 1] * X[:, 2], np.sin(X[:, 3]) * 2 - X[:, 0],
-                  X[:, 4] + 0.5 * X[:, 5], X[:, 6] - X[:, 7], X[:, 2] * X[:, 5]], 1)
-    s = s[:, :max(num_class, 2)] + rng.normal(size=(n, max(num_class, 2)))
-    y = s.argmax(1) if num_class > 2 else (s[:, 0] > s[:, 1])
-    return X, y.astype(np.float64), rng.uniform(0.5, 2.0, n)
-
-
-def _opts(num_class, **kw):
-    if num_class > 2:
-        kw = {"objective": "multiclass", "num_class": num_class, **kw}
-    else:
-        kw = {"objective": "binary", **kw}
-    return {**BASE, **kw}
-
-
-def _fit_both(ref, X, y, w=None, valid=None, **opts):
-    """The same fit through both packages: (port result, reference result,
-    port bins, port mapper)."""
-    max_bin = opts["max_bin"]
-    bt, mt = tbinning.bin_dataset(X, max_bin=max_bin)
-    bj, mj = ref["binning"].bin_dataset(X, max_bin=max_bin)
-    tvalid = jvalid = None
-    if valid is not None:
-        Xv, yv = valid
-        tvalid = [("v", tbinning.bin_dataset(Xv, mapper=mt)[0], yv, None)]
-        jvalid = [("v", ref["binning"].bin_dataset(Xv, mapper=mj)[0], yv, None)]
-    rt = ttrain.train(bt, y, ttrain.TrainOptions(**opts), w=w, mapper=mt, valid_sets=tvalid,
-                      device="cpu")
-    rj = ref["train"].train(bj, y, ref["train"].TrainOptions(**opts), w=w, mapper=mj,
-                            valid_sets=jvalid)
-    return rt, rj, bt, mt
-
-
-def _same_trees(tb, jb, atol=1e-5):
-    assert tb.num_trees == np.asarray(jb.split_feature).shape[0]
-    assert tb.num_classes == jb.num_classes
-    for field in STRUCTURE:
-        assert np.array_equal(getattr(tb, field), np.asarray(getattr(jb, field))), field
-    np.testing.assert_allclose(tb.leaf_values, np.asarray(jb.leaf_values), atol=atol)
-
-
-def _same_margins(tb, jb, X, atol=1e-5):
-    np.testing.assert_allclose(tb.raw_margin(X, device="cpu"), np.asarray(jb.raw_margin(X)),
-                               atol=atol)
+from _torch_boosting_cases import _case, _estimators, _fit_both, _opts, _same_margins, _same_trees
+from _torch_boosting_cases import _time_limit, ref  # noqa: F401  (fixtures)
 
 
 # -- the multiclass objective ---------------------------------------------------
@@ -197,50 +82,6 @@ def test_multiclass_metrics_match_jax(ref, metric):
 # -- multiclass fits --------------------------------------------------------------
 
 
-@pytest.mark.parametrize("num_class", [3, 5])
-def test_multiclass_fit_matches_jax(ref, num_class):
-    X, y, w = _case(seed=10 + num_class, num_class=num_class)
-    rt, rj, _, _ = _fit_both(ref, X, y, w, **_opts(num_class))
-    tb, jb = rt.booster, rj.booster
-    assert tb.num_classes == num_class and tb.num_trees == 5 * num_class
-    assert rt.stats.trees == 5 * num_class
-    _same_trees(tb, jb)
-    _same_margins(tb, jb, X)
-    assert ref["texts_close"](tb.model_to_string(), jb.model_to_string())
-    assert f"num_class={num_class}" in tb.model_to_string()
-
-
-@pytest.mark.parametrize("max_bin", [31, 63])
-def test_multiclass_quantized_text_is_the_references(ref, max_bin):
-    """One stochastic-rounding draw per (iteration, column), integer
-    histograms and the reference's gradients: the text byte for byte."""
-    X, y, w = _case(seed=20, num_class=3)
-    rt, rj, _, _ = _fit_both(ref, X, y, w, **_opts(3, max_bin=max_bin, histogram_method="u",
-                                                   use_quantized_grad=True))
-    assert rt.stats.quantized and rt.stats.histogram_path == "u"
-    assert rt.booster.model_to_string() == rj.booster.model_to_string()
-
-
-@pytest.mark.parametrize("mode", ["multiclass", "goss", "dart", "rf", "depthwise"])
-@pytest.mark.parametrize("path", ["u_bf16", "u_quant"])
-def test_modes_on_the_u_path_match_jax(ref, mode, path):
-    """Each new mode on the U path, with and without quantized gradients;
-    quantized fits write the reference's text byte for byte (depthwise
-    leaves take the right child's sums in the reference's fused
-    multiply-subtract)."""
-    num_class = 3 if mode in ("multiclass", "dart") else 2
-    kw = dict(multiclass={}, goss=dict(boosting_type="goss"),
-              dart=dict(boosting_type="dart", drop_rate=0.3),
-              rf=dict(boosting_type="rf", bagging_fraction=0.7, bagging_freq=1),
-              depthwise=dict(growth="depthwise", max_depth=4))[mode]
-    X, y, w = _case(seed=30, num_class=num_class)
-    rt, rj, _, _ = _fit_both(ref, X, y, w, **_opts(num_class, **PATHS[path], **kw))
-    assert rt.stats.histogram_path == "u"
-    _same_trees(rt.booster, rj.booster)
-    if path == "u_quant":
-        assert rt.booster.model_to_string() == rj.booster.model_to_string()
-
-
 def test_multiclass_chunked_u_writes_the_resident_text(monkeypatch):
     X, y, w = _case(seed=31, num_class=3, n=1500)
     bt, mt = tbinning.bin_dataset(X, max_bin=31)
@@ -251,20 +92,6 @@ def test_multiclass_chunked_u_writes_the_resident_text(monkeypatch):
     chunked = ttrain.train(bt, y, opts, w=w, mapper=mt, device="cpu")
     assert chunked.stats.histogram_path == "u_chunked" and chunked.stats.u_chunks > 1
     assert chunked.booster.model_to_string() == resident.booster.model_to_string()
-
-
-def test_multiclass_early_stopping_matches_jax(ref):
-    X, y, w = _case(seed=40, num_class=3, n=2400)
-    kw = _opts(3, num_iterations=30, learning_rate=0.5, metric="multi_logloss",
-               early_stopping_round=2)
-    rt, rj, _, _ = _fit_both(ref, X[:1600], y[:1600], w[:1600], valid=(X[1600:], y[1600:]),
-                             **kw)
-    hist_t, hist_j = rt.evals["v"]["multi_logloss"], rj.evals["v"]["multi_logloss"]
-    assert len(hist_t) == len(hist_j) < 30  # stopped early
-    np.testing.assert_allclose(hist_t, hist_j, rtol=1e-6)
-    assert rt.best_iteration == rj.best_iteration < len(hist_t)
-    assert rt.booster.best_iteration == rj.booster.best_iteration
-    _same_trees(rt.booster, rj.booster)
 
 
 # -- GOSS -------------------------------------------------------------------------
@@ -384,22 +211,6 @@ def test_dart_oom_retry_reuses_the_drop_set(ref):
 # -- depthwise growth -------------------------------------------------------------
 
 
-@pytest.mark.parametrize("depth", [3, 7])
-@pytest.mark.parametrize("num_class", [2, 3])
-def test_depthwise_fit_matches_jax(ref, depth, num_class):
-    """Depth 7 has a 64-node level: one plain pass here, two grouped
-    launches on the card (``test_wide_level_groups_equal_one_pass``)."""
-    X, y, w = _case(seed=100 + depth, num_class=num_class)
-    kw = _opts(num_class, growth="depthwise", max_depth=depth)
-    rt, rj, _, _ = _fit_both(ref, X, y, w, **kw)
-    tb = rt.booster
-    assert tb.left_child.shape[1] == 2 ** (depth + 1) - 1 == ttrain.TrainOptions(**kw).num_nodes
-    assert rt.stats.passes == depth * tb.num_trees
-    assert len(rt.stats.level_launches) == depth
-    _same_trees(tb, rj.booster)
-    _same_margins(tb, rj.booster, X)
-
-
 def test_depthwise_quantized_u_matches_jax(ref, caplog):
     """At depth 7 the quantized U levels (1-32 nodes) are integer-exact and
     the 64-node level takes the compare-built pass on exact stats, as the
@@ -465,16 +276,6 @@ def test_node_groups_respect_shared_memory():
             assert len(groups) == -(-k // cap)
 
 
-# -- the estimator and carried boosters -------------------------------------------
-
-
-def _estimators(ref, **params):
-    common = {**dict(numIterations=4, numLeaves=15, maxBin=31, learningRate=0.2,
-                     minGainToSplit=1e-3), **params}
-    return (LightGBMClassifier(device="cpu", **common),
-            ref["Classifier"](parallelism="serial", **common))
-
-
 def test_estimator_multiclass_columns_match_jax(ref):
     X, y, w = _case(seed=120, num_class=4)
     est_t, est_j = _estimators(ref, weightCol="w")
@@ -489,47 +290,6 @@ def test_estimator_multiclass_columns_match_jax(ref):
         np.testing.assert_allclose(ot[col], np.asarray(oj[col]), atol=1e-5)
     np.testing.assert_allclose(ot["probability"].sum(axis=1), 1.0, atol=1e-6)
     assert np.array_equal(ot["prediction"], np.asarray(oj["prediction"]))
-
-
-def test_estimator_multiclass_validation_and_init_scores_match_jax(ref):
-    """validationIndicatorCol with multi_logloss, then a warm start from an
-    initScoreCol of C columns."""
-    X, y, _ = _case(seed=130, num_class=3, n=2400)
-    flag = np.random.default_rng(3).uniform(size=len(y)) < 0.3
-    params = dict(validationIndicatorCol="is_valid", metric="multi_logloss",
-                  earlyStoppingRound=2, numIterations=8)
-    est_t, est_j = _estimators(ref, **params)
-    mt = est_t.fit(Table({"features": X, "label": y, "is_valid": flag}))
-    mj = est_j.fit(ref["Table"]({"features": X, "label": y, "is_valid": flag}))
-    _same_trees(mt.booster, mj.booster)
-    np.testing.assert_allclose(mt._train_evals["valid_0"]["multi_logloss"],
-                               mj._train_evals["valid_0"]["multi_logloss"], rtol=1e-6)
-    init = mt.booster.raw_margin(X, device="cpu")
-    assert init.shape == (len(y), 3)
-    warm_t, warm_j = _estimators(ref, initScoreCol="init")
-    dt = warm_t.fit(Table({"features": X, "label": y, "init": init})).booster
-    dj = warm_j.fit(ref["Table"]({"features": X, "label": y, "init": init})).booster
-    np.testing.assert_array_equal(dt.init_score, np.zeros(3, np.float32))
-    _same_trees(dt, dj)
-
-
-@pytest.mark.parametrize("kind", ["multiclass", "rf", "dart", "depthwise"])
-def test_carried_booster_predicts_as_jax(ref, kind):
-    num_class = 3 if kind in ("multiclass", "dart") else 2
-    kw = dict(multiclass={}, rf=dict(boosting_type="rf", bagging_fraction=0.7, bagging_freq=1),
-              dart=dict(boosting_type="dart", drop_rate=0.3),
-              depthwise=dict(growth="depthwise", max_depth=5))[kind]
-    X, y, w = _case(seed=140, num_class=num_class, n=1500)
-    bj, mj = ref["binning"].bin_dataset(X, max_bin=31)
-    jb = ref["train"].train(bj, y, ref["train"].TrainOptions(**_opts(num_class, **kw)), w=w,
-                            mapper=mj).booster
-    tb = booster_from_jax(jb.to_dict())
-    np.testing.assert_allclose(tb.raw_margin(X, device="cpu"), np.asarray(jb.raw_margin(X)),
-                               atol=1e-6)
-    assert tb.model_to_string() == jb.model_to_string()
-    back = Booster.from_string(tb.model_to_string())
-    np.testing.assert_allclose(back.raw_margin(X, device="cpu"), tb.raw_margin(X, device="cpu"),
-                               atol=1e-5)
 
 
 # -- the boosting types' contracts ------------------------------------------------

@@ -16,8 +16,6 @@ kernels' plain versions, the JAX package as its own tests run it.
   so its leaf values may differ from ours in the last ulp).
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -30,60 +28,10 @@ from mmlspark_tpu_torch.lightgbm import train as ttrain
 from mmlspark_tpu_torch.lightgbm.convert import bin_mapper_from_jax
 from mmlspark_tpu_torch.ops import u_histogram as tu
 
-
-def _import_reference():
-    """Import the JAX package's fit path through the u_histogram shim it
-    needs on jax 0.9 (see ``tests/test_torch_gbdt.py``); the JAX package
-    itself is not changed."""
-    from jax._src.lax import lax as lax_internal
-    from jax.interpreters import batching
-
-    saved = batching.primitive_batchers
-    batching.primitive_batchers = {lax_internal.optimization_barrier_p: None}
-    try:
-        import mmlspark_tpu.ops.u_histogram  # noqa: F401
-    finally:
-        batching.primitive_batchers = saved
-
-
-try:
-    _import_reference()
-    import jax
-    import jax.numpy as jnp
-    import mmlspark_tpu.lightgbm.binning as jbinning
-    import mmlspark_tpu.lightgbm.bundling as jbund
-    import mmlspark_tpu.lightgbm.train as jtrain
-    import mmlspark_tpu.ops.u_histogram as ju
-    from mmlspark_tpu.lightgbm import LightGBMClassifier as JLightGBMClassifier
-    from mmlspark_tpu.data.table import Table as JTable
-except ModuleNotFoundError as err:
-    if err.name != "jax":
-        raise
-
-STRUCTURE = ("split_feature", "split_bin", "left_child", "right_child", "is_leaf")
-
-
-def one_hot_case(n=2000, blocks=4, card=5, conts=2, seed=0, conflict=0.0):
-    """Blocks of value-bearing one-hot indicators (exclusive within a block)
-    and dense continuous columns; ``conflict`` sets a second hot column in
-    that share of a block's rows. The label carries noise, so leaves stay
-    mixed and no split is chosen on a gain at float32 noise level."""
-    rng = np.random.default_rng(seed)
-    X = np.zeros((n, blocks * card), np.float64)
-    for b in range(blocks):
-        hot = rng.integers(0, card, n)
-        X[np.arange(n), b * card + hot] = rng.uniform(0.5, 2.0, n)
-        if conflict:
-            rows = np.nonzero(rng.uniform(size=n) < conflict)[0]
-            X[rows, b * card + (hot[rows] + 1) % card] = 1.0
-    X = np.hstack([X, rng.normal(size=(n, conts))])
-    logit = X[:, 0] + 2 * X[:, (card + 2) % (blocks * card)] + X[:, -1] - 1.2
-    y = (logit + rng.logistic(size=n) > 0).astype(np.float64)
-    return X, y
-
-
-def _spec_dict(spec):
-    return None if spec is None else dataclasses.asdict(spec)
+from _torch_bundling_cases import (
+    FIT, JLightGBMClassifier, JTable, PATHS, STRUCTURE, _spec_dict, jbinning, jbund, jnp,
+    jtrain, ju, one_hot_case,
+)
 
 
 # -- the plan, packing and maps ------------------------------------------------
@@ -203,50 +151,6 @@ def test_expand_bundled_matches_jax(quant, k):
         scale = np.abs(stats).sum()
         assert np.abs(port.numpy() - ref).max() <= 1e-5 * scale + 1e-6
         assert np.abs(port.numpy() - dense).max() <= 1e-5 * scale + 1e-6
-
-
-# -- fits ------------------------------------------------------------------------
-
-FIT = dict(objective="binary", num_iterations=4, num_leaves=15, max_bin=31, learning_rate=0.2)
-# (name, histogram_method, quantized, MMLSPARK_TPU_U_BUDGET)
-PATHS = [
-    ("compare", None, False, None),
-    ("u_bf16", "u", False, None),
-    ("u_quant", "u", True, None),
-    ("chunked_bf16", "u", False, "40000"),
-    ("chunked_quant", "u", True, "40000"),
-]
-
-
-def _fit_both(monkeypatch, X, y, budget, bundling=True, cats=(), **kw):
-    if budget is None:
-        monkeypatch.delenv("MMLSPARK_TPU_U_BUDGET", raising=False)
-    else:
-        monkeypatch.setenv("MMLSPARK_TPU_U_BUDGET", budget)
-    bkw = dict(max_bin=FIT["max_bin"], feature_bundling=bundling,
-               categorical_features=list(cats) or None)
-    bt, mt = tbinning.bin_dataset(X, **bkw)
-    bj, mj = jbinning.bin_dataset(X, **bkw)
-    opts = {**FIT, **kw}
-    rt = ttrain.train(bt, y, ttrain.TrainOptions(**opts), mapper=mt, device="cpu")
-    jb = jtrain.train(bj, y, jtrain.TrainOptions(**opts), mapper=mj).booster
-    return rt, jb, mt
-
-
-@pytest.mark.parametrize("subtraction", [True, False], ids=["sub", "nosub"])
-@pytest.mark.parametrize("name,method,quant,budget", PATHS, ids=[p[0] for p in PATHS])
-def test_bundled_fit_matches_jax(monkeypatch, name, method, quant, budget, subtraction):
-    X, y = one_hot_case(seed=21)
-    rt, jb, mt = _fit_both(monkeypatch, X, y, budget, histogram_method=method,
-                           use_quantized_grad=quant, histogram_subtraction=subtraction)
-    assert mt.bundles is not None and mt.bundles.conflict_count == 0
-    assert rt.stats.histogram_path == name.split("_")[0].replace("chunked", "u_chunked")
-    assert rt.stats.quantized == quant
-    tb = rt.booster
-    for field in STRUCTURE:
-        assert np.array_equal(getattr(tb, field), getattr(jb, field)), field
-    np.testing.assert_allclose(tb.leaf_values, jb.leaf_values, atol=1e-5)
-    np.testing.assert_allclose(tb.raw_margin(X, device="cpu"), jb.raw_margin(X), atol=1e-5)
 
 
 @pytest.mark.parametrize("name,method,quant,budget", PATHS, ids=[p[0] for p in PATHS])

@@ -231,7 +231,7 @@ def test_pytree_tag_of_plain_structures_is_rebuilt(tmp_path):
 
 
 @pytest.mark.parametrize("module,name", [("jax.numpy", "zeros"),
-                                         ("mmlspark_tpu.dnn.model", "DNNModel"),
+                                         ("mmlspark_tpu.cognitive.services", "TextSentiment"),
                                          ("mmlspark_tpu.data.sparse", "NoSuchClass")])
 def test_unpickler_refuses_globals_without_a_port_counterpart(tmp_path, module, name):
     import pickle
@@ -245,11 +245,16 @@ def test_unpickler_refuses_globals_without_a_port_counterpart(tmp_path, module, 
 
 def test_unpickler_maps_reference_globals_onto_the_port(tmp_path):
     from mmlspark_tpu_torch.data.sparse import SparseRows
+    from mmlspark_tpu_torch.dnn import DNNModel
 
     path = tmp_path / "g.pkl"
     path.write_bytes(b"\x80\x02cmmlspark_tpu.data.sparse\nSparseRows\n.")
     with open(path, "rb") as fh:
         assert tser.load_pickle(fh) is SparseRows
+    # the deep models are ported: a pickled DNNModel class maps onto the port's
+    path.write_bytes(b"\x80\x02cmmlspark_tpu.dnn.model\nDNNModel\n.")
+    with open(path, "rb") as fh:
+        assert tser.load_pickle(fh) is DNNModel
 
 
 def test_lookup_class_maps_both_prefixes():
@@ -259,7 +264,11 @@ def test_lookup_class_maps_both_prefixes():
     assert persisted_class_name(LightGBMClassificationModel) == "mmlspark_tpu." + name
     assert persisted_class_name(PortDummy) == f"{__name__}.PortDummy"
     with pytest.raises(LookupError, match="no counterpart"):
-        lookup_class("mmlspark_tpu.dnn.model.DNNModel")
+        lookup_class("mmlspark_tpu.cognitive.services.TextSentiment")
+    # the deep models are ported: a saved DNNModel names the port's class
+    from mmlspark_tpu_torch.dnn import DNNModel
+
+    assert lookup_class("mmlspark_tpu.dnn.model.DNNModel") is DNNModel
 
 
 def test_pipeline_model_round_trip_in_the_port(tmp_path):

@@ -683,6 +683,70 @@ class TestServingEdge:
             status, _, _ = _post_raw(srv.info.url, b'{"features": [1.0]}')
             assert status != 400
 
+    def test_request_span_recorded_before_the_reply(self):
+        """The reply's ``serving.request`` span is recorded before the reply
+        is written, on the served path and on the poison breaker's 429: a
+        replica that dies once the client holds its answer keeps the span
+        (the fleet campaign's trace continuity)."""
+        from mmlspark_tpu_torch.observability.tracing import get_tracer
+        from mmlspark_tpu_torch.serving import ServingServer
+
+        def span_of(headers):
+            spans = [s for s in get_tracer().export(headers["X-Trace-Id"])
+                     if s["name"] == "serving.request"]
+            return spans[0]["status"] if len(spans) == 1 else spans
+
+        good = json.dumps({"features": [0.1, 0.2, 0.3]}).encode()
+        with ServingServer(
+            self._model(), input_col="features",
+            malformed_threshold=1, malformed_window_s=30.0, malformed_reset_s=30.0,
+        ) as srv:
+            status, _, headers = _post_raw(srv.info.url, good)
+            assert status == 200 and span_of(headers) == "200"
+            poison = {"X-Client-Id": "poison"}
+            status, _, headers = _post_raw(srv.info.url, b'{"features": bad', headers=poison)
+            assert status == 400 and span_of(headers) == "400"
+            status, _, headers = _post_raw(srv.info.url, good, headers=poison)
+            assert status == 429 and span_of(headers) == "429"
+
+    def test_lost_reply_is_traced_and_counted(self, monkeypatch):
+        """A reply whose write fails (a client that hung up) keeps its
+        ``serving.request`` span with the status that was computed, gains a
+        zero-length ``serving.reply`` child with status ``disconnect``, and
+        counts in ``serving_replies_failed_total``: on the served path and
+        on the 400."""
+        from mmlspark_tpu_torch.observability.tracing import get_tracer
+        from mmlspark_tpu_torch.serving import ServingServer
+        from mmlspark_tpu_torch.serving import server as server_mod
+
+        make = server_mod._ListenerMixin._make_handler
+
+        def failing_posts(self, loop, input_col):
+            class Handler(make(self, loop, input_col)):
+                def _reply_bytes(self, status, data, **kw):
+                    if self.command == "POST":
+                        self.close_connection = True
+                        raise BrokenPipeError("the client hung up")
+                    return super()._reply_bytes(status, data, **kw)
+
+            return Handler
+
+        monkeypatch.setattr(server_mod._ListenerMixin, "_make_handler", failing_posts)
+        seen = {s["span_id"] for s in get_tracer().export()}
+        with ServingServer(self._model(), input_col="features") as srv:
+            for body in (json.dumps({"features": [0.1, 0.2, 0.3]}).encode(),
+                         b'{"features": bad'):
+                with pytest.raises((urllib.error.URLError, ConnectionError)):
+                    _post_raw(srv.info.url, body, timeout=5)
+            failed = srv.loop._reg_replies_failed.value
+        spans = [s for s in get_tracer().export() if s["span_id"] not in seen]
+        lost = [s for s in spans if s["name"] == "serving.reply"]
+        assert [s["status"] for s in lost] == ["disconnect", "disconnect"]
+        assert all(s["duration"] >= 0.0 for s in lost)
+        parents = {s["span_id"]: s for s in spans if s["name"] == "serving.request"}
+        assert [parents[s["parent_id"]]["status"] for s in lost] == ["200", "400"]
+        assert failed == 2
+
 
 class TestFaultPlanMalformed:
     def test_take_malformed_drains_in_order(self):

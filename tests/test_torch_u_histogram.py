@@ -26,91 +26,17 @@ import numpy as np
 import pytest
 import torch
 
-from mmlspark_tpu_torch.data.table import Table
-from mmlspark_tpu_torch.lightgbm import LightGBMClassifier
-from mmlspark_tpu_torch.lightgbm import binning as tbinning
 from mmlspark_tpu_torch.lightgbm import train as ttrain
 from mmlspark_tpu_torch.ops import hopper_histogram as hh
 from mmlspark_tpu_torch.ops import u_histogram as tu
-from mmlspark_tpu_torch.runtime.faults import DeviceOomError, FaultPlan, inject_faults
+from mmlspark_tpu_torch.runtime.faults import DeviceOomError
 
-
-def _import_reference():
-    """Import the JAX package's U module through the shim it needs on jax
-    0.9, where ``mmlspark_tpu/ops/u_histogram.py`` fails at import (it tests
-    membership in ``batching.primitive_batchers``, which jax 0.9 no longer
-    makes iterable): while it imports, a plain dict that already holds the
-    barrier rule stands in; then the original table is restored. The JAX
-    package itself is not changed."""
-    from jax._src.lax import lax as lax_internal
-    from jax.interpreters import batching
-
-    saved = batching.primitive_batchers
-    batching.primitive_batchers = {lax_internal.optimization_barrier_p: None}
-    try:
-        import mmlspark_tpu.ops.u_histogram  # noqa: F401
-    finally:
-        batching.primitive_batchers = saved
-
-
-# At import, so that every pytest worker has the module before it collects
-# the JAX package's own test files. A machine without jax (the card's) runs
-# only the `cuda` tests, which need none of it.
-try:
-    _import_reference()
-    import jax
-    import jax.numpy as jnp
-    import mmlspark_tpu.lightgbm.binning as jbinning
-    import mmlspark_tpu.lightgbm.train as jtrain
-    import mmlspark_tpu.ops.u_histogram as ju
-    from mmlspark_tpu.lightgbm.objectives import auc
-    from mmlspark_tpu.ops import pallas_histogram as jp
-except ModuleNotFoundError as err:
-    if err.name != "jax":
-        raise
-
-WIDTHS = (32, 5, 17, 32, 2, 9, 31)
-
-
-def _mixed_case(seed=0, n=3000, k=5):
-    """``tests/test_u_histogram.py``'s case: mixed feature widths, node keys
-    in [-1, k+2) (some out of range)."""
-    rng = np.random.default_rng(seed)
-    bins = np.stack([rng.integers(0, w, size=n) for w in WIDTHS], axis=1).astype(np.uint8)
-    g = rng.normal(size=n).astype(np.float32)
-    h = rng.uniform(0.1, 1, size=n).astype(np.float32)
-    c = (rng.uniform(size=n) > 0.2).astype(np.float32)
-    node = rng.integers(-1, k + 2, size=n).astype(np.int32)
-    return bins, g, h, c, node
-
-
-def _jax_uniforms(key, n):
-    """The (2, n) uniforms ``stat_rows_quant`` draws from ``key``."""
-    kg, kh = jax.random.split(key)
-    return np.stack([np.asarray(jax.random.uniform(kk, (n,), dtype=jnp.float32))
-                     for kk in (kg, kh)])
-
-
-def _quant_stats(g, h, c, seed):
-    """The reference's quantized stats as its fits compute them: compiled,
-    where XLA fuses ``x * (127 / s) + u`` into a multiply-add and divides
-    by the constant 127 as a multiply by its reciprocal."""
-    key = jax.random.PRNGKey(seed)
-    ref = jax.jit(ju.stat_rows_quant)(jnp.asarray(g), jnp.asarray(h), jnp.asarray(c), key)
-    port = tu.stat_rows_quant(torch.from_numpy(g), torch.from_numpy(h), torch.from_numpy(c),
-                              torch.from_numpy(_jax_uniforms(key, len(g))))
-    return ref, port
-
-
-def _t(*arrays):
-    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-
-
-def _assert_bf16_close(port, ref):
-    """bf16 path: counts exact, g and h within 1e-5 * sum|x| + 1e-6."""
-    port, ref = np.asarray(port, np.float64), np.asarray(ref, np.float64)
-    np.testing.assert_array_equal(port[..., 2], ref[..., 2])
-    assert np.all(np.abs(port - ref) <= 1e-5 * np.abs(ref) + 1e-6)
+from _torch_u_histogram_cases import (
+    EDGES64, MASK64, Q64, WIDTHS, _as_int64, _assert_bf16_close, _card_case,
+    _check_scatter_plan, _device_ooms, _fired, _fit_case, _mirror_bin_scatter, _mixed_case,
+    _oom_fit, _pass_inputs, _plane_add, _port_pass, _quant_stats, _reference_pass, _stack, _t,
+    _wrapper_args, jnp, ju,
+)
 
 
 # -- layout -------------------------------------------------------------------
@@ -201,46 +127,6 @@ def test_histogram_acc_dtype_ladder():
         port = tu.histogram_acc_dtype(n, quant)
         ref = jnp.dtype(ju.histogram_acc_dtype(n, quant))
         assert str(port).removeprefix("torch.") == ref.name
-
-
-# -- histogram passes ---------------------------------------------------------
-
-
-def _pass_inputs(k, quant, seed=0, n=3000):
-    bins, g, h, c, node = _mixed_case(seed=seed, n=n, k=k)
-    if quant:
-        jstats, tstats = _quant_stats(g, h, c, seed + 100)
-    else:
-        jstats = tstats = None
-    return bins, g, h, c, node, jstats, tstats
-
-
-def _reference_pass(builder, bins, g, h, c, node, k, jstats, dequant):
-    js = ju.make_u_spec(32, len(WIDTHS), WIDTHS)
-    args = tuple(map(jnp.asarray, (g, h, c, node)))
-    kw = dict(stats=jstats, dequant=dequant)
-    if builder == "resident":
-        return ju.build_histograms_u(ju.build_u(jnp.asarray(bins), js), *args, k, js, **kw)
-    if builder == "chunked":
-        cs = ju.chunked_u_spec(len(bins), js, 1)
-        return ju.build_histograms_u_chunked(ju.prepare_chunked_bins(jnp.asarray(bins), cs),
-                                             *args, k, cs, **kw)
-    return jp.build_histograms_bin_scatter(jnp.asarray(bins.astype(np.int32)), *args, k, js,
-                                           interpret=True, **kw)
-
-
-def _port_pass(builder, bins, g, h, c, node, k, tstats, dequant):
-    ts = tu.make_u_spec(32, len(WIDTHS), WIDTHS)
-    (bt,) = _t(bins.T)
-    args = _t(g, h, c, node)
-    kw = dict(stats=tstats, dequant=dequant)
-    if builder == "resident":
-        return tu.build_histograms_u(tu.build_u(bt, ts), *args, k, ts, **kw)
-    if builder == "chunked":
-        cs = tu.chunked_u_spec(len(bins), ts, 1)
-        return tu.build_histograms_u_chunked(tu.prepare_chunked_bins(bt, cs), *args, k, cs,
-                                             **kw)
-    return hh.build_histograms_bin_scatter(bt, *args, k, ts, **kw)
 
 
 @pytest.mark.parametrize("builder", ["resident", "chunked", "bin_scatter"])
@@ -338,13 +224,6 @@ def test_cpu_tensors_take_the_plain_versions():
     assert (tu.fused_panel_dot.launches, hh.bin_scatter.launches) == before
 
 
-def _wrapper_args(n=64, k=2):
-    ts = tu.make_u_spec(32, len(WIDTHS), WIDTHS)
-    return dict(u=torch.zeros((ts.k_pad, 512), dtype=torch.uint8),
-                stats=torch.zeros((3, n), dtype=torch.int8),
-                node=torch.zeros(n, dtype=torch.int32), num_nodes=k)
-
-
 @pytest.mark.parametrize(
     "bad",
     [
@@ -401,25 +280,6 @@ def test_panel_dot_plan_covers_u_and_fits_shared_memory(k, quant, n):
     assert plan.grid_y * plan.rows_per_block >= n > (plan.grid_y - 1) * plan.rows_per_block
 
 
-def _check_scatter_plan(per_feature, k, quant, budget):
-    spec = tu.make_u_spec(256, 28 if per_feature is None else len(per_feature), per_feature)
-    plan = hh.bin_scatter_plan(11_000_000, spec, k, quant, num_sms=132)
-    assert plan.smem_bytes <= budget <= hh.SMEM_MAX
-    assert plan.smem_bytes == plan.chunk_rows * 3 * k * (4 if quant else 8)
-    assert plan.grid_x * plan.chunk_rows >= spec.k > (plan.grid_x - 1) * plan.chunk_rows
-    # the fewest chunks the budget allows
-    assert plan.grid_x == -(-spec.k // min(spec.k, budget // (3 * k * (4 if quant else 8))))
-    assert plan.rows_per_block % hh.ROWS_PER_THREAD == 0
-    assert plan.grid_y * plan.rows_per_block >= 11_000_000 > (
-        (plan.grid_y - 1) * plan.rows_per_block)
-    for j in range(plan.grid_x):
-        first, last = plan.features[2 * j : 2 * j + 2]
-        c0, c1 = j * plan.chunk_rows, min((j + 1) * plan.chunk_rows, spec.k)
-        owners = {f for f, (o, w) in enumerate(zip(spec.offsets, spec.widths))
-                  if o < c1 and o + w > c0}
-        assert owners == set(range(first, last + 1))
-
-
 @pytest.mark.parametrize("per_feature", [None, WIDTHS])
 @pytest.mark.parametrize("k", [1, 8, 42])
 @pytest.mark.parametrize("quant", [True, False])
@@ -441,43 +301,6 @@ def test_bin_scatter_plan_refuses_what_it_cannot_take():
         hh.bin_scatter_plan(100, tu.make_u_spec(256, 3), 43, True, num_sms=132)
     with pytest.raises(ValueError, match="uint8"):
         hh.bin_scatter_plan(100, tu.make_u_spec(512, 3), 8, True, num_sms=132)
-
-
-# -- the packed-space kernels' arithmetic, mirrored in numpy ------------------
-
-MASK32 = (1 << 32) - 1
-MASK64 = (1 << 64) - 1
-
-
-def _plane_add(lo, hi, idx, v):
-    """``packed_hist.cuh``'s 64-bit shared add: the low half with one uint32
-    atomic, its carry out added with the high half by a second, and a half
-    that adds 0 skipped. ``lo`` and ``hi`` are the two planes."""
-    v &= MASK64
-    ql, qh = v & MASK32, v >> 32
-    if ql:
-        old = lo[idx]
-        lo[idx] = (old + ql) & MASK32
-        qh = (qh + (1 if old > MASK32 - ql else 0)) & MASK32  # old > ~ql
-    if qh:
-        hi[idx] = (hi[idx] + qh) & MASK32
-
-
-def _as_int64(v):
-    v &= MASK64
-    return v - (1 << 64) if v >> 63 else v
-
-
-def _largest_fixed_point(n):
-    """The largest ``round(x * 2**s)`` the U path's scales give N rows."""
-    x = torch.full((n,), 0.99609375, dtype=torch.bfloat16)  # just below a power of two
-    scale = tu.stat_scales(torch.stack([x, x, x]))[0].item()
-    return int(round(0.99609375 * scale))
-
-
-Q64 = _largest_fixed_point(11_000_000)
-EDGES64 = [1, -1, 2 ** 32 - 1, -(2 ** 32 - 1), 2 ** 32, -(2 ** 32), 2 ** 37, Q64, -Q64,
-           2 ** 62, -(2 ** 62)]
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -524,62 +347,6 @@ def test_plane_cells_flushed_with_64_bit_adds_give_the_exact_sum(blocks):
 def test_largest_fixed_point_value_of_the_u_path_sums_within_int64():
     assert 2 ** 36 < Q64 < 2 ** 38
     assert 11_000_000 * Q64 < 2 ** 62
-
-
-def _stack(bins_t, chunk, seed):
-    """(m, F, chunk) stack of the (F, N) bins, as ``prepare_chunked_bins``
-    lays it out, with random bins in the padded tail (rows at or past N),
-    which no version may read."""
-    f, n = bins_t.shape
-    m = -(-n // chunk)
-    x = torch.from_numpy(np.random.default_rng(seed).integers(0, 256, (f, m * chunk))
-                         .astype(np.uint8))
-    x[:, :n] = bins_t
-    return x.reshape(f, m, chunk).permute(1, 0, 2).contiguous()
-
-
-def _mirror_bin_scatter(stack, q, node, k, spec, plan, n, quant, seed):
-    """bin_scatter.cu in numpy: the plan's blocks, each walking its row
-    range in 4-row steps (in a shuffled order: threads run in any order),
-    finding each row's bytes in the stack (a step may cross a chunk's end),
-    adding into int32 cells or lo/hi planes, then the flush into the global
-    accumulator mod 2**64. ``q`` holds the (3, n) integers the kernel sums."""
-    m, f, chunk = stack.shape
-    flat = stack.reshape(-1).tolist()
-    width = 3 * k
-    out = [0] * (spec.k_pad * width)
-    rng = np.random.default_rng(seed)
-    for bx in range(plan.grid_x):
-        c0 = bx * plan.chunk_rows
-        nc = min(plan.chunk_rows, spec.k - c0)
-        first, last = plan.features[2 * bx : 2 * bx + 2]
-        for by in range(plan.grid_y):
-            r0 = by * plan.rows_per_block
-            assert r0 % hh.ROWS_PER_THREAD == 0
-            r1 = min(n, r0 + plan.rows_per_block)
-            lo, hi = [0] * (nc * width), [0] * (nc * width)
-            for i in rng.permutation(np.arange(r0, r1, 4)).tolist():
-                rows = range(i, min(i + 4, r1))
-                keys = [int(node[r]) if 0 <= node[r] < k else -1 for r in rows]
-                ci, col = divmod(i, chunk)
-                for ff in range(first, last + 1):
-                    for r, key in enumerate(keys):
-                        cr = (col + r) // chunk
-                        b = flat[((ci + cr) * f + ff) * chunk + col + r - cr * chunk]
-                        c = spec.offsets[ff] - c0 + b
-                        if key < 0 or b >= spec.widths[ff] or not 0 <= c < nc:
-                            continue
-                        for s in range(3):
-                            cell = c * width + s * k + key
-                            if quant:
-                                lo[cell] += q[s][i + r]
-                            else:
-                                _plane_add(lo, hi, cell, q[s][i + r])
-            for j in range(nc * width):
-                v = lo[j] if quant else lo[j] | (hi[j] << 32)
-                out[c0 * width + j] = (out[c0 * width + j] + v) & MASK64
-    acc = np.array([_as_int64(v) for v in out], dtype=np.int64).reshape(spec.k_pad, width)
-    return acc.astype(np.int32) if quant else acc
 
 
 @pytest.mark.parametrize("chunk", [None, 7, 512], ids=["flat", "chunk7", "chunk512"])
@@ -667,231 +434,6 @@ def test_chunked_pass_matches_jax_at_every_chunk_size(quant, chunk_budget):
         _assert_bf16_close(port.numpy(), ref)
 
 
-# -- fits -----------------------------------------------------------------------
-
-STRUCTURE = ("split_feature", "split_bin", "left_child", "right_child", "is_leaf")
-
-
-def _fit_case(seed=11, n=1400, f=8):
-    rng = np.random.default_rng(seed)
-    X = rng.normal(size=(n, f))
-    y = ((X[:, 0] + X[:, 1] * X[:, 2]) > 0).astype(np.float64)
-    return X, y
-
-
-FIT = dict(objective="binary", num_iterations=6, num_leaves=15, max_bin=63)
-
-
-def _fit_port(X, y, **kw):
-    bt, mt = tbinning.bin_dataset(X, max_bin=63)
-    return ttrain.train(bt, y, ttrain.TrainOptions(**{**FIT, **kw}), mapper=mt, device="cpu")
-
-
-def _fit_reference(X, y, **kw):
-    bj, mj = jbinning.bin_dataset(X, max_bin=63)
-    return jtrain.train(bj, y, jtrain.TrainOptions(**{**FIT, **kw}), mapper=mj).booster
-
-
-@pytest.mark.parametrize("subtraction", [True, False], ids=["sub", "nosub"])
-@pytest.mark.parametrize("leaf_batch", [1, 8])
-def test_quantized_fit_matches_jax(subtraction, leaf_batch):
-    X, y = _fit_case(seed=11 + leaf_batch)
-    kw = dict(histogram_method="u", use_quantized_grad=True, leaf_batch=leaf_batch,
-              histogram_subtraction=subtraction)
-    rt = _fit_port(X, y, **kw)
-    jb = _fit_reference(X, y, **kw)
-    tb = rt.booster
-    assert rt.stats.quantized and rt.stats.histogram_path == "u"
-    for field in STRUCTURE:
-        assert np.array_equal(getattr(tb, field), getattr(jb, field)), field
-    np.testing.assert_allclose(tb.leaf_values, jb.leaf_values, atol=1e-5)
-    np.testing.assert_allclose(tb.raw_margin(X, device="cpu"), jb.raw_margin(X), atol=1e-5)
-
-
-@pytest.mark.parametrize("subtraction", [True, False], ids=["sub", "nosub"])
-def test_bf16_u_fit_matches_jax_auc(subtraction):
-    X, y = _fit_case(seed=13, n=2000)
-    Xv, yv = _fit_case(seed=14, n=2000)
-    kw = dict(histogram_method="u", histogram_subtraction=subtraction)
-    rt = _fit_port(X, y, **kw)
-    jb = _fit_reference(X, y, **kw)
-    assert not rt.stats.quantized and rt.stats.histogram_path == "u"
-    a_port = auc(yv, rt.booster.raw_margin(Xv, device="cpu")[:, 0], np.ones(len(yv)))
-    a_ref = auc(yv, jb.raw_margin(Xv)[:, 0], np.ones(len(yv)))
-    assert abs(a_port - a_ref) <= 2e-5, (a_port, a_ref)
-
-
-@pytest.mark.parametrize("objective", ["binary", "regression"])
-def test_compare_built_fit_without_subtraction_matches_jax(objective):
-    """The grower's no-subtraction branch on the default path: both children
-    of every split keyed in one pass (``2*lane + went_right``, k <= 21)."""
-    # Small leaves make near-tied gains common at 31 leaves; this case has
-    # none within float32 noise, with or without subtraction.
-    X, y = _fit_case(seed=23, n=2000, f=6)
-    if objective == "regression":
-        y = X[:, 0] * 2 + X[:, 1] * X[:, 2]
-    kw = dict(objective=objective, num_iterations=5, num_leaves=31, max_bin=63,
-              leaf_batch=30, histogram_subtraction=False)
-    bt, mt = tbinning.bin_dataset(X, max_bin=63)
-    bj, mj = jbinning.bin_dataset(X, max_bin=63)
-    rt = ttrain.train(bt, y, ttrain.TrainOptions(**kw), mapper=mt, device="cpu")
-    jb = jtrain.train(bj, y, jtrain.TrainOptions(**kw), mapper=mj).booster
-    tb = rt.booster
-    for field in STRUCTURE:
-        assert np.array_equal(getattr(tb, field), getattr(jb, field)), field
-    np.testing.assert_allclose(tb.leaf_values, jb.leaf_values, atol=1e-5)
-
-
-def test_quantized_model_text_is_identical_across_subtraction_and_chunking(monkeypatch):
-    X, y = _fit_case(seed=17)
-    kw = dict(histogram_method="u", use_quantized_grad=True, num_iterations=8)
-    texts = {}
-    for name, sub, budget in (("resident", True, None), ("nosub", False, None),
-                              ("chunked", True, "120000"), ("chunked_nosub", False, "120000")):
-        if budget is None:
-            monkeypatch.delenv("MMLSPARK_TPU_U_BUDGET", raising=False)
-        else:
-            monkeypatch.setenv("MMLSPARK_TPU_U_BUDGET", budget)
-        r = _fit_port(X, y, histogram_subtraction=sub, **kw)
-        assert r.stats.histogram_path == ("u_chunked" if budget else "u")
-        assert r.stats.u_chunks == (3 if budget else 1)
-        texts[name] = r.booster.model_to_string()
-    assert len(set(texts.values())) == 1
-
-
-def test_subtraction_cache_gate_takes_the_no_subtraction_branch(monkeypatch):
-    X, y = _fit_case(seed=23)
-    kw = dict(histogram_method="u", use_quantized_grad=True)
-    off = _fit_port(X, y, histogram_subtraction=False, **kw)
-    monkeypatch.setattr(ttrain, "SUBTRACTION_CACHE_BYTES", 0)
-    gated = _fit_port(X, y, histogram_subtraction=True, **kw)
-    assert gated.booster.model_to_string() == off.booster.model_to_string()
-    assert gated.stats.passes == off.stats.passes
-
-
-def test_quantized_fits_repeat_and_follow_the_seed():
-    X, y = _fit_case(seed=29)
-    kw = dict(histogram_method="u", use_quantized_grad=True)
-    a, b = (_fit_port(X, y, **kw).booster.model_to_string() for _ in range(2))
-    assert a == b
-    assert _fit_port(X, y, seed=1, **kw).booster.model_to_string() != a
-    noise = ttrain.quant_noise(0, 3, 0, 1000, torch.device("cpu"))
-    assert noise.shape == (2, 1000) and noise.dtype == torch.float32
-    assert 0.0 <= float(noise.min()) and float(noise.max()) < 1.0
-    assert not torch.equal(noise, ttrain.quant_noise(0, 4, 0, 1000, torch.device("cpu")))
-    # the reference's draws: the g and h keys of the per-tree key
-    key = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(0 ^ 0x51AB51AB), 3), 1)[0]
-    np.testing.assert_array_equal(noise.numpy(), _jax_uniforms(key, 1000))
-
-
-def test_quantized_fit_falls_back_with_a_warning_when_u_is_inactive(caplog):
-    X, y = _fit_case(seed=31)
-    with caplog.at_level(logging.WARNING, logger="mmlspark_tpu_torch.lightgbm"):
-        r = _fit_port(X, y, use_quantized_grad=True)
-    assert any("use_quantized_grad" in m for m in caplog.messages)
-    assert not r.stats.quantized and r.stats.histogram_path == "compare"
-    exact = _fit_port(X, y)
-    assert r.booster.model_to_string() == exact.booster.model_to_string()
-
-
-def test_quantized_row_cap_falls_back_with_a_warning(caplog):
-    opts = ttrain.TrainOptions(histogram_method="u", use_quantized_grad=True)
-    with caplog.at_level(logging.WARNING, logger="mmlspark_tpu_torch.lightgbm"):
-        spec, quant = ttrain._histogram_path(opts, ttrain.QUANT_ROW_CAP + 1, 28, 256, None)
-    assert spec is not None and spec.chunk_rows and not quant
-    assert any("2^24" in m for m in caplog.messages)
-    assert ttrain._histogram_path(opts, ttrain.QUANT_ROW_CAP, 28, 256, None)[1]
-
-
-def test_estimator_with_quantized_grad_warns_and_trains_exact(caplog):
-    X, y = _fit_case(seed=37, n=900)
-    params = dict(numIterations=3, numLeaves=7, maxBin=31, device="cpu")
-    with caplog.at_level(logging.WARNING, logger="mmlspark_tpu_torch.lightgbm"):
-        quant = LightGBMClassifier(useQuantizedGrad=True, **params).fit(
-            Table({"features": X, "label": y}))
-    assert any("use_quantized_grad" in m for m in caplog.messages)
-    exact = LightGBMClassifier(**params).fit(Table({"features": X, "label": y}))
-    assert quant.get_model_string() == exact.get_model_string()
-    assert not quant.fit_stats.quantized
-
-
-# -- the out-of-memory ladder --------------------------------------------------
-
-
-def _device_ooms(*keys):
-    """A fault plan with a device OOM at each (iteration, retry) key."""
-    plan = FaultPlan()
-    for it, attempt in keys:
-        plan.oom_task(it, kind="device", attempt=attempt)
-    return plan
-
-
-def _fired(plan):
-    return [(it, attempt) for kind, it, attempt in plan.fired if kind == "oom_device"]
-
-
-def _oom_fit(X, y, fault=None, bundling=False, cats=None, **kw):
-    bt, mt = tbinning.bin_dataset(X, max_bin=63, feature_bundling=bundling,
-                                  categorical_features=cats)
-    opts = ttrain.TrainOptions(**{**FIT, "histogram_method": "u", **kw})
-    if fault is None:
-        return ttrain.train(bt, y, opts, mapper=mt, device="cpu")
-    with inject_faults(fault):
-        return ttrain.train(bt, y, opts, mapper=mt, device="cpu")
-
-
-@pytest.mark.parametrize("subtraction", [True, False], ids=["sub", "nosub"])
-@pytest.mark.parametrize("quant", [True, False], ids=["quant", "bf16"])
-def test_oom_ladder_degrades_to_identical_model_text(monkeypatch, quant, subtraction):
-    """An out-of-memory error at the first pass halves the U budget once,
-    re-plans chunked passes and retries the iteration: the model text is the
-    undisturbed fit's, byte for byte (the reference's
-    ``tests/test_pressure.py`` degraded-fit parity)."""
-    monkeypatch.delenv("MMLSPARK_TPU_U_BUDGET", raising=False)
-    X, y = _fit_case(seed=41)
-    kw = dict(use_quantized_grad=quant, histogram_subtraction=subtraction)
-    clean = _oom_fit(X, y, **kw)
-    fault = _device_ooms((0, 0))
-    hit = _oom_fit(X, y, fault, **kw)
-    assert _fired(fault) == [(0, 0)]
-    assert clean.stats.histogram_path == "u" and clean.stats.oom_retries == 0
-    assert hit.stats.histogram_path == "u_chunked" and hit.stats.oom_retries == 1
-    assert hit.stats.u_budget == clean.stats.u_budget // 2
-    assert hit.booster.model_to_string() == clean.booster.model_to_string()
-
-
-@pytest.mark.parametrize("data", ["categorical", "bundled"])
-def test_oom_ladder_on_categorical_and_bundled_fits(monkeypatch, data):
-    monkeypatch.delenv("MMLSPARK_TPU_U_BUDGET", raising=False)
-    X, y = _fit_case(seed=42)
-    kw = dict(use_quantized_grad=True)
-    if data == "categorical":
-        X[:, 0] = np.floor(np.abs(X[:, 0]) * 4)
-        kw["cats"] = [0]
-    else:
-        hot = np.random.default_rng(42).integers(0, 5, len(X))
-        X = np.hstack([X, np.eye(5)[hot]])
-        kw["bundling"] = True
-    clean = _oom_fit(X, y, **kw)
-    hit = _oom_fit(X, y, _device_ooms((0, 0)), **kw)
-    assert hit.stats.histogram_path == "u_chunked" and hit.stats.oom_retries == 1
-    assert hit.booster.model_to_string() == clean.booster.model_to_string()
-
-
-@pytest.mark.parametrize("keys,retries", [([(2, 0)], 1), ([(0, 0), (0, 1), (0, 2)], 3),
-                                          ([(1, 0), (3, 0)], 2)])
-def test_oom_ladder_walks_down_per_fault(monkeypatch, keys, retries):
-    """Faults at later iterations and repeated faults: one halving each."""
-    monkeypatch.delenv("MMLSPARK_TPU_U_BUDGET", raising=False)
-    X, y = _fit_case(seed=43)
-    clean = _oom_fit(X, y, use_quantized_grad=True)
-    fault = _device_ooms(*keys)
-    hit = _oom_fit(X, y, fault, use_quantized_grad=True)
-    assert _fired(fault) == keys and hit.stats.oom_retries == retries
-    assert hit.stats.u_budget == clean.stats.u_budget >> retries
-    assert hit.booster.model_to_string() == clean.booster.model_to_string()
-
-
 def test_oom_off_the_u_path_is_raised():
     X, y = _fit_case(seed=44)
     with pytest.raises(DeviceOomError):
@@ -947,27 +489,6 @@ def test_kernels_match_plain_versions_on_card(quant, k):
     torch.testing.assert_close(scattered, hh.bin_scatter_plain(bins_t, stats, node, k, spec,
                                                                scale), rtol=0, atol=0)
     torch.testing.assert_close(scattered, out, rtol=0, atol=0)
-
-
-def _card_case(n, k, quant, skew, seed):
-    """Bins, stats, keys and scale on the card at HIGGS width: keys in
-    [0, k] (key k out of range), skewed bins with three values on 9 of the
-    28 features."""
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(seed)
-    bins = rng.integers(0, 256, size=(28, n)).astype(np.uint8)
-    if skew:
-        bins[:9] = rng.integers(0, 3, size=(9, n))
-    g, h, c = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in
-               (rng.normal(size=n), rng.uniform(0.01, 0.25, size=n), np.ones(n)))
-    node = torch.from_numpy(rng.integers(0, k + 1, size=n).astype(np.int32)).to(dev)
-    if quant:
-        stats, _ = tu.stat_rows_quant(g, h, c, torch.rand((2, n), device=dev))
-        scale = None
-    else:
-        stats = tu.stat_rows(g, h, c)
-        scale = tu.stat_scales(stats)
-    return torch.from_numpy(bins).to(dev), stats, node, scale
 
 
 @pytest.mark.cuda
