@@ -266,7 +266,9 @@ non-zero and prints no result):
    recovered iterations, the undisturbed text byte for byte, one
    ProcessLost and one GroupReformed in its event log (under
    smoke_data/). Then a 2-process fit of the first 25,000 rows (cut from
-   200,000, 100,000, 50,000) on the card and on the CPU port: equal text.
+   200,000, 100,000, 50,000) on the card and on the CPU port: equal text;
+   these gangs' members run under the lock witness (MMLSPARK_TPU_LOCKCHECK
+   in their environment only), for phase 37.
 28. Many models (lightgbm.train.train_many, mmlspark_tpu_torch.sweep and
    automl), after the compute-mode check of phase 27. (a) train_many on
    the bins of phase 5's first 500,000 rows (cut from 11,000,000, then
@@ -319,7 +321,8 @@ non-zero and prints no result):
    fault check that reports no rate. (d) A
    RegistrationService (TTL 2 s), a ReplicaSupervisor of 2 replica
    processes on the card (chip_smoke:serving_replica_factory loads the
-   committed text) and a least-loaded FleetRouter; 8 clients of 500
+   committed text; the replicas run under the lock witness, for phase
+   37) and a least-loaded FleetRouter; 8 clients of 500
    requests with replica 0 SIGKILLed after 400 replies: no 5xx but a
    shed 503/429, every 200 at the model's value, the loss booked, the
    replica respawned and re-registered, the dead lease expired; the
@@ -490,11 +493,11 @@ non-zero and prints no result):
    reference's one default_rng(seed) draw a row); read_images (whether PIL
    imports is printed; the files are random bytes, so none decodes): 0 rows
    with drop_invalid, a None row each without. (c) The script's own
-   loopback service in a process of its own: 10,000 rows through
+   loopback service in a process of its own: 4,000 rows through
    TextSentiment(typed=True, concurrency=8) (each score the service's),
    100 rows through RecognizeText on the 202 + Operation-Location path
    (each result its row's), AddDocuments in batches of 100, and
-   PowerBIWriter(batchSize=100) of the 10,000 scored rows (every row once,
+   PowerBIWriter(batchSize=100) of the 4,000 scored rows (every row once,
    in order, the body row_as_json_dict gives); rows/s of each. (d) Ring and
    a2a attention at Llama-2-7B's attention width (32 heads x 128), B = 1, S
    = 16,384, float32 with TF32 off, on a 4-slot logical mesh of the card
@@ -508,7 +511,20 @@ non-zero and prints no result):
    optax or onnx needed at import; no jax), the stage count is printed, and
    the committed docs/api_torch/ and tools/R/mmlsparktputorch/ match the
    code.
-37. One JSON line with every kernel (the grouped wide-level launches and
+37. The analysis tools (mmlspark_tpu_torch.analysis), on the host; no
+   torch, and no hand kernel runs (the histogram kernels' counts stay 0).
+   (a) graftlint over the port's whole tree under its full rule set: the
+   SARIF document written to smoke_data/graftlint.sarif and parsed back,
+   the stale-suppression audit; the files, rules, violations, suppressed
+   findings and wall seconds. Any violation, stale suppression or parse
+   error fails the phase. (b) The lock witness's dumps (one a process, at
+   its exit) of phase 27's gang members and phase 29 (d)'s replicas: at
+   least one from each, each with at least one witnessed site, every site
+   a LockDef site of the static lock graph (lock_sites() of the tree), and
+   no lock-witness finding from check_witness against that graph; the
+   dumps, sites and edges. runtime/procgroup.py's scrub_env must keep both
+   MMLSPARK_TPU_LOCKCHECK variables.
+38. One JSON line with every kernel (the grouped wide-level launches and
    phases 22, 23, 24, 25, 27, 28, 30, 32 and 34's cases among them), then
    the card line, then the result line. Each phase prints its wall time;
    TF32 matmuls must be off.
@@ -522,8 +538,10 @@ phase 27's card-against-CPU fits 200,000 -> 100,000 -> 50,000 -> 25,000 rows; ph
 1M -> 500,000, tuner 1M -> 125,000; phase 29 (a) 16 x 1,000 -> 16 x 500
 requests; phase 30's stream 8 chunks of 1,000,000 -> 500,000 -> 250,000
 rows; phase 32's card-against-CPU fit and reloaded rows 100,000 -> 30,000
--> 15,000; the plan sweeps 5 -> 3 launches. Phase 36 (about 40 s) is paid
-for by the last cut of each of phases 11, 27, 28, 30 and 32.
+-> 15,000; the plan sweeps 5 -> 3 launches; phase 36 (c)'s service rows
+10,000 -> 4,000. Phase 36 (about 40 s) is paid for by the last cut of each
+of phases 11, 27, 28, 30 and 32, and phase 37 (about 10 s) by the cut of
+phase 36 (c).
 """
 
 import collections
@@ -2628,6 +2646,17 @@ OOC_SHARD_ROWS = 2_000_000
 OOC_CORRUPT_SHARDS = 4  # the copy the read modes run on; its shard 1 is truncated
 OOC_BYTES_PER_ROW = N_FEATURES * 4 + 8 + N_FEATURES  # npz float32 X, float64 y; uint8 bins
 DATA_DIR = os.path.join(ROOT, "smoke_data")  # git-ignored; removed when phase 24 ends
+# the lock witness's dumps of phase 27's gang members and phase 29 (d)'s
+# replicas, one subdirectory each, read by phase 37
+WITNESS_DIR = os.path.join(DATA_DIR, "lockwitness")
+
+
+def _witness_env(env, part):
+    """``env`` with the runtime lock witness on (``MMLSPARK_TPU_LOCKCHECK``),
+    dumping into ``WITNESS_DIR/part`` at exit: given to child processes
+    only, so this process and serving's numbers stay unwitnessed."""
+    return dict(env, MMLSPARK_TPU_LOCKCHECK="1",
+                MMLSPARK_TPU_LOCKCHECK_OUT=os.path.join(WITNESS_DIR, part))
 
 
 _RSS_POLL = """
@@ -4052,7 +4081,8 @@ def _gang_fits(torch, base, train, procfit, runtime, events, Table, LightGBMClas
         res = procfit.fit_process_group(
             None, y[:N_DIST_CPU], opts, num_processes=DIST_PROCS, bins=bins[:N_DIST_CPU],
             mapper=mapper, feature_names=[f"f{i}" for i in range(N_FEATURES)], device=dev,
-            workdir=os.path.join(work, f"gang_{dev}"))
+            workdir=os.path.join(work, f"gang_{dev}"),
+            group_options={"env": _witness_env(os.environ, "gang")})
         secs.append(time.perf_counter() - t0)
         texts.append(res.model_text)
     if texts[0] != texts[1]:
@@ -4719,7 +4749,8 @@ class _Fleet:
     def __init__(self, serving, root, device, work):
         self.reg_svc = serving.RegistrationService(ttl_s=FLEET_TTL_S).start()
         self.wd = os.path.join(work, "replicas")
-        env = dict(os.environ, SMOKE_SERVING_ROOT=root, SMOKE_SERVING_DEVICE=device)
+        env = _witness_env(dict(os.environ, SMOKE_SERVING_ROOT=root,
+                                SMOKE_SERVING_DEVICE=device), "replicas")
         self.sup = serving.ReplicaSupervisor(
             "chip_smoke:serving_replica_factory", num_replicas=2, workdir=self.wd, env=env,
             seed=29, ready_timeout_s=120.0, registry_url=self.reg_svc.info.url,
@@ -6596,7 +6627,7 @@ N_INGEST_MEMBERS = 500  # members of one zip beside them
 INGEST_MEMBER_BYTES = 16 << 10
 INGEST_SAMPLE = (0.5, 7)  # sample_ratio, seed
 N_HASH_INTS = 10_000_000
-N_COGNITIVE = 10_000  # TextSentiment rows, then the Power BI upload and AddDocuments
+N_COGNITIVE = 4_000  # TextSentiment rows, then Power BI and AddDocuments (cut from 10,000)
 COGNITIVE_CONCURRENCY = 8
 N_RECOGNIZE = 100  # RecognizeText rows on the 202 + Operation-Location path
 RECOGNIZE_POLLS = 2  # polls until an operation reports Succeeded
@@ -7023,6 +7054,100 @@ def phase_ingest_services(torch, uh, hh, Table, higgs, card):
     return rec
 
 
+# phase 37: the analysis tools on the card's machine
+
+
+def _analysis_lint(rec):
+    """(a) The port's whole tree under its full rule set: the SARIF document
+    written under smoke_data/ and parsed back, and the stale-suppression
+    audit. Returns the parsed files (the static lock graph's source)."""
+    from mmlspark_tpu_torch.analysis import lint as graftlint
+    from mmlspark_tpu_torch.analysis.sarif import to_sarif
+
+    t0 = time.perf_counter()
+    contexts, errors = graftlint._load_contexts(
+        graftlint.discover_files([os.path.join(ROOT, "mmlspark_tpu_torch")]))
+    violations, suppressed = graftlint._run_rules(contexts)
+    stale = graftlint.stale_suppressions(contexts, suppressed)
+    path = os.path.join(DATA_DIR, "graftlint.sarif")
+    os.makedirs(DATA_DIR, exist_ok=True)
+    with open(path, "w", encoding="utf-8") as fh:
+        json.dump(to_sarif(violations), fh, indent=2, sort_keys=True)
+    with open(path, "r", encoding="utf-8") as fh:
+        doc = json.load(fh)
+    run = doc["runs"][0]
+    out = dict(files=len(contexts), rules=len(graftlint.all_rules()),
+               violations=len(violations), suppressed=len(suppressed),
+               stale_suppressions=len(stale), parse_errors=len(errors),
+               sarif_results=len(run["results"]), sarif_bytes=os.path.getsize(path),
+               s=time.perf_counter() - t0)
+    rec["lint"] = out
+    print("analysis lint: " + json.dumps(out), flush=True)
+    if violations or stale or errors:
+        raise AssertionError("analysis: the port's tree does not lint clean: " + "; ".join(
+            [v.render() for v in violations] + stale + errors))
+    if (doc["version"] != "2.1.0" or run["tool"]["driver"]["name"] != "graftlint"
+            or run["results"]):
+        raise AssertionError(f"analysis: the SARIF document does not read back: {out}")
+    return contexts
+
+
+def _analysis_witness(contexts, rec):
+    """(b) The lock witness's dumps of phase 27's gang members and phase
+    29 (d)'s replicas against the static lock graph of ``contexts``."""
+    from mmlspark_tpu_torch.analysis.lockgraph import concurrency_index
+    from mmlspark_tpu_torch.analysis.witness import check_witness, load_reports
+    from mmlspark_tpu_torch.runtime.procgroup import scrub_env
+
+    t0 = time.perf_counter()
+    want = _witness_env({}, "check")
+    kept = scrub_env(want)
+    if any(kept.get(k) != v for k, v in want.items()):
+        raise AssertionError("scrub_env drops the lock witness's variables")
+    static = {f"{path}:{line}" for path, line in concurrency_index(contexts[0]).lock_sites()}
+    out, reports = {}, []
+    for part, phase in (("gang", "27"), ("replicas", "29 (d)")):
+        folder = os.path.join(WITNESS_DIR, part)
+        got = load_reports([folder]) if os.path.isdir(folder) else []
+        if not got:
+            raise AssertionError(f"witness: no dump from phase {phase}'s {part}")
+        sites, edges = set(), set()
+        for report in got:
+            if not report["sites"]:
+                raise AssertionError(f"witness: a dump of phase {phase} has no witnessed site")
+            unknown = sorted(set(report["sites"]) - static)
+            if unknown:
+                raise AssertionError(f"witness: phase {phase}'s sites {unknown} are no lock "
+                                     "site of the static graph")
+            sites |= set(report["sites"])
+            edges |= {(e["from"], e["to"]) for e in report["edges"]}
+        out[part] = dict(dumps=len(got), sites=len(sites), edges=len(edges),
+                         acquisitions_ordered=sum(e["count"] for r in got for e in r["edges"]))
+        reports += got
+    found = check_witness(reports, contexts)
+    out.update(static_sites=len(static), lock_witness_findings=len(found),
+               s=time.perf_counter() - t0)
+    rec["witness"] = out
+    print("analysis witness: " + json.dumps(out), flush=True)
+    if found:
+        raise AssertionError("witness: " + "; ".join(v.render() for v in found))
+
+
+def phase_analysis(uh, hh, card):
+    """Phase 37 (see the module docstring): graftlint over the port's tree
+    and the lock witness's dumps against its static lock graph. Imports
+    nothing of torch and launches no kernel: the histogram kernels' counts
+    must stay 0."""
+    rec = {"card": card}
+    _zero_counts(uh, hh)
+    contexts = _analysis_lint(rec)
+    _analysis_witness(contexts, rec)
+    counts = _counts(uh, hh)
+    if any(counts.values()):
+        raise AssertionError(f"phase 37 launched a hand kernel: {counts}")
+    return rec
+
+
 def main():
     import torch
 
@@ -7166,6 +7291,7 @@ def main():
                       train, base, Table, LightGBMRegressor, card)
         timed("deep_models", phase_deep_models, torch, uh, hh, Table, card)
         timed("ingest_services", phase_ingest_services, torch, uh, hh, Table, higgs, card)
+        timed("analysis", phase_analysis, uh, hh, card)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
     del higgs

@@ -259,11 +259,6 @@ _ROOT_LOCKS: Dict[str, threading.Lock] = {}
 _ROOT_LOCKS_GUARD = threading.Lock()
 
 
-def _root_lock(root: str) -> threading.Lock:
-    with _ROOT_LOCKS_GUARD:
-        return _ROOT_LOCKS.setdefault(os.path.realpath(root), threading.Lock())
-
-
 class ModelStore:
     """Atomic, versioned model commits under a durable directory.
 
@@ -278,7 +273,15 @@ class ModelStore:
     def __init__(self, root: str):
         self.root = root
         os.makedirs(root, exist_ok=True)
-        self._lock = _root_lock(root)
+        key = os.path.realpath(root)
+        with _ROOT_LOCKS_GUARD:
+            if key in _ROOT_LOCKS:
+                self._lock = _ROOT_LOCKS[key]
+            else:
+                # allocated here, as ModelStore._lock: the static lock graph
+                # and the lock witness then name the same site
+                self._lock = threading.Lock()
+                _ROOT_LOCKS[key] = self._lock
 
     def _current_path(self, name: str) -> str:
         return os.path.join(self.root, f"{name}.CURRENT")
